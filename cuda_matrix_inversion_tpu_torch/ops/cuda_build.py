@@ -1,0 +1,142 @@
+"""Build the hand-written Hopper kernels and bind them through ctypes.
+
+``csrc/*.cu`` hold plain C entry points.  At first use they are compiled
+with ``nvcc`` for ``sm_90a`` into one shared library under
+``build/torch_kernels/`` at the root of the checkout, and loaded with
+``ctypes``.  The file name carries a hash of the sources and flags, so an
+edited source builds anew and an unchanged one is loaded from the cache.
+Nothing here runs at import time: the CPU test suite imports every module
+on hosts that have no ``nvcc``.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0, because a refused launch (too
+much shared memory, too many threads) never runs and a later
+``torch.cuda.synchronize()`` does not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# Largest matrix dimension the shared-memory-resident kernels take: K1
+# keeps A, X and T (3·n² fp32) in one block's shared memory, 198 KB at
+# n = 128 against the 227 KB a block may opt into.
+MAX_N = 128
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the entry points (all return cudaError_t as int).
+_SIGNATURES = {
+    # a, x, batch, n, init_spd, lo, hi, split3, polish_highest,
+    # two_c (host float*), c_sq (host float*), device, stream
+    "cmi_ns_inverse": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP, _I,
+                       _VP],
+    # a, inv, ipiv, batch, n, device, stream
+    "cmi_lu_inverse": [_VP, _VP, _VP, _I, _I, _I, _VP],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under ``CUDA_HOME`` or
+    ``/usr/local/cuda``.  Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels of "
+        "cuda_matrix_inversion_tpu_torch are built from csrc/*.cu at first "
+        "use and need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libcmi_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the cached shared library (no-op when
+    the library for these sources exists).  Returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_kernel_input(a: torch.Tensor, what: str) -> None:
+    """Shape check shared by the kernels' wrappers: a ``(batch, n, n)``
+    batch with 1 ≤ n ≤ :data:`MAX_N`.  Larger n is rejected, never
+    rerouted: lifting the ceiling is kernel work, not a silent detour."""
+    if a.ndim != 3 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"{what}: expected (batch, n, n), got {tuple(a.shape)}")
+    n = a.shape[-1]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(
+            f"{what}: n = {n} is outside the kernel's range 1..{MAX_N} "
+            f"(the matrix must fit one thread block's shared memory)")
+
+
+def launch_args(a: torch.Tensor) -> tuple[int, int]:
+    """(device index, raw stream handle) for launching on ``a``'s device
+    on PyTorch's current stream."""
+    dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(dev).cuda_stream

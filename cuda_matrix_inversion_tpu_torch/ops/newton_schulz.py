@@ -1,0 +1,296 @@
+"""Newton-Schulz batched inversion: kernel K1 and the adaptive loop.
+
+Counterpart of ``cuda_matrix_inversion_tpu/ops/newton_schulz.py``.  The
+iteration X ← X(2I − AX) is pure batched matrix products and converges
+quadratically once ‖I − AX‖ < 1.
+
+* :func:`inverse_newton_schulz_fixed` — the fixed-schedule speed path
+  (lanes ``newton_schulz{,_spd,_spd10,_pan500}_pallas``), counterpart of
+  ``inverse_newton_schulz_pallas``.  On a CUDA tensor it runs the
+  hand-written kernel ``csrc/newton_schulz.cu`` (K1); on a CPU tensor its
+  plain PyTorch version :func:`ns_iterate_plain`.
+* :func:`inverse_newton_schulz` — the adaptive, residual-monitored loop
+  (lanes ``newton_schulz``, ``newton_schulz_spd``), plain PyTorch.
+
+The schedule constants and :func:`scaled_round_coeffs` are copies of the
+JAX package's (the port cannot import it where JAX is missing); the CPU
+tests pin them bit for bit.  Products that the TPU ran at
+``Precision.DEFAULT`` (one bf16 pass) round both operands to bf16 and
+accumulate in fp32; ``HIGHEST`` is full fp32.  Never TF32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import warnings
+
+import torch
+
+from cuda_matrix_inversion_tpu_torch.ops import cuda_build
+from cuda_matrix_inversion_tpu_torch.ops.linalg import inverse_lu, matmul
+
+# Default (lo_iters, hi_iters) schedules, calibrated on the TPU to hold the
+# 1e-4 gate to kappa <= 30 (spd, pan) and kappa <= 500 (split3).
+SPD_SCHEDULE = (6, 2)
+PAN_SCHEDULE = (12, 2)
+PAN500_SCHEDULE = (14, 2)
+MU_MIN_PAN500 = 3e-8
+# split3 round noise is ~2⁻¹⁷; this floor keeps the squashed bottom edge
+# 100× above it.
+SPLIT3_NOISE_FLOOR = 2e-4
+# Assumed lower edge of spec(A·X_start): spd µ ≥ ~2λmin/‖A‖∞,
+# pan µ = σ²/(‖A‖₁‖A‖∞).
+MU_MIN_SPD = 0.01
+MU_MIN_PAN = 2e-5
+# Per-round scalars K1 takes as kernel parameters (kMaxRounds in the source).
+MAX_LO_ROUNDS = 32
+
+
+def scaled_round_coeffs(mu_min: float, rounds: int,
+                        noise_floor: float = 5e-3):
+    """Per-round recentering scalars for scaled Newton-Schulz.
+
+    Each round maps the tracked interval [t, 1] ⊇ spec(AX) through
+    c = 2/(1 + max(t, noise_floor)); the clamp keeps eigenvalues at the
+    top of the interval from being squashed below the bf16 round noise,
+    which made near-identity inputs diverge.  Deterministic in
+    ``mu_min``, so the sequence is a constant of the lane.
+    """
+    t = mu_min  # tracked true lower edge
+    cs = []
+    for _ in range(rounds):
+        c = 2.0 / (1.0 + max(t, noise_floor))
+        cs.append(c)
+        t = min(1.0, c * t * (2.0 - c * t))
+    return tuple(cs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A resolved fixed schedule: everything K1 needs besides A."""
+
+    init: str             # "spd" or "pan"
+    split3: bool          # every product as the 3-pass bf16 split
+    lo_iters: int
+    hi_iters: int
+    polish_highest: bool  # last polish residual in fp32 (bf16 lanes)
+    coeffs: tuple         # scaled_round_coeffs, one per lo round
+
+
+def resolve_schedule(lo_iters: int | None = None, hi_iters: int | None = None,
+                     init: str = "pan", polish_highest: bool = True,
+                     mu_min: float | None = None,
+                     precision: str = "bf16") -> Schedule:
+    """Validate a lane's keyword arguments and fill in its defaults, as
+    ``inverse_newton_schulz_pallas`` does."""
+    if init not in ("pan", "spd"):
+        raise ValueError(f"init must be 'pan' or 'spd', got {init!r}")
+    if precision not in ("bf16", "split3"):
+        raise ValueError(
+            f"precision must be 'bf16' or 'split3', got {precision!r}")
+    split3 = precision == "split3"
+    if split3 and not polish_highest:
+        raise ValueError("polish_highest=False is not supported with "
+                         "precision='split3'")
+    if split3 and init != "pan":
+        raise ValueError("precision='split3' supports init='pan' only")
+    schedule = (PAN500_SCHEDULE if split3
+                else SPD_SCHEDULE if init == "spd" else PAN_SCHEDULE)
+    lo = schedule[0] if lo_iters is None else int(lo_iters)
+    hi = schedule[1] if hi_iters is None else int(hi_iters)
+    if mu_min is None:
+        mu_min = (MU_MIN_PAN500 if split3
+                  else MU_MIN_SPD if init == "spd" else MU_MIN_PAN)
+    noise_floor = SPLIT3_NOISE_FLOOR if split3 else 5e-3
+    return Schedule(init=init, split3=split3, lo_iters=lo, hi_iters=hi,
+                    polish_highest=bool(polish_highest),
+                    coeffs=scaled_round_coeffs(float(mu_min), lo,
+                                               noise_floor=noise_floor))
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to bf16 (nearest even) and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _mm_bf16(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """One-pass product: bf16 operands, fp32 accumulation."""
+    return matmul(_bf16(x), _bf16(y))
+
+
+def _mm_split3(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """3-pass bf16 error split hi(x)hi(y) + lo(x)hi(y) + hi(x)lo(y)."""
+    xh, yh = _bf16(x), _bf16(y)
+    return (matmul(xh, yh) + matmul(_bf16(x - xh), yh)
+            + matmul(xh, _bf16(y - yh)))
+
+
+def _seed(a: torch.Tensor, init: str) -> torch.Tensor:
+    """spd: X₁ = 2sI − s²A, s = 1/‖A‖∞; pan: X₀ = Aᵀ/(‖A‖₁‖A‖∞)."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    r_inf = a.abs().sum(dim=2).amax(dim=1)
+    if init == "spd":
+        s = (1.0 / r_inf)[:, None, None]
+        return (2.0 * s) * eye - (s * s) * a
+    c_1 = a.abs().sum(dim=1).amax(dim=1)
+    return a.transpose(1, 2) * (1.0 / (r_inf * c_1))[:, None, None]
+
+
+def ns_iterate_plain(a: torch.Tensor, sched: Schedule,
+                     bf16_products: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K1 on an fp32 ``(batch, n, n)`` tensor.
+
+    ``bf16_products=True`` is the kernel's (compiled-TPU) arithmetic:
+    one-pass products on bf16-rounded operands, the 3-pass split where the
+    TPU kernel used it.  ``False`` is what the JAX reference computes in
+    interpret mode on the CPU (``mid_split=False``): every product full
+    fp32, and every polish round counts as final.
+    """
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    if bf16_products:
+        one, dot3 = _mm_bf16, _mm_split3
+    else:
+        one = dot3 = matmul
+    contract = dot3 if sched.split3 else one
+    x = _seed(a, sched.init)
+    for c in sched.coeffs:
+        t = (2.0 * c) * eye - (c * c) * contract(a, x)
+        x = contract(x, t)
+    for i in range(sched.hi_iters):
+        if sched.split3:
+            x = x + dot3(x, eye - matmul(a, x))
+            continue
+        final = ((i == sched.hi_iters - 1) and sched.polish_highest
+                 ) or not bf16_products
+        r = eye - (matmul(a, x) if final else dot3(a, x))
+        x = x + one(x, r)
+    return x
+
+
+def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """Launch K1 (``csrc/newton_schulz.cu``) on a CUDA fp32 batch.
+
+    ``ns_iterate_cuda.launches`` counts the launches."""
+    cuda_build.check_kernel_input(a, "newton_schulz kernel")
+    if a.device.type != "cuda" or a.dtype != torch.float32:
+        raise ValueError(f"newton_schulz kernel: needs a float32 CUDA "
+                         f"tensor, got {a.dtype} on {a.device}")
+    lo = sched.lo_iters
+    if lo > MAX_LO_ROUNDS:
+        raise ValueError(f"newton_schulz kernel: lo_iters = {lo} exceeds "
+                         f"the kernel's {MAX_LO_ROUNDS} rounds")
+    a = a.contiguous()
+    x = torch.empty_like(a)
+    two_c = (ctypes.c_float * max(lo, 1))(*[2.0 * c for c in sched.coeffs])
+    c_sq = (ctypes.c_float * max(lo, 1))(*[c * c for c in sched.coeffs])
+    device, stream = cuda_build.launch_args(a)
+    err = cuda_build.library().cmi_ns_inverse(
+        a.data_ptr(), x.data_ptr(), a.shape[0], a.shape[-1],
+        int(sched.init == "spd"), lo, sched.hi_iters, int(sched.split3),
+        int(sched.polish_highest), ctypes.cast(two_c, ctypes.c_void_p),
+        ctypes.cast(c_sq, ctypes.c_void_p), device, stream)
+    cuda_build.check(err, "newton_schulz kernel")
+    ns_iterate_cuda.launches += 1
+    return x
+
+
+ns_iterate_cuda.launches = 0
+
+
+def ns_iterate(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain version (bf16 products) on a CPU
+    tensor; any other device raises."""
+    if a.device.type == "cuda":
+        return ns_iterate_cuda(a, sched)
+    if a.device.type == "cpu":
+        return ns_iterate_plain(a, sched, bf16_products=True)
+    raise ValueError(f"newton_schulz: unsupported device {a.device}")
+
+
+def inverse_newton_schulz_fixed(
+    a: torch.Tensor,
+    lo_iters: int | None = None,
+    hi_iters: int | None = None,
+    init: str = "pan",
+    polish_highest: bool = True,
+    mu_min: float | None = None,
+    precision: str = "bf16",
+) -> torch.Tensor:
+    """Fixed-schedule scaled Newton-Schulz inverse, one K1 launch.
+
+    Counterpart of the JAX package's
+    ``ops.newton_schulz.inverse_newton_schulz_pallas``, with the same
+    keyword arguments and domains: ``init="pan"`` any nonsingular A with
+    κ ≲ 30; ``init="spd"`` SPD A (caller-asserted) with κ ≲ 30;
+    ``precision="split3"`` (pan only) any nonsingular A with κ ≲ 500.
+    float64 input goes to the adaptive :func:`inverse_newton_schulz`
+    (which takes the LU route), with a warning for split3.  n > 128 raises
+    ``ValueError``: the kernel holds a matrix in one block's shared memory.
+    """
+    sched = resolve_schedule(lo_iters, hi_iters, init, polish_highest,
+                             mu_min, precision)
+    if a.dtype == torch.float64:
+        if sched.split3:
+            warnings.warn(
+                "precision='split3' with float64 input: serving via the "
+                "adaptive f64 Newton-Schulz path (f64 arithmetic already "
+                "exceeds the split-precision floor)", stacklevel=2)
+        return inverse_newton_schulz(a, init=init)
+    cuda_build.check_kernel_input(a, "newton_schulz kernel")
+    return ns_iterate(a.to(torch.float32), sched).to(a.dtype)
+
+
+def _residual_inf(eye: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:
+    """‖I − AX‖∞, max over the batch (a 0-dim fp32 tensor)."""
+    return (eye - ax).abs().sum(dim=-1).amax()
+
+
+def inverse_newton_schulz(
+    a: torch.Tensor,
+    max_iters: int = 48,
+    polish_iters: int = 1,
+    tol: float = 1e-2,
+    init: str = "pan",
+) -> torch.Tensor:
+    """Batched inverse by adaptive Newton-Schulz (plain PyTorch, no kernel).
+
+    Counterpart of ``ops.newton_schulz.inverse_newton_schulz``: a bf16
+    contraction phase while the batch residual strictly improves and
+    exceeds ``tol``, a restart from the seed if it failed to get below 1,
+    an fp32 phase to the fp32 floor, then ``polish_iters`` fp32 steps.
+    ``init="pan"`` takes any nonsingular A, ``"spd"`` SPD A only.
+    Singular input gives non-finite entries.  float64 goes to the LU route.
+    """
+    if init not in ("pan", "spd"):
+        raise ValueError(f"init must be 'pan' or 'spd', got {init!r}")
+    if a.dtype == torch.float64:
+        return inverse_lu(a)
+    orig_dtype = a.dtype
+    a = a.to(torch.float32)
+    eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
+    x0 = _seed(a, init)
+
+    def phase(x, mm, tol_phase, iters_left):
+        """Iterate while the residual strictly improves (once below 1),
+        exceeds ``tol_phase`` and stays under the divergence cap.  A NaN
+        residual fails every comparison and ends the loop."""
+        ax = mm(a, x)
+        res = _residual_inf(eye, ax)
+        prev = torch.tensor(float("inf"))
+        i = 0
+        while (i < iters_left and bool(res > tol_phase) and bool(res < 1e4)
+               and (bool(res < prev) or bool(res >= 1.0))):
+            x = mm(x, 2.0 * eye - ax)
+            ax = mm(a, x)
+            prev, res = res, _residual_inf(eye, ax)
+            i += 1
+        return x, res
+
+    x, res = phase(x0, _mm_bf16, tol, max_iters)
+    if not bool(res < 1.0):
+        x = x0  # bf16 did not contract: restart the fp32 phase from the seed
+    x, _ = phase(x, matmul, 0.0, max_iters)
+    for _ in range(polish_iters):
+        x = matmul(x, 2.0 * eye - matmul(a, x))
+    return x.to(orig_dtype)

@@ -1,0 +1,93 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions.
+
+These tests need an NVIDIA GPU with ``nvcc`` (the kernels are built for
+``sm_90a``) and skip elsewhere.  The machine with the card has no JAX, and
+``tests/conftest.py`` imports it, so run them there with::
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
+from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+    make_spd_batch,
+    make_square_batch,
+)
+from cuda_matrix_inversion_tpu_torch.ops import cuda_lu, newton_schulz
+from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
+
+pytestmark = pytest.mark.gpu
+
+# kernel vs plain version, max-norm relative: both iterate with bf16
+# products and differ only in summation order; each lands within its
+# residual (~2e-5 at the κ edge) of A⁻¹
+K1_RTOL = 2e-4
+# K2 repeats the plain version's operations in the same order
+K2_RTOL = 1e-5
+
+_K1_LANES = ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
+             "newton_schulz_pallas", "newton_schulz_pan500_pallas")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (hand-written sm_90a kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return np.abs(x - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("lane", _K1_LANES)
+@pytest.mark.parametrize("n", [8, 20, 64, 128])
+def test_k1_matches_plain(cuda, lane, n):
+    rng = np.random.default_rng(n)
+    a = make_spd_batch(7, n, rng).astype(np.float32)
+    sched = LANES[lane]["schedule"]
+    at = torch.tensor(a, device=cuda)
+    before = newton_schulz.ns_iterate_cuda.launches
+    x = newton_schulz.ns_iterate_cuda(at, sched)
+    torch.cuda.synchronize()
+    assert newton_schulz.ns_iterate_cuda.launches == before + 1
+    ref = newton_schulz.ns_iterate_plain(at, sched, bf16_products=True)
+    assert _rel(x.cpu(), ref.cpu()) <= K1_RTOL
+    assert identity_error_inf(a, x.cpu().numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["general", "permuted", "singular"])
+@pytest.mark.parametrize("n", [8, 20, 64, 128])
+def test_k2_matches_plain(cuda, kind, n):
+    rng = np.random.default_rng(100 + n)
+    a = make_square_batch(7, n, rng).astype(np.float32)
+    if kind == "permuted":
+        a = a + n * np.eye(n, dtype=np.float32)[rng.permutation(n)]
+    if kind == "singular":
+        a[3] = 1.0
+    at = torch.tensor(a, device=cuda)
+    x, piv = cuda_lu.lu_inverse_cuda(at)
+    torch.cuda.synchronize()
+    ref, ref_piv = cuda_lu.lu_inverse_plain(at)
+    x, ref = x.cpu().numpy(), ref.cpu().numpy()
+    finite = np.isfinite(ref).all(axis=(1, 2))
+    assert (np.isfinite(x).all(axis=(1, 2)) == finite).all()
+    assert finite.sum() == (6 if kind == "singular" else 7)
+    assert _rel(x[finite], ref[finite]) <= K2_RTOL
+    keep = torch.from_numpy(finite)
+    assert torch.equal(piv.cpu()[keep], ref_piv.cpu()[keep])
+    polished = cuda_lu.inverse_lu(at).cpu().numpy()
+    assert identity_error_inf(a[finite], polished[finite]) < 1e-4
+
+
+def test_kernels_reject_n129_on_cuda(cuda):
+    a = torch.eye(129, device=cuda)[None]
+    with pytest.raises(ValueError, match="128"):
+        newton_schulz.ns_iterate_cuda(a, LANES["newton_schulz_pallas"]["schedule"])
+    with pytest.raises(ValueError, match="128"):
+        cuda_lu.lu_inverse_cuda(a)

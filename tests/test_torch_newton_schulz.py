@@ -1,0 +1,224 @@
+"""The port's Newton-Schulz module against the JAX package.
+
+Same NumPy inputs (cast to float32 explicitly: the suite runs JAX with x64
+on, and float64 would send the JAX functions down their f64 routes) go
+through the JAX function, in interpret mode as its own suite runs it, and
+through the port.  Tolerances are max-norm relative differences.
+"""
+
+import struct
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
+from cuda_matrix_inversion_tpu.ops import newton_schulz as jax_ns
+from cuda_matrix_inversion_tpu.ops import registry as jax_registry
+from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
+from cuda_matrix_inversion_tpu_torch.ops import newton_schulz as ns
+from cuda_matrix_inversion_tpu_torch.ops.registry import LANES, build_lane_table
+
+_FIXED = ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
+          "newton_schulz_pallas", "newton_schulz_pan500_pallas")
+
+
+def _rel(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return np.abs(x - ref).max() / np.abs(ref).max()
+
+
+def _make_cond(batch, n, kappa, rng):
+    """SPD batch with eigenvalues logspaced over [1/κ, 1]."""
+    q, _ = np.linalg.qr(rng.standard_normal((batch, n, n)))
+    lam = np.logspace(0, -np.log10(kappa), n)
+    return ((q * lam[None, None, :]) @ np.transpose(q, (0, 2, 1))
+            ).astype(np.float32)
+
+
+def _nonsym_cond(batch, n, kappa, rng):
+    """Nonsymmetric batch with 2-norm condition number κ."""
+    q1, _ = np.linalg.qr(rng.standard_normal((batch, n, n)))
+    q2, _ = np.linalg.qr(rng.standard_normal((batch, n, n)))
+    s = np.geomspace(1.0 / kappa, 1.0, n)
+    return ((q1 * s[None, None, :]) @ q2).astype(np.float32)
+
+
+def _bits(xs):
+    return [struct.pack("<d", float(x)) for x in xs]
+
+
+@pytest.mark.parametrize("name", [
+    "SPD_SCHEDULE", "PAN_SCHEDULE", "PAN500_SCHEDULE", "MU_MIN_SPD",
+    "MU_MIN_PAN", "MU_MIN_PAN500", "SPLIT3_NOISE_FLOOR"])
+def test_schedule_constants_are_the_jax_packages(name):
+    assert getattr(ns, name) == getattr(jax_ns, name)
+    assert type(getattr(ns, name)) is type(getattr(jax_ns, name))
+
+
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_lane_table_from_jax_registry(lane):
+    """The lane table built from the JAX registry's partial keywords is
+    the port's built-in one, and each fixed lane's per-round scalars equal
+    JAX's scaled_round_coeffs bit for bit."""
+    fn = jax_registry.get_inverse_algorithm(lane)
+    # floats handed over as NumPy scalars, as a table read from data would be
+    keywords = {k: np.asarray(v)[()] if isinstance(v, float) else v
+                for k, v in getattr(fn, "keywords", {}).items()}
+    assert build_lane_table({lane: keywords}) == {lane: LANES[lane]}
+    sched = LANES[lane]["schedule"]
+    if sched is None:
+        return
+    split3 = keywords.get("precision") == "split3"
+    spd = keywords.get("init") == "spd"
+    schedule = (jax_ns.PAN500_SCHEDULE if split3
+                else jax_ns.SPD_SCHEDULE if spd else jax_ns.PAN_SCHEDULE)
+    mu = keywords.get("mu_min", jax_ns.MU_MIN_PAN500 if split3
+                      else jax_ns.MU_MIN_SPD if spd else jax_ns.MU_MIN_PAN)
+    lo = keywords.get("lo_iters", schedule[0])
+    ref = jax_ns.scaled_round_coeffs(
+        float(mu), lo, noise_floor=jax_ns.SPLIT3_NOISE_FLOOR if split3
+        else 5e-3)
+    assert _bits(sched.coeffs) == _bits(ref)
+    assert (sched.lo_iters, sched.hi_iters) == (
+        lo, keywords.get("hi_iters", schedule[1]))
+
+
+@pytest.mark.parametrize("mu_min,rounds,floor", [
+    (2e-5, 12, 5e-3), (0.01, 6, 5e-3), (0.03, 4, 5e-3), (3e-8, 14, 2e-4),
+    (0.5, 3, 5e-3)])
+def test_scaled_round_coeffs_bitwise(mu_min, rounds, floor):
+    assert _bits(ns.scaled_round_coeffs(mu_min, rounds, floor)) == _bits(
+        jax_ns.scaled_round_coeffs(mu_min, rounds, noise_floor=floor))
+
+
+@pytest.mark.parametrize("lane,n", [
+    ("newton_schulz_spd_pallas", 32), ("newton_schulz_spd10_pallas", 32),
+    ("newton_schulz_pallas", 32), ("newton_schulz_pan500_pallas", 64)])
+def test_plain_fp32_matches_jax_interpret(lane, n):
+    """bf16_products=False is the JAX reference's interpret-mode arithmetic
+    (every product fp32).  Same operations up to summation order; the
+    iteration corrects itself: 1e-5 on the SPD lanes (κ ≤ 30), 1e-4 on
+    pan500 at κ = 500 (κ·ε₃₂ ≈ 3e-5)."""
+    rng = np.random.default_rng(n + len(lane))
+    if lane == "newton_schulz_pan500_pallas":
+        a, rtol = _nonsym_cond(4, n, 500.0, rng), 1e-4
+    else:
+        a, rtol = make_spd_batch(4, n, rng).astype(np.float32), 1e-5
+    ref = np.asarray(jax_registry.get_inverse_algorithm(lane)(a))
+    x = ns.ns_iterate_plain(torch.tensor(a), LANES[lane]["schedule"],
+                            bf16_products=False).numpy()
+    assert _rel(x, ref) <= rtol
+    assert identity_error_inf(a, x) < 1e-4
+    assert identity_error_inf(a, ref) < 1e-4
+
+
+def _emulate_k1(a, sched):
+    """Faithful-bf16 NumPy emulation of K1 (ml_dtypes rounding, fp32
+    accumulation), as tests/test_pallas_kernels.py emulates the TPU."""
+    f32 = np.float32
+
+    def r32(x):
+        return x.astype(ml_dtypes.bfloat16).astype(f32)
+
+    def one(x, y):
+        return np.einsum("bij,bjk->bik", r32(x).astype(np.float64),
+                         r32(y).astype(np.float64)).astype(f32)
+
+    def dot3(x, y):
+        xl, yl = (x - r32(x)).astype(f32), (y - r32(y)).astype(f32)
+        return (one(x, y) + one(xl, y) + one(x, yl)).astype(f32)
+
+    def full(x, y):
+        return np.einsum("bij,bjk->bik", x.astype(np.float64),
+                         y.astype(np.float64)).astype(f32)
+
+    eye = np.eye(a.shape[-1], dtype=f32)
+    r_inf = np.abs(a).sum(axis=2).max(axis=1)
+    if sched.init == "spd":
+        s = (f32(1) / r_inf)[:, None, None]
+        x = (f32(2) * s) * eye - (s * s) * a
+    else:
+        c_1 = np.abs(a).sum(axis=1).max(axis=1)
+        x = np.swapaxes(a, 1, 2) * (f32(1) / (r_inf * c_1))[:, None, None]
+    contract = dot3 if sched.split3 else one
+    for c in sched.coeffs:
+        x = contract(x, f32(2 * c) * eye - f32(c * c) * contract(a, x))
+    for i in range(sched.hi_iters):
+        if sched.split3:
+            x = x + dot3(x, eye - full(a, x))
+        else:
+            final = i == sched.hi_iters - 1 and sched.polish_highest
+            x = x + one(x, eye - (full(a, x) if final else dot3(a, x)))
+    return x
+
+
+@pytest.mark.parametrize("lane,kappa", [
+    ("newton_schulz_spd_pallas", 30.0), ("newton_schulz_spd10_pallas", 10.0),
+    ("newton_schulz_pallas", 30.0), ("newton_schulz_pan500_pallas", 500.0)])
+def test_bf16_plain_holds_gate_at_domain_edge(lane, kappa):
+    """bf16_products=True (the card's arithmetic) at each lane's κ edge,
+    n = 64: the gate holds, and the result agrees within 2e-4 with the
+    NumPy faithful-bf16 emulation (both residuals sit near 2e-5; their
+    difference is bounded by the sum)."""
+    rng = np.random.default_rng(int(kappa))
+    a = (_nonsym_cond(4, 64, kappa, rng) if "pan500" in lane
+         else _make_cond(4, 64, kappa, rng))
+    sched = LANES[lane]["schedule"]
+    x = ns.ns_iterate_plain(torch.tensor(a), sched, bf16_products=True).numpy()
+    emu = _emulate_k1(a, sched)
+    assert identity_error_inf(a, x) < 1e-4
+    assert identity_error_inf(a, emu) < 1e-4
+    assert _rel(x, emu) <= 2e-4
+
+
+@pytest.mark.parametrize("lane", _FIXED)
+def test_scaled_identity_does_not_diverge(lane):
+    """3.7·I: the whole spectrum sits at the top of the tracked interval,
+    the divergence class the noise-floor clamp exists for."""
+    a = (np.eye(64, dtype=np.float32)[None].repeat(8, axis=0) * 3.7)
+    x = ns.inverse_newton_schulz_fixed(torch.tensor(a),
+                                       **LANES[lane]["keywords"]).numpy()
+    assert identity_error_inf(a, x) < 1e-4
+
+
+def test_adaptive_near_identity_matches_jax():
+    """The 0.01-perturbed identity through the adaptive loop: its start has
+    residual < 1, which must not trip the strict-decrease guard."""
+    rng = np.random.default_rng(16)
+    n = 16
+    a = rng.standard_normal((5, n, n)).astype(np.float32) * 0.01
+    a = (a + np.transpose(a, (0, 2, 1))) / 2 + np.eye(n, dtype=np.float32)
+    x = ns.inverse_newton_schulz(torch.tensor(a)).numpy()
+    ref = np.asarray(jax_ns.inverse_newton_schulz(a))
+    assert identity_error_inf(a, x) < 1e-4
+    assert _rel(x, ref) <= 2e-4
+
+
+def test_fixed_lane_validation_and_f64_route():
+    a = torch.tensor(make_spd_batch(2, 8, np.random.default_rng(0)))
+    with pytest.raises(ValueError, match="precision"):
+        ns.inverse_newton_schulz_fixed(a.float(), precision="fp8")
+    with pytest.raises(ValueError, match="pan"):
+        ns.inverse_newton_schulz_fixed(a.float(), init="spd",
+                                       precision="split3")
+    with pytest.raises(ValueError, match="polish_highest"):
+        ns.inverse_newton_schulz_fixed(a.float(), precision="split3",
+                                       polish_highest=False)
+    with pytest.raises(ValueError, match="init"):
+        ns.inverse_newton_schulz(a.float(), init="eye")
+    with pytest.warns(UserWarning, match="split3.*float64"):
+        x = ns.inverse_newton_schulz_fixed(a, precision="split3")
+    assert x.dtype == torch.float64
+    assert identity_error_inf(a.numpy(), x.numpy()) < 1e-8
+
+
+def test_polish_highest_false_uses_split_residual():
+    """polish_highest=False makes the last polish residual the 3-pass
+    split too; on a well-conditioned batch it still holds the gate."""
+    a = make_spd_batch(4, 32, np.random.default_rng(5)).astype(np.float32)
+    sched = ns.resolve_schedule(init="spd", polish_highest=False)
+    x = ns.ns_iterate_plain(torch.tensor(a), sched).numpy()
+    assert identity_error_inf(a, x) < 1e-4
+    assert _rel(x, _emulate_k1(a, sched)) <= 2e-4
