@@ -1,0 +1,173 @@
+// K4: batched lower Cholesky factor, and K3: batched SPD inverse through it,
+// one thread block per matrix, for sm_90a.
+//
+// Replaces the TPU kernels cuda_matrix_inversion_tpu/ops/pallas_cholesky.py::
+//   _chol_factor_kernel (pallas_call in cholesky)                        K4
+//   _blocked_chol_inverse_kernel / _chol_inverse_kernel (pallas_call in
+//   inverse_cholesky)                                                    K3
+// K4 factors A = L L^T (cholesky_common.cuh) and writes L with zeros above
+// the diagonal.  K3 factors in place, forms W = L^-1 by forward
+// substitution into a second shared buffer, and writes A^-1 = W^T W, all in
+// fp32 (the TPU kernel's products are Precision.HIGHEST).  Both triangles
+// of A^-1 are written; the product is computed so that entry (i, j) and
+// entry (j, i) take the same operations, so the output is exactly
+// symmetric.  A member that is not positive definite comes out non-finite,
+// the others are unaffected.
+//
+// What bounds it on the card: not bytes.  At 100 x 128 x 128 the kernel reads
+// 6.55 MB and writes 6.55 MB (~4 us of HBM time).  The limit is the serial
+// chain inside one block: n factor columns of two barriers each, then the
+// substitution, whose longest column (j = 0) is ~n^2/2 dependent-free
+// updates on one thread, then the n^3 FMAs of W^T W on CUDA cores.
+// What the design does about it: the matrix and W stay in shared memory for
+// the whole chain (2 n (n+1) fp32, 132 KB at n = 128, so one block per SM;
+// K4 needs half and fits three), with odd row strides so the column reads of
+// the factor hit distinct banks.  The substitution needs no barrier at all:
+// each thread owns one column of W, reads L by broadcast and writes its own
+// column.  Each of the 256 threads keeps an M x M register tile of W^T W, so
+// one shared-memory load feeds M FMAs.  None of the TPU kernel's workarounds
+// (transposed factor, one-hot lane selects, panel blocking for the MXU) is
+// needed.  Blocked panels on tensor cores, and more than one matrix per
+// block, are later work.
+
+#include <cuda_runtime.h>
+
+#include "cholesky_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 thread grid over the W^T W output
+constexpr int kMaxN = 128;
+
+__device__ __forceinline__ void load_matrix(const float* __restrict__ a,
+                                            float* K, int n, int ld) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e % n;
+    K[i * ld + j] = a[base + e];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    chol_factor_kernel(const float* __restrict__ a, float* __restrict__ l,
+                       int n) {
+  extern __shared__ float smem[];
+  const int ld = chol_ld(n);
+  load_matrix(a, smem, n, ld);
+  __syncthreads();
+  chol_factor(smem, n, ld);
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e % n;
+    l[base + e] = j <= i ? smem[i * ld + j] : 0.f;
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+    chol_inverse_kernel(const float* __restrict__ a, float* __restrict__ inv,
+                        int n) {
+  extern __shared__ float smem[];
+  const int ld = chol_ld(n);
+  float* L = smem;
+  float* W = smem + n * ld;
+  const int tid = threadIdx.x;
+  load_matrix(a, L, n, ld);
+  __syncthreads();
+  chol_factor(L, n, ld);
+
+  // W = L^-1, thread j owns column j: the forward substitution of
+  // L w = e_j, in the order of the plain version (row k divided by L[k][k],
+  // then eliminated from the rows below).  Rows k < j stay zero.
+  for (int j = tid; j < n; j += kThreads) {
+    for (int i = 0; i < n; ++i) W[i * ld + j] = i == j ? 1.f : 0.f;
+    for (int k = j; k < n; ++k) {
+      const float wk = W[k * ld + j] / L[k * ld + k];
+      W[k * ld + j] = wk;
+      for (int i = k + 1; i < n; ++i)
+        W[i * ld + j] = __fsub_rn(W[i * ld + j], __fmul_rn(L[i * ld + k], wk));
+    }
+  }
+  __syncthreads();
+
+  // A^-1 = W^T W: acc[r][c] = sum_m W[m][i] W[m][j] with i = ty + 16r,
+  // j = tx + 16c.  Both operands are rows of W; indices past n are clamped
+  // (their outputs are not written).
+  const int tx = tid % 16, ty = tid / 16;
+  int ri[M], ci[M];
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    ri[r] = min(ty + 16 * r, n - 1);
+    ci[r] = min(tx + 16 * r, n - 1);
+  }
+  float acc[M][M];
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < M; ++c) acc[r][c] = 0.f;
+  for (int m = 0; m < n; ++m) {
+    const float* row = W + m * ld;
+    float p[M], q[M];
+#pragma unroll
+    for (int r = 0; r < M; ++r) p[r] = row[ri[r]];
+#pragma unroll
+    for (int c = 0; c < M; ++c) q[c] = row[ci[c]];
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+#pragma unroll
+      for (int c = 0; c < M; ++c) acc[r][c] = fmaf(p[r], q[c], acc[r][c]);
+  }
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      const int i = ty + 16 * r, j = tx + 16 * c;
+      if (i < n && j < n) inv[base + i * n + j] = acc[r][c];
+    }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const float* a, float* out, int batch,
+                   int n, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<batch, kThreads, smem, stream>>>(a, out, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a, l: (batch, n, n) fp32, contiguous, on `device`.  Returns the CUDA error
+// of the launch.
+extern "C" int cmi_chol_factor(const float* a, float* l, int batch, int n,
+                               int device, void* stream) {
+  if (n < 1 || n > kMaxN || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(n) * chol_ld(n) * sizeof(float);
+  return static_cast<int>(launch(chol_factor_kernel, a, l, batch, n, smem,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// a, inv: (batch, n, n) fp32, contiguous, on `device`.  Returns the CUDA
+// error of the launch.
+extern "C" int cmi_chol_inverse(const float* a, float* inv, int batch, int n,
+                                int device, void* stream) {
+  if (n < 1 || n > kMaxN || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = 2ull * n * chol_ld(n) * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 16) err = launch(chol_inverse_kernel<1>, a, inv, batch, n, smem, s);
+  else if (n <= 32) err = launch(chol_inverse_kernel<2>, a, inv, batch, n, smem, s);
+  else if (n <= 64) err = launch(chol_inverse_kernel<4>, a, inv, batch, n, smem, s);
+  else err = launch(chol_inverse_kernel<8>, a, inv, batch, n, smem, s);
+  return static_cast<int>(err);
+}

@@ -1,0 +1,225 @@
+// K5 and K6: the fused GP mean/variance, one thread block per system, for
+// sm_90a.  For every system of the batch, with K = B + diag(c),
+//     mean = a^T K^-1 d,    var = e - a^T K^-1 a,
+// and only those two floats are written, so device memory sees B read once.
+//
+// K5 replaces cuda_matrix_inversion_tpu/ops/pallas_gp.py::_gp_kernel
+// (pallas_call in gp_mean_variance_fused).  It stages K while loading B,
+// factors it in place (cholesky_common.cuh), and forward-solves
+// L [y_d y_a] = [d a]; then mean = y_a . y_d and var = e - y_a . y_a.  The
+// TPU kernel builds the whole W = L^-1 and multiplies rows by it because the
+// TPU wants MXU matmuls; two right-hand sides cost O(n^2) after the
+// O(n^3 / 3) factor, so K5 never forms W.
+//
+// K6 replaces ops/pallas_gp.py::_gp_ns_kernel (pallas_call in
+// gp_mean_variance_fused_ns).  It stages K into K1's A buffer and runs K1's
+// round loop (ns_common.cuh) with the spd schedule the host resolves
+// (resolve_schedule(init="spd"): 6 + 2 rounds at mu_min 0.01, the last
+// polish residual in fp32), then x = [d a] X in fp32, mean = x_d . a and
+// var = e - x_a . a.
+//
+// What bounds them on the card: not bytes (one read of B, 6.55 MB at
+// 100 x 128 x 128).  K5 is the factor's serial chain of n columns with two
+// barriers each, then n warp-synchronous substitution steps; its
+// n (n+1) + 2n fp32 of shared memory (67 KB at n = 128) lets three blocks
+// share an SM.  K6 is K1's chain of dependent 128^3 products on CUDA-core
+// FMAs, at one block per SM (3 n (n+1) + 2n fp32, 199 KB).
+// What the design does about it: everything stays in shared memory from the
+// load of B to the two scalars; K5's two substitutions run on two warps
+// with no block barrier, and its dot products are warp reductions.
+// Tensor-core products, blocked factors and several systems per block are
+// later work.
+
+#include <cuda_runtime.h>
+
+#include "cholesky_common.cuh"
+#include "ns_common.cuh"
+
+namespace {
+
+// Sum of v over the block (every thread gets the result).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) r += red[w];
+  __syncthreads();
+  return r;
+}
+
+// K[i][j] = B[i][j] + (i == j ? c[i] : 0), as the plain version's
+// b + eye * c rounds it.
+__device__ __forceinline__ float stage_k(const float* b, const float* c,
+                                         int i, int j, int n) {
+  const float v = b[i * n + j];
+  return i == j ? __fadd_rn(v, c[i]) : v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    gp_chol_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ c, const float* __restrict__ d,
+                   const float* __restrict__ e, float* __restrict__ out,
+                   int n) {
+  extern __shared__ float smem[];
+  const int ld = chol_ld(n);
+  float* K = smem;
+  float* Y = smem + n * ld;  // Y[0..n) = y_d, Y[n..2n) = y_a
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t sys = blockIdx.x;
+  const float* bs = b + sys * n * n;
+  const float* cs = c + sys * n;
+  for (int x = tid; x < n * n; x += kThreads) {
+    const int i = x / n, j = x % n;
+    K[i * ld + j] = stage_k(bs, cs, i, j, n);
+  }
+  for (int i = tid; i < n; i += kThreads) {
+    Y[i] = d[sys * n + i];
+    Y[n + i] = a[sys * n + i];
+  }
+  __syncthreads();
+  chol_factor(K, n, ld);
+
+  if (warp < 2) {
+    // L y = rhs, one warp per right-hand side, in the plain version's
+    // order: y[k] /= L[k][k], then eliminated from the rows below.
+    float* y = Y + warp * n;
+    for (int k = 0; k < n; ++k) {
+      const float yk = y[k] / K[k * ld + k];
+      __syncwarp();
+      if (lane == 0) y[k] = yk;
+      for (int i = k + 1 + lane; i < n; i += 32)
+        y[i] = __fsub_rn(y[i], __fmul_rn(K[i * ld + k], yk));
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  if (warp < 2) {
+    // warp 0: y_a . y_d (the mean), warp 1: y_a . y_a
+    const float* u = Y + warp * n;
+    const float* ya = Y + n;
+    float s = 0.f;
+    for (int i = lane; i < n; i += 32) s = fmaf(ya[i], u[i], s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) out[2 * sys + warp] = warp == 0 ? s : e[sys] - s;
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+    gp_ns_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 const float* __restrict__ c, const float* __restrict__ d,
+                 const float* __restrict__ e, float* __restrict__ out,
+                 NSParams prm) {
+  constexpr int NP = 16 * M;
+  constexpr int LD = NP + 1;
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads / 32];
+  float* sA = smem;
+  float* sX = sA + NP * LD;
+  float* sT = sX + NP * LD;
+  float* sv = sT + NP * LD;  // sv[0..n) = d, sv[n..2n) = a
+  const int n = prm.n;
+  const int tid = threadIdx.x;
+  const size_t sys = blockIdx.x;
+  const float* bs = b + sys * n * n;
+  const float* cs = c + sys * n;
+  for (int x = tid; x < NP * NP; x += kThreads) {
+    const int i = x / NP, j = x % NP;
+    sA[i * LD + j] = (i < n && j < n) ? stage_k(bs, cs, i, j, n) : 0.f;
+    sX[i * LD + j] = 0.f;
+    sT[i * LD + j] = 0.f;
+  }
+  for (int i = tid; i < n; i += kThreads) {
+    sv[i] = d[sys * n + i];
+    sv[n + i] = a[sys * n + i];
+  }
+  __syncthreads();
+
+  ns_rounds<M>(sA, sX, sT, prm, red);
+
+  // x_d[j] = sum_i d[i] X[i][j] and x_a likewise (thread j), in fp32
+  float mean_part = 0.f, quad_part = 0.f;
+  if (tid < n) {
+    float xd = 0.f, xa = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float xij = sX[i * LD + tid];
+      xd = fmaf(sv[i], xij, xd);
+      xa = fmaf(sv[n + i], xij, xa);
+    }
+    mean_part = __fmul_rn(xd, sv[n + tid]);
+    quad_part = __fmul_rn(xa, sv[n + tid]);
+  }
+  const float mean = block_sum(mean_part, red);
+  const float quad = block_sum(quad_part, red);
+  if (tid == 0) {
+    out[2 * sys] = mean;
+    out[2 * sys + 1] = e[sys] - quad;
+  }
+}
+
+template <typename Kernel, typename Arg>
+cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
+                   const float* a, const float* b, const float* c,
+                   const float* d, const float* e, float* out, Arg arg) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<batch, kThreads, smem, stream>>>(a, b, c, d, e, out, arg);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a, c, d: (batch, n); b: (batch, n, n); e: (batch,); out: (batch, 2) =
+// [mean, var]; all fp32, contiguous, on `device`.  Returns the CUDA error of
+// the launch.
+extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
+                            const float* d, const float* e, float* out,
+                            int batch, int n, int device, void* stream) {
+  if (n < 1 || n > kMaxN || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem =
+      (static_cast<size_t>(n) * chol_ld(n) + 2ull * n) * sizeof(float);
+  return static_cast<int>(launch(gp_chol_kernel, smem, batch,
+                                 static_cast<cudaStream_t>(stream), a, b, c,
+                                 d, e, out, n));
+}
+
+// As cmi_gp_fused, with K^-1 by the spd Newton-Schulz schedule: `lo` scaled
+// rounds with the host's fp32 scalars two_c / c_sq, then `hi` polish rounds,
+// the last residual in fp32.
+extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
+                               const float* d, const float* e, float* out,
+                               int batch, int n, int lo, int hi,
+                               const float* two_c, const float* c_sq,
+                               int device, void* stream) {
+  NSParams prm;
+  if (batch < 0 ||
+      !make_ns_params(n, /*init_spd=*/1, lo, hi, /*split3=*/0,
+                      /*polish_highest=*/1, two_c, c_sq, &prm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = ns_tile(n);
+  const size_t np = 16ull * m;
+  const size_t smem = (3 * np * (np + 1) + 2ull * n) * sizeof(float);
+  switch (m) {
+    case 1: err = launch(gp_ns_kernel<1>, smem, batch, s, a, b, c, d, e, out, prm); break;
+    case 2: err = launch(gp_ns_kernel<2>, smem, batch, s, a, b, c, d, e, out, prm); break;
+    case 4: err = launch(gp_ns_kernel<4>, smem, batch, s, a, b, c, d, e, out, prm); break;
+    default: err = launch(gp_ns_kernel<8>, smem, batch, s, a, b, c, d, e, out, prm); break;
+  }
+  return static_cast<int>(err);
+}

@@ -32,116 +32,12 @@
 // (16M + 1) so the column reads of the left operand hit distinct banks.
 // Products into an operand (X = X T, X = X + X R) finish all reads before a
 // barrier and only then write.  Tensor cores (mma.sync / wgmma) and
-// splitting a matrix across blocks are later work.
+// splitting a matrix across blocks are later work.  The product routine and
+// the round loop live in ns_common.cuh, which K6 (gp.cu) shares.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "ns_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // 16 x 16 thread grid over the output
-constexpr int kMaxRounds = 32;
-constexpr int kMaxN = 128;
-
-struct NSParams {
-  int n;
-  int init_spd;
-  int lo;
-  int hi;
-  int split3;
-  int polish_highest;
-  float two_c[kMaxRounds];  // fp32(2c) per lo round
-  float c_sq[kMaxRounds];   // fp32(c*c) per lo round
-};
-
-enum Prec { kF32 = 0, kBF16 = 1, kSplit3 = 2 };
-
-__device__ __forceinline__ float bf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// acc[r][c] = sum_k P[ty+16r][k] * Q[k][tx+16c] over k < n, in the given
-// product precision.  Rows/columns in the zero padding produce zeros.
-template <int M, int PREC>
-__device__ __forceinline__ void product(const float* __restrict__ P,
-                                        const float* __restrict__ Q, int n,
-                                        int ty, int tx, float (&acc)[M][M]) {
-  constexpr int LD = 16 * M + 1;
-#pragma unroll
-  for (int r = 0; r < M; ++r)
-#pragma unroll
-    for (int c = 0; c < M; ++c) acc[r][c] = 0.f;
-  for (int k = 0; k < n; ++k) {
-    float p[M], q[M];
-#pragma unroll
-    for (int r = 0; r < M; ++r) p[r] = P[(ty + 16 * r) * LD + k];
-#pragma unroll
-    for (int c = 0; c < M; ++c) q[c] = Q[k * LD + tx + 16 * c];
-    if (PREC == kF32) {
-#pragma unroll
-      for (int r = 0; r < M; ++r)
-#pragma unroll
-        for (int c = 0; c < M; ++c) acc[r][c] = fmaf(p[r], q[c], acc[r][c]);
-    } else if (PREC == kBF16) {
-#pragma unroll
-      for (int r = 0; r < M; ++r) p[r] = bf(p[r]);
-#pragma unroll
-      for (int c = 0; c < M; ++c) q[c] = bf(q[c]);
-#pragma unroll
-      for (int r = 0; r < M; ++r)
-#pragma unroll
-        for (int c = 0; c < M; ++c) acc[r][c] = fmaf(p[r], q[c], acc[r][c]);
-    } else {
-      float pl[M], ql[M];
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        const float h = bf(p[r]);
-        pl[r] = bf(p[r] - h);  // the difference is exact in fp32
-        p[r] = h;
-      }
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const float h = bf(q[c]);
-        ql[c] = bf(q[c] - h);
-        q[c] = h;
-      }
-#pragma unroll
-      for (int r = 0; r < M; ++r)
-#pragma unroll
-        for (int c = 0; c < M; ++c) {
-          acc[r][c] = fmaf(p[r], q[c], acc[r][c]);
-          acc[r][c] = fmaf(pl[r], q[c], acc[r][c]);
-          acc[r][c] = fmaf(p[r], ql[c], acc[r][c]);
-        }
-    }
-  }
-}
-
-template <int M>
-__device__ __forceinline__ void product_prec(int prec, const float* P,
-                                             const float* Q, int n, int ty,
-                                             int tx, float (&acc)[M][M]) {
-  if (prec == kF32)
-    product<M, kF32>(P, Q, n, ty, tx, acc);
-  else if (prec == kBF16)
-    product<M, kBF16>(P, Q, n, ty, tx, acc);
-  else
-    product<M, kSplit3>(P, Q, n, ty, tx, acc);
-}
-
-// Max of v over the block (every thread gets the result).
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
 
 template <int M>
 __global__ void __launch_bounds__(kThreads)
@@ -156,14 +52,12 @@ __global__ void __launch_bounds__(kThreads)
   float* sT = sX + NP * LD;
   const int n = prm.n;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
   const float* ab = a + static_cast<size_t>(blockIdx.x) * n * n;
   float* xb = x + static_cast<size_t>(blockIdx.x) * n * n;
 
   // A into shared memory; every buffer's padding is zero and stays zero
-  // (the identity terms below are restricted to i < n), so the n x n block
-  // of each product is exact.
+  // (the identity terms are restricted to i < n), so the n x n block of
+  // each product is exact.
   for (int e = tid; e < NP * NP; e += kThreads) {
     const int i = e / NP, j = e % NP;
     sA[i * LD + j] = (i < n && j < n) ? ab[i * n + j] : 0.f;
@@ -172,89 +66,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  float row = 0.f, col = 0.f;
-  if (tid < n) {
-    for (int j = 0; j < n; ++j) row += fabsf(sA[tid * LD + j]);
-    for (int i = 0; i < n; ++i) col += fabsf(sA[i * LD + tid]);
-  }
-  const float r_inf = block_max(row, red);  // ||A||_inf
-  const float c_1 = block_max(col, red);    // ||A||_1
-
-  if (prm.init_spd) {
-    const float s = 1.f / r_inf;
-    const float two_s = 2.f * s;
-    const float s2 = __fmul_rn(s, s);
-    for (int e = tid; e < n * n; e += kThreads) {
-      const int i = e / n, j = e % n;
-      sX[i * LD + j] =
-          __fsub_rn(i == j ? two_s : 0.f, __fmul_rn(s2, sA[i * LD + j]));
-    }
-  } else {
-    const float scale = 1.f / __fmul_rn(r_inf, c_1);
-    for (int e = tid; e < n * n; e += kThreads) {
-      const int i = e / n, j = e % n;
-      sX[i * LD + j] = __fmul_rn(sA[j * LD + i], scale);
-    }
-  }
-  __syncthreads();
-
-  float acc[M][M];
-  const int contract = prm.split3 ? kSplit3 : kBF16;
-  for (int it = 0; it < prm.lo; ++it) {
-    const float tc = prm.two_c[it];
-    const float c2 = prm.c_sq[it];
-    // T = 2c I - c^2 (A X); T is not an operand here, so write at once.
-    product_prec<M>(contract, sA, sX, n, ty, tx, acc);
-#pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const int i = ty + 16 * r, j = tx + 16 * c;
-        if (i < n && j < n)
-          sT[i * LD + j] = __fsub_rn(i == j ? tc : 0.f, __fmul_rn(c2, acc[r][c]));
-      }
-    __syncthreads();
-    // X = X T: all reads of X before the barrier, then the write.
-    product_prec<M>(contract, sX, sT, n, ty, tx, acc);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const int i = ty + 16 * r, j = tx + 16 * c;
-        if (i < n && j < n) sX[i * LD + j] = acc[r][c];
-      }
-    __syncthreads();
-  }
-
-  for (int it = 0; it < prm.hi; ++it) {
-    const bool final_round = (it == prm.hi - 1) && prm.polish_highest;
-    const int resid = (prm.split3 || final_round) ? kF32 : kSplit3;
-    const int update = prm.split3 ? kSplit3 : kBF16;
-    // R = I - A X
-    product_prec<M>(resid, sA, sX, n, ty, tx, acc);
-#pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const int i = ty + 16 * r, j = tx + 16 * c;
-        if (i < n && j < n)
-          sT[i * LD + j] = __fsub_rn(i == j ? 1.f : 0.f, acc[r][c]);
-      }
-    __syncthreads();
-    // X = X + X R
-    product_prec<M>(update, sX, sT, n, ty, tx, acc);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const int i = ty + 16 * r, j = tx + 16 * c;
-        if (i < n && j < n)
-          sX[i * LD + j] = __fadd_rn(sX[i * LD + j], acc[r][c]);
-      }
-    __syncthreads();
-  }
+  ns_rounds<M>(sA, sX, sT, prm, red);
 
   for (int e = tid; e < n * n; e += kThreads) {
     const int i = e / n, j = e % n;
@@ -283,26 +95,19 @@ extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
                               int init_spd, int lo, int hi, int split3,
                               int polish_highest, const float* two_c,
                               const float* c_sq, int device, void* stream) {
-  if (n < 1 || n > kMaxN || batch < 0 || lo < 0 || lo > kMaxRounds || hi < 0)
+  NSParams prm;
+  if (batch < 0 || !make_ns_params(n, init_spd, lo, hi, split3,
+                                   polish_highest, two_c, c_sq, &prm))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  NSParams prm{};
-  prm.n = n;
-  prm.init_spd = init_spd;
-  prm.lo = lo;
-  prm.hi = hi;
-  prm.split3 = split3;
-  prm.polish_highest = polish_highest;
-  for (int i = 0; i < lo; ++i) {
-    prm.two_c[i] = two_c[i];
-    prm.c_sq[i] = c_sq[i];
-  }
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 16) err = launch<1>(a, x, batch, prm, s);
-  else if (n <= 32) err = launch<2>(a, x, batch, prm, s);
-  else if (n <= 64) err = launch<4>(a, x, batch, prm, s);
-  else err = launch<8>(a, x, batch, prm, s);
+  switch (ns_tile(n)) {
+    case 1: err = launch<1>(a, x, batch, prm, s); break;
+    case 2: err = launch<2>(a, x, batch, prm, s); break;
+    case 4: err = launch<4>(a, x, batch, prm, s); break;
+    default: err = launch<8>(a, x, batch, prm, s); break;
+  }
   return static_cast<int>(err);
 }

@@ -1,1 +1,1 @@
-"""Host-side fixture batches (NumPy)."""
+"""Host-side fixture batches and the ``.mats`` format (NumPy)."""

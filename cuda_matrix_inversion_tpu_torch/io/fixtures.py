@@ -1,15 +1,20 @@
 """Deterministic NumPy fixture batches.
 
-Copies of ``make_spd_batch`` and ``make_square_batch`` from
-``cuda_matrix_inversion_tpu/io/fixtures.py``.  The port carries its own
-copies because importing the JAX package imports JAX, which the machine
-with the GPU does not have; ``tests/test_torch_slice.py`` pins each copy
+Copies of ``make_spd_batch``, ``make_square_batch`` and
+``generate_gaussian_fixtures`` from ``cuda_matrix_inversion_tpu/io/fixtures.py``.
+The port carries its own copies because importing the JAX package imports
+JAX, which the machine with the GPU does not have;
+``tests/test_torch_slice.py`` and ``tests/test_torch_gp.py`` pin each copy
 to its original.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from cuda_matrix_inversion_tpu_torch.io.mats import write_mats
 
 
 def make_spd_batch(num: int, dim: int, rng: np.random.Generator) -> np.ndarray:
@@ -40,3 +45,28 @@ def make_square_batch(num: int, dim: int, rng: np.random.Generator,
         out[got:got + take] = ok[:take]
         got += take
     return out
+
+
+def make_gp_batch(num: int, dim: int, rng: np.random.Generator) -> dict:
+    """One GP fixture set in memory, float64: ``a, c, d`` (num, dim, 1),
+    ``b`` (num, dim, dim) SPD, ``e`` (num, 1, 1), and the fp64 ground
+    truth ``means = aᵀK⁻¹d``, ``variances = e − aᵀK⁻¹a`` with
+    K = B + diag(c), each (num, 1, 1)."""
+    a = rng.random((num, dim, 1))
+    b = make_spd_batch(num, dim, rng)
+    c = rng.random((num, dim, 1))
+    d = rng.random((num, dim, 1))
+    e = rng.random((num, 1, 1))
+    k_inv = np.linalg.inv(b + np.eye(dim) * c[:, :, 0][:, None, :])
+    at = np.transpose(a, (0, 2, 1))
+    return {"a": a, "b": b, "c": c, "d": d, "e": e,
+            "means": at @ (k_inv @ d), "variances": e - at @ (k_inv @ a)}
+
+
+def generate_gaussian_fixtures(path: str, dim: int, num: int = 100,
+                               seed: int = 0) -> None:
+    """The 7-file GP fixture set (``a b c d e means variances`` ``.mats``)."""
+    os.makedirs(path, exist_ok=True)
+    data = make_gp_batch(num, dim, np.random.default_rng(seed + 1000 + dim))
+    for name, arr in data.items():
+        write_mats(os.path.join(path, f"{name}.mats"), arr)

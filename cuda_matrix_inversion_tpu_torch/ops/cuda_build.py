@@ -1,10 +1,12 @@
 """Build the hand-written Hopper kernels and bind them through ctypes.
 
-``csrc/*.cu`` hold plain C entry points.  At first use they are compiled
-with ``nvcc`` for ``sm_90a`` into one shared library under
+``csrc/*.cu`` hold plain C entry points; ``csrc/*.cuh`` hold the device
+code that several of them share.  At first use the ``.cu`` files are
+compiled with ``nvcc`` for ``sm_90a`` into one shared library under
 ``build/torch_kernels/`` at the root of the checkout, and loaded with
-``ctypes``.  The file name carries a hash of the sources and flags, so an
-edited source builds anew and an unchanged one is loaded from the cache.
+``ctypes``.  The file name carries a hash of the flags and of every source
+and header, so an edited file builds anew and an unchanged tree is loaded
+from the cache.
 Nothing here runs at import time: the CPU test suite imports every module
 on hosts that have no ``nvcc``.
 
@@ -32,9 +34,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# Largest matrix dimension the shared-memory-resident kernels take: K1
-# keeps A, X and T (3·n² fp32) in one block's shared memory, 198 KB at
-# n = 128 against the 227 KB a block may opt into.
+# Largest matrix dimension the shared-memory-resident kernels take: K1 and
+# K6 keep A, X and T (3·n² fp32) in one block's shared memory, 198 KB at
+# n = 128 against the 227 KB a block may opt into; K2 and K3 keep two n×n
+# buffers, K4 and K5 one.
 MAX_N = 128
 
 _VP = ctypes.c_void_p
@@ -47,6 +50,16 @@ _SIGNATURES = {
                        _VP],
     # a, inv, ipiv, batch, n, device, stream
     "cmi_lu_inverse": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # a, l, batch, n, device, stream
+    "cmi_chol_factor": [_VP, _VP, _I, _I, _I, _VP],
+    # a, inv, batch, n, device, stream
+    "cmi_chol_inverse": [_VP, _VP, _I, _I, _I, _VP],
+    # a, b, c, d, e, out, batch, n, device, stream
+    "cmi_gp_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # a, b, c, d, e, out, batch, n, lo, hi, two_c (host float*),
+    # c_sq (host float*), device, stream
+    "cmi_gp_fused_ns": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
+                        _VP, _I, _VP],
 }
 
 _lock = threading.Lock()
@@ -70,13 +83,15 @@ def find_nvcc() -> str:
 
 
 def _sources() -> list[Path]:
+    """The translation units ``nvcc`` compiles."""
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcmi_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -140,3 +155,22 @@ def launch_args(a: torch.Tensor) -> tuple[int, int]:
     on PyTorch's current stream."""
     dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def check_cuda_f32(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is float32 on a CUDA device."""
+    for t in tensors:
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise ValueError(f"{what}: needs float32 CUDA tensors, got "
+                             f"{t.dtype} on {t.device}")
+
+
+def on_device(a: torch.Tensor, what: str, cuda_fn, plain_fn, *args):
+    """``cuda_fn(*args)`` when ``a`` lies on a CUDA device, the plain
+    version ``plain_fn(*args)`` when it lies on the CPU; any other device
+    raises.  A CUDA tensor never takes the plain version."""
+    if a.device.type == "cuda":
+        return cuda_fn(*args)
+    if a.device.type == "cpu":
+        return plain_fn(*args)
+    raise ValueError(f"{what}: unsupported device {a.device}")

@@ -1,0 +1,150 @@
+"""Fused GP mean/variance: kernels K5 (Cholesky) and K6 (Newton-Schulz).
+
+Counterpart of ``gp_mean_variance_fused`` and ``gp_mean_variance_fused_ns``
+of ``cuda_matrix_inversion_tpu/ops/pallas_gp.py``.  For every system, with
+K = B + diag(c),
+
+    mean = aᵀ K⁻¹ d,    var = e − aᵀ K⁻¹ a,
+
+in one launch that writes two floats per system (``csrc/gp.cu``).  On a CPU
+tensor each runs its plain PyTorch version (:func:`gp_fused_plain`,
+:func:`gp_fused_ns_plain`), which repeats the kernel's steps in order.
+
+The kernels take the flat layout a, c, d ``(batch, n)``, b
+``(batch, n, n)``, e ``(batch,)`` and return ``(batch, 2)`` = [mean, var];
+the public functions take the fixture layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_build,
+    cuda_cholesky,
+    linalg,
+    newton_schulz,
+    schur,
+)
+
+# K6's schedule: resolve_schedule(init="spd") — SPD_SCHEDULE (6, 2) at
+# MU_MIN_SPD, the last polish residual in fp32 (what the JAX kernel runs).
+GP_NS_SCHEDULE = newton_schulz.resolve_schedule(init="spd")
+
+
+def _project(a, x, e):
+    """(mean, var) from x = K⁻¹[d a] in the fixture layout."""
+    proj = linalg.matmul(a.transpose(-1, -2), x)   # (batch, 1, 2)
+    return proj[:, :, 0:1], e - proj[:, :, 1:2]
+
+
+def gp_fused_plain(a, b, c, d, e):
+    """Plain PyTorch version of K5 on the flat layout: factor K, solve
+    L[y_d y_a] = [d a], then mean = y_a·y_d, var = e − y_a·y_a."""
+    l = cuda_cholesky.cholesky_plain(linalg.add_diagonal(b, c))
+    y = cuda_cholesky.forward_substitution_plain(l, torch.stack([d, a], -1))
+    yd, ya = y[..., 0], y[..., 1]
+    return torch.stack([(ya * yd).sum(-1), e - (ya * ya).sum(-1)], dim=-1)
+
+
+def gp_fused_ns_plain(a, b, c, d, e, bf16_products: bool = True):
+    """Plain PyTorch version of K6 on the flat layout: X ≈ K⁻¹ by
+    :data:`GP_NS_SCHEDULE`, then x = [d a]·X in fp32, mean = x_d·a,
+    var = e − x_a·a.  ``bf16_products`` as in
+    :func:`newton_schulz.ns_iterate_plain` (False is the JAX reference's
+    interpret-mode arithmetic)."""
+    x = newton_schulz.ns_iterate_plain(linalg.add_diagonal(b, c),
+                                       GP_NS_SCHEDULE, bf16_products)
+    proj = (linalg.matmul(torch.stack([d, a], 1), x) * a[:, None, :]).sum(-1)
+    return torch.stack([proj[:, 0], e - proj[:, 1]], dim=-1)
+
+
+def _gp_launch(fn_name: str, a, b, c, d, e, *extra):
+    cuda_build.check_kernel_input(b, "gp kernel")
+    cuda_build.check_cuda_f32("gp kernel", a, b, c, d, e)
+    out = torch.empty((b.shape[0], 2), dtype=torch.float32, device=b.device)
+    device, stream = cuda_build.launch_args(b)
+    err = getattr(cuda_build.library(), fn_name)(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(),
+        out.data_ptr(), b.shape[0], b.shape[-1], *extra, device, stream)
+    cuda_build.check(err, f"gp kernel {fn_name}")
+    return out
+
+
+def gp_fused_cuda(a, b, c, d, e):
+    """Launch K5 on contiguous CUDA fp32 tensors in the flat layout;
+    ``gp_fused_cuda.launches`` counts the launches."""
+    out = _gp_launch("cmi_gp_fused", a, b, c, d, e)
+    gp_fused_cuda.launches += 1
+    return out
+
+
+def gp_fused_ns_cuda(a, b, c, d, e):
+    """Launch K6 on contiguous CUDA fp32 tensors in the flat layout;
+    ``gp_fused_ns_cuda.launches`` counts the launches."""
+    sched = GP_NS_SCHEDULE
+    lo = sched.lo_iters
+    two_c = (ctypes.c_float * lo)(*[2.0 * c_ for c_ in sched.coeffs])
+    c_sq = (ctypes.c_float * lo)(*[c_ * c_ for c_ in sched.coeffs])
+    out = _gp_launch("cmi_gp_fused_ns", a, b, c, d, e, lo, sched.hi_iters,
+                     ctypes.cast(two_c, ctypes.c_void_p),
+                     ctypes.cast(c_sq, ctypes.c_void_p))
+    gp_fused_ns_cuda.launches += 1
+    return out
+
+
+gp_fused_cuda.launches = 0
+gp_fused_ns_cuda.launches = 0
+
+
+def _flat(a, b, c, d, e):
+    """Check the fixture layout and return the kernels' flat fp32 layout."""
+    cuda_build.check_kernel_input(b, "gp kernel")
+    batch, n, _ = b.shape
+    for name, v, shape in (("a", a, (batch, n, 1)), ("c", c, (batch, n, 1)),
+                           ("d", d, (batch, n, 1)), ("e", e, (batch, 1, 1))):
+        if tuple(v.shape) != shape:
+            raise ValueError(f"gp kernel: {name} must be {shape}, got "
+                             f"{tuple(v.shape)}")
+    f32 = torch.float32
+    return (a[..., 0].to(f32).contiguous(), b.to(f32).contiguous(),
+            c[..., 0].to(f32).contiguous(), d[..., 0].to(f32).contiguous(),
+            e.reshape(batch).to(f32).contiguous())
+
+
+def _run(b, cuda_fn, plain_fn, flat):
+    out = cuda_build.on_device(b, "gp", cuda_fn, plain_fn, *flat).to(b.dtype)
+    return out[:, 0, None, None], out[:, 1, None, None]
+
+
+def gp_mean_variance_fused(a, b, c, d, e):
+    """Fused batched GP mean and variance, one K5 launch for the batch.
+
+    a, c, d: (batch, n, 1); b: (batch, n, n); e: (batch, 1, 1).  Returns
+    (means, variances), each (batch, 1, 1).  float64 takes the library
+    solve route.  n > 128 (the kernel's shared-memory ceiling; the JAX
+    package's is 256) goes through :func:`schur.spd_schur_solve` with the
+    K3 inverse as its base.
+    """
+    if b.dtype == torch.float64:
+        return _project(a, linalg.spd_solve(linalg.add_diagonal(b, c),
+                                            torch.cat([d, a], dim=-1)), e)
+    if b.shape[-1] > cuda_build.MAX_N:
+        x = schur.spd_schur_solve(linalg.add_diagonal(b, c),
+                                  torch.cat([d, a], dim=-1),
+                                  cuda_cholesky.inverse_cholesky,
+                                  max_base_n=cuda_build.MAX_N)
+        return _project(a, x, e)
+    return _run(b, gp_fused_cuda, gp_fused_plain, _flat(a, b, c, d, e))
+
+
+def gp_mean_variance_fused_ns(a, b, c, d, e):
+    """Fused GP through Newton-Schulz, one K6 launch for the batch: the
+    fastest route for diagonally dominant K (κ ≲ 30); same shapes and
+    contract as :func:`gp_mean_variance_fused`.  float64 and n > 128 (the
+    JAX package's bound is 224) go to :func:`gp_mean_variance_fused`."""
+    if b.dtype == torch.float64 or b.shape[-1] > cuda_build.MAX_N:
+        return gp_mean_variance_fused(a, b, c, d, e)
+    return _run(b, gp_fused_ns_cuda, gp_fused_ns_plain, _flat(a, b, c, d, e))

@@ -2,11 +2,11 @@
 
 Counterpart of ``cuda_matrix_inversion_tpu/ops/pallas_lu.py::inverse_lu``
 (lane ``lu_pallas``), the analog of cuBLAS ``getrfBatched`` +
-``getriBatched``.  On a CUDA tensor :func:`lu_inverse` runs the
-hand-written kernel ``csrc/lu.cu``; on a CPU tensor its plain PyTorch
-version :func:`lu_inverse_plain`, which performs the same operations in
-the same order.  :func:`inverse_lu` adds the one fp32 Newton polish that
-the JAX wrapper runs outside its kernel.
+``getriBatched``.  :func:`inverse_lu` runs the hand-written kernel
+``csrc/lu.cu`` (:func:`lu_inverse_cuda`) on a CUDA tensor and its plain
+PyTorch version :func:`lu_inverse_plain`, which performs the same
+operations in the same order, on a CPU tensor; then it adds the one fp32
+Newton polish that the JAX wrapper runs outside its kernel.
 """
 
 from __future__ import annotations
@@ -63,9 +63,7 @@ def lu_inverse_cuda(a: torch.Tensor):
 
     ``lu_inverse_cuda.launches`` counts the launches."""
     cuda_build.check_kernel_input(a, "lu kernel")
-    if a.device.type != "cuda" or a.dtype != torch.float32:
-        raise ValueError(f"lu kernel: needs a float32 CUDA tensor, got "
-                         f"{a.dtype} on {a.device}")
+    cuda_build.check_cuda_f32("lu kernel", a)
     a = a.contiguous()
     inv = torch.empty_like(a)
     ipiv = torch.empty(a.shape[:2], dtype=torch.int32, device=a.device)
@@ -81,16 +79,6 @@ def lu_inverse_cuda(a: torch.Tensor):
 lu_inverse_cuda.launches = 0
 
 
-def lu_inverse(a: torch.Tensor):
-    """K2 on a CUDA tensor, its plain version on a CPU tensor; any other
-    device raises."""
-    if a.device.type == "cuda":
-        return lu_inverse_cuda(a)
-    if a.device.type == "cpu":
-        return lu_inverse_plain(a)
-    raise ValueError(f"lu: unsupported device {a.device}")
-
-
 def inverse_lu(a: torch.Tensor) -> torch.Tensor:
     """Batched general-matrix inverse with partial pivoting (lane
     ``lu_pallas``): one K2 launch, then one fp32 Newton polish
@@ -104,7 +92,8 @@ def inverse_lu(a: torch.Tensor) -> torch.Tensor:
         return linalg.inverse_lu(a)
     cuda_build.check_kernel_input(a, "lu kernel")
     a32 = a.to(torch.float32)
-    x, _ = lu_inverse(a32)
+    x, _ = cuda_build.on_device(a32, "lu", lu_inverse_cuda, lu_inverse_plain,
+                                a32)
     eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
     x = x + linalg.matmul(x, eye - linalg.matmul(a32, x))
     return x.to(a.dtype)

@@ -27,6 +27,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def add_diagonal(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Batched ``B + diag(c)``; ``c`` is ``(batch, n)`` or ``(batch, n, 1)``."""
+    if c.ndim == 3:
+        c = c[..., 0]
+    eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
+    return b + eye * c[:, None, :]
+
+
 def _nan_where(info: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     bad = (info != 0).reshape(info.shape + (1,) * (x.ndim - info.ndim))
     return torch.where(bad, torch.full_like(x, float("nan")), x)
@@ -59,6 +67,20 @@ def inverse_cholesky(a: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse A⁻¹ = WᵀW with W = L⁻¹."""
     w = triangular_inverse_lower(cholesky(a))
     return matmul(w.mT, w)
+
+
+def spd_logdet(a: torch.Tensor) -> torch.Tensor:
+    """Batched log|A| of SPD matrices, 2·Σ log Lᵢᵢ: ``(batch,)`` (NaN for
+    a member that is not positive definite)."""
+    diag = torch.diagonal(cholesky(a), dim1=-2, dim2=-1)
+    return 2.0 * torch.log(diag).sum(dim=-1)
+
+
+def lu_logdet(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched ``(sign, log|A|)`` of general matrices by pivoted LU, as
+    ``numpy.linalg.slogdet``."""
+    sign, logdet = torch.linalg.slogdet(a)
+    return sign, logdet
 
 
 def lu_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -173,9 +173,7 @@ def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
 
     ``ns_iterate_cuda.launches`` counts the launches."""
     cuda_build.check_kernel_input(a, "newton_schulz kernel")
-    if a.device.type != "cuda" or a.dtype != torch.float32:
-        raise ValueError(f"newton_schulz kernel: needs a float32 CUDA "
-                         f"tensor, got {a.dtype} on {a.device}")
+    cuda_build.check_cuda_f32("newton_schulz kernel", a)
     lo = sched.lo_iters
     if lo > MAX_LO_ROUNDS:
         raise ValueError(f"newton_schulz kernel: lo_iters = {lo} exceeds "
@@ -196,16 +194,6 @@ def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
 
 
 ns_iterate_cuda.launches = 0
-
-
-def ns_iterate(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
-    """K1 on a CUDA tensor, its plain version (bf16 products) on a CPU
-    tensor; any other device raises."""
-    if a.device.type == "cuda":
-        return ns_iterate_cuda(a, sched)
-    if a.device.type == "cpu":
-        return ns_iterate_plain(a, sched, bf16_products=True)
-    raise ValueError(f"newton_schulz: unsupported device {a.device}")
 
 
 def inverse_newton_schulz_fixed(
@@ -238,7 +226,11 @@ def inverse_newton_schulz_fixed(
                 "exceeds the split-precision floor)", stacklevel=2)
         return inverse_newton_schulz(a, init=init)
     cuda_build.check_kernel_input(a, "newton_schulz kernel")
-    return ns_iterate(a.to(torch.float32), sched).to(a.dtype)
+    a32 = a.to(torch.float32)
+    # the plain version with bf16 products, the kernel's arithmetic
+    x = cuda_build.on_device(a32, "newton_schulz", ns_iterate_cuda,
+                             ns_iterate_plain, a32, sched)
+    return x.to(a.dtype)
 
 
 def _residual_inf(eye: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:

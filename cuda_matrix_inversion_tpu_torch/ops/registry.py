@@ -19,7 +19,12 @@ from __future__ import annotations
 import functools
 from typing import Callable, Mapping
 
-from cuda_matrix_inversion_tpu_torch.ops import cuda_lu, linalg, newton_schulz
+from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_cholesky,
+    cuda_lu,
+    linalg,
+    newton_schulz,
+)
 
 # Keyword arguments of every lane, as the JAX registry binds them.
 LANE_KEYWORDS: dict[str, dict] = {
@@ -33,6 +38,7 @@ LANE_KEYWORDS: dict[str, dict] = {
     "lu_pallas": {},
     "lu": {},
     "cholesky": {},
+    "cholesky_pallas": {},
 }
 
 _FUNCTIONS: dict[str, Callable] = {
@@ -45,6 +51,7 @@ _FUNCTIONS: dict[str, Callable] = {
     "lu_pallas": cuda_lu.inverse_lu,
     "lu": linalg.inverse_lu,
     "cholesky": linalg.inverse_cholesky,
+    "cholesky_pallas": cuda_cholesky.inverse_cholesky,
 }
 
 

@@ -13,10 +13,16 @@ import torch
 
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
 from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+    make_gp_batch,
     make_spd_batch,
     make_square_batch,
 )
-from cuda_matrix_inversion_tpu_torch.ops import cuda_lu, newton_schulz
+from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_cholesky,
+    cuda_gp,
+    cuda_lu,
+    newton_schulz,
+)
 from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
 
 pytestmark = pytest.mark.gpu
@@ -27,6 +33,16 @@ pytestmark = pytest.mark.gpu
 K1_RTOL = 2e-4
 # K2 repeats the plain version's operations in the same order
 K2_RTOL = 1e-5
+# K3/K4: both fp32, the same operations (K3's WᵀW in another summation
+# order), on SPD draws with κ ≈ 2–3
+CHOL_RTOL = 1e-5
+# K5: the same factor and substitution; the two dot products differ in
+# summation order
+K5_ATOL = 1e-5
+# K6: K1's arithmetic (2e-4 relative on K⁻¹-derived values), and the JAX
+# test's 1e-4 absolute on mean and var
+K6_RTOL = 2e-4
+K6_ATOL = 1e-4
 
 _K1_LANES = ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
              "newton_schulz_pallas", "newton_schulz_pan500_pallas")
@@ -85,9 +101,66 @@ def test_k2_matches_plain(cuda, kind, n):
     assert identity_error_inf(a[finite], polished[finite]) < 1e-4
 
 
+@pytest.mark.parametrize("n", [8, 20, 64, 128])
+def test_cholesky_kernels_match_plain(cuda, n):
+    """K4 and K3 against their plain versions; member 3 is indefinite and
+    is the only non-finite one."""
+    a = make_spd_batch(7, n, np.random.default_rng(200 + n)).astype(np.float32)
+    a[3] = -a[3]
+    at = torch.tensor(a, device=cuda)
+    l = cuda_cholesky.cholesky_cuda(at)
+    x = cuda_cholesky.inverse_cholesky_cuda(at)
+    torch.cuda.synchronize()
+    ok = np.arange(7) != 3
+    for out, ref in ((l, cuda_cholesky.cholesky_plain(at)),
+                     (x, cuda_cholesky.inverse_cholesky_plain(at))):
+        out, ref = out.cpu().numpy(), ref.cpu().numpy()
+        assert (np.isfinite(out).all(axis=(1, 2)) == ok).all()
+        assert (np.isfinite(ref).all(axis=(1, 2)) == ok).all()
+        assert _rel(out[ok], ref[ok]) <= CHOL_RTOL
+    x = x.cpu().numpy()
+    assert np.array_equal(x[ok], np.swapaxes(x[ok], 1, 2))
+    assert identity_error_inf(a[ok], x[ok]) < 1e-4
+    assert (np.triu(l.cpu().numpy()[ok], 1) == 0).all()
+
+
+@pytest.mark.parametrize("n", [8, 20, 64, 128])
+def test_gp_kernels_match_plain(cuda, n):
+    """K5 and K6 against their plain versions and the fp64 closed form;
+    system 3 is negative definite and is the only non-finite one."""
+    g = make_gp_batch(7, n, np.random.default_rng(300 + n))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=cuda)
+         for k, v in g.items()}
+    t["b"][3] = -t["b"][3]
+    flat = cuda_gp._flat(*(t[k] for k in "abcde"))
+    ref64 = np.stack([g["means"][:, 0, 0], g["variances"][:, 0, 0]], -1)
+    ok = np.arange(7) != 3
+    for kernel, plain, atol, rtol in (
+            (cuda_gp.gp_fused_cuda, cuda_gp.gp_fused_plain, K5_ATOL, 1.0),
+            (cuda_gp.gp_fused_ns_cuda, cuda_gp.gp_fused_ns_plain, K6_ATOL,
+             K6_RTOL)):
+        out = kernel(*flat)
+        torch.cuda.synchronize()
+        out, ref = out.cpu().numpy(), plain(*flat).cpu().numpy()
+        assert (np.isfinite(out).all(axis=1) == ok).all()
+        assert (np.isfinite(ref).all(axis=1) == ok).all()
+        assert np.abs(out[ok] - ref[ok]).max() <= atol
+        assert _rel(out[ok], ref[ok]) <= rtol
+        assert np.abs(out[ok] - ref64[ok]).max() < 1e-4
+
+
 def test_kernels_reject_n129_on_cuda(cuda):
     a = torch.eye(129, device=cuda)[None]
     with pytest.raises(ValueError, match="128"):
         newton_schulz.ns_iterate_cuda(a, LANES["newton_schulz_pallas"]["schedule"])
     with pytest.raises(ValueError, match="128"):
         cuda_lu.lu_inverse_cuda(a)
+    with pytest.raises(ValueError, match="128"):
+        cuda_cholesky.cholesky_cuda(a)
+    with pytest.raises(ValueError, match="128"):
+        cuda_cholesky.inverse_cholesky_cuda(a)
+    v = torch.ones(1, 129, device=cuda)
+    e = torch.ones(1, device=cuda)
+    for kernel in (cuda_gp.gp_fused_cuda, cuda_gp.gp_fused_ns_cuda):
+        with pytest.raises(ValueError, match="128"):
+            kernel(v, a, v, v, e)

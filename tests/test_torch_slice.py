@@ -23,6 +23,7 @@ from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
 from cuda_matrix_inversion_tpu_torch.io import fixtures
 from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_build,
+    cuda_cholesky,
     cuda_lu,
     host_api,
     newton_schulz,
@@ -32,7 +33,7 @@ from cuda_matrix_inversion_tpu_torch.ops.registry import (
     list_inverse_algorithms,
 )
 
-LANES = ["cholesky", "lu", "lu_pallas", "newton_schulz",
+LANES = ["cholesky", "cholesky_pallas", "lu", "lu_pallas", "newton_schulz",
          "newton_schulz_pallas", "newton_schulz_pan500_pallas",
          "newton_schulz_spd", "newton_schulz_spd10_pallas",
          "newton_schulz_spd_pallas"]
@@ -57,7 +58,7 @@ def test_registry_lanes():
 def test_inverse_batched_matches_jax(lane, batch, n):
     """≤ 2e-4 on the Newton-Schulz lanes (the port's CPU path rounds
     products to bf16 as the card does; JAX on the CPU computes them in
-    fp32), ≤ 1e-4 on lu_pallas, lu and cholesky."""
+    fp32), ≤ 1e-4 on lu_pallas, lu, cholesky and cholesky_pallas."""
     a = fixtures.make_spd_batch(batch, n, np.random.default_rng(n + batch)
                                 ).astype(np.float32)
     ref = jax_host_api.inverse_batched(a, algorithm=lane)
@@ -97,15 +98,16 @@ def test_solve_batched_matches_jax(method, rhs_shape):
 
 
 def test_cpu_tensors_do_not_launch_kernels():
-    newton_schulz.ns_iterate_cuda.launches = 0
-    cuda_lu.lu_inverse_cuda.launches = 0
+    counted = (newton_schulz.ns_iterate_cuda, cuda_lu.lu_inverse_cuda,
+               cuda_cholesky.inverse_cholesky_cuda)
+    for fn in counted:
+        fn.launches = 0
     a = torch.tensor(fixtures.make_spd_batch(3, 16, np.random.default_rng(1)),
                      dtype=torch.float32)
     for lane in LANES:
         assert identity_error_inf(a.numpy(), host_api.inverse_batched_device(
             a, lane).numpy()) < 1e-4
-    assert newton_schulz.ns_iterate_cuda.launches == 0
-    assert cuda_lu.lu_inverse_cuda.launches == 0
+    assert [fn.launches for fn in counted] == [0, 0, 0]
 
 
 def test_explicit_cuda_device_raises_without_cuda():
@@ -145,8 +147,8 @@ def test_nvcc_missing_is_a_clear_error(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """A subprocess that refuses any import of jax imports the port and
-    inverts a CPU batch through the registry."""
+    """A subprocess that refuses any import of jax imports the port,
+    inverts a CPU batch through the registry and runs every GP method."""
     code = textwrap.dedent("""
         import sys
         class NoJax:
@@ -163,6 +165,18 @@ def test_port_imports_no_jax():
             x = port.inverse_batched(a, lane, device="cpu")
             err = np.abs(a.astype(np.float64) @ x - np.eye(16)).sum(-1).max()
             assert err < 1e-4, (lane, err)
+        from cuda_matrix_inversion_tpu_torch.io.fixtures import make_gp_batch
+        from cuda_matrix_inversion_tpu_torch.models.gp import (
+            gp_mean_variance_host,
+        )
+        g = make_gp_batch(3, 16, np.random.default_rng(1))
+        f32 = [g[k].astype(np.float32) for k in "abcde"]
+        for method in ("solve", "inverse", "lu", "newton_schulz", "pallas",
+                       "pallas_ns"):
+            mean, var = gp_mean_variance_host(*f32, method=method,
+                                              device="cpu")
+            assert np.abs(mean - g["means"]).max() < 1e-4, method
+            assert np.abs(var - g["variances"]).max() < 1e-4, method
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
         print("ok")
     """)
