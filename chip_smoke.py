@@ -8,10 +8,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit;
 2. build: compiles the hand-written kernels (``csrc/*.cu``, sm_90a);
-3. kernels: each kernel (K1–K6) against its plain PyTorch version on the
-   card, at n ∈ {8, 20, 64, 128} and batch ∈ {1, 7, 100} (and 1600 at
-   n = 128); K3–K6 with one indefinite member per batch, which alone must
-   come out non-finite;
+3. kernels: each kernel (K1–K8, K10, K11) against its plain PyTorch
+   version on the card, at n ∈ {8, 20, 64, 128} and batch ∈ {1, 7, 100}
+   (and 1600 at n = 128; K7 also at n = 192); K2–K7 and K10 with one
+   singular or indefinite member per batch, K8 and K11 with one member
+   whose previous inverse holds a NaN, which alone must come out
+   non-finite;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -23,14 +25,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    forward step (batch 64, n = 128, ``solve``) through
    ``gp_mean_variance_host(..., device="cuda")``, and the Cholesky factor
    entry point; every mean and variance within 1e-4 of the fp64 closed
-   form.  Every kernel's launch counter must move in this phase;
+   form.  K1–K6's launch counters must move in this path.  Then the
+   serving and fitting path, with the counters reset: the engines
+   (``InversionEngine`` on ``gauss_pallas``, ``lu_pallas`` and the spd10
+   lane at 100×128 and 1600×128, its bf16 ``inverse_warm`` with and
+   without ``check``, a pan500 engine's split3 ``inverse_warm``;
+   ``GPEngine.mean_variance``, ``mean_variance_warm`` chained over 3
+   drifting timesteps, ``fit`` at 1600×128 for 150 steps, and the K10 fit
+   against the ``torch.linalg`` fit at 100×128), every result through the
+   gate or within 1e-4 of the fp64 closed form; K7, K8, K10 and K11's
+   counters must move in this path;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
-   ``solve`` method on cuSOLVER).
+   ``solve`` method on cuSOLVER); the warm lanes against the cold ones,
+   one fit step of each method, and one engine request NumPy in and out.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the last is ``{"kernels": [...]}`` with each kernel's
+bound (the larger of its bytes over the HBM rate and its operations over
+the peak rate of their type, for this run's shapes) and library time; the
+last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -69,6 +83,24 @@ GP_ATOL = 1e-4
 GP_METHODS = ("solve", "inverse", "lu", "newton_schulz", "pallas",
               "pallas_ns")
 TIMED_CALLS = 20
+# K7 vs plain, max-norm relative: the kernel repeats the plain version's
+# operations in order (IEEE division, no FMA contraction).
+K7_RTOL = 1e-5
+# K8 and K11 vs plain: K1's arithmetic from a warm start, K1's bound.
+WARM_RTOL = 2e-4
+# K10 vs plain: K5's factor and substitution and K3's W; the sums and
+# logarithms differ in order only.
+LML_RTOL = 1e-5
+# The K10 fit against the torch.linalg fit: the CPU test's bounds
+# (tests/test_torch_gp_fit.py), lml rtol / atol and θ atol.
+FIT_RTOL, FIT_ATOL, FIT_THETA_ATOL = 1e-3, 1e-2, 5e-3
+# Relative 2-norm drift between timesteps: SPD batches (the bf16 warm
+# lane's domain is the reference's SPD class, κ ≈ 2–3), general batches
+# (split3, κ ≤ 4n, δ·κ ≤ 0.05).
+WARM_DELTA, SPLIT3_DELTA = 1e-3, 1e-4
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): fp32
+# outside the tensor cores, dense bf16 tensor cores, HBM3.
+PEAK_FP32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
 
 
 def _rel(x, ref) -> float:
@@ -114,6 +146,403 @@ def _confined(out, bad: int | None, what: str, torch):
     return finite
 
 
+def _drift(a, delta: float, seed: int, symmetric: bool, torch):
+    """``a`` plus Gaussian noise of relative 2-norm ``delta`` per member
+    (symmetrised for SPD input), drawn on ``a``'s device from ``seed``."""
+    gen = torch.Generator(device=a.device).manual_seed(seed)
+    noise = torch.randn(a.shape, generator=gen, device=a.device,
+                        dtype=torch.float64)
+    if symmetric:
+        noise = (noise + noise.mT) / 2
+    a64 = a.double()
+    scale = (torch.linalg.matrix_norm(a64, ord=2)
+             / torch.linalg.matrix_norm(noise, ord=2))
+    return (a64 + delta * scale[:, None, None] * noise).float()
+
+
+def _compare(key, kernel, plain, args, bad, rtol, err, torch):
+    """Kernel against plain on the same inputs: member ``bad`` alone
+    non-finite in both, and every output within ``rtol`` (max-norm
+    relative, over the finite members) of the plain version's.  Records the
+    worst abs and rel error under ``err[key]``."""
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    entry = err.setdefault(key, {"abs": 0.0, "rel": 0.0})
+    for i, (x, r) in enumerate(zip(got, ref)):
+        what = f"{key.upper()} output {i} {tuple(x.shape)}"
+        ok = _confined(x, bad, what, torch)
+        _confined(r, bad, f"{what} plain", torch)
+        diff = float((x[ok] - r[ok]).abs().max())
+        rel = diff / float(r[ok].abs().max())
+        entry["abs"] = max(entry["abs"], diff)
+        entry["rel"] = max(entry["rel"], rel)
+        if not rel <= rtol:
+            raise AssertionError(f"{what}: kernel vs plain {rel:.3e} > "
+                                 f"{rtol:g}")
+
+
+def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
+    """Phase 3 for K7, K8 (bf16 and split3), K10 (plain and emit_w) and
+    K11 at one (batch, n): for batch > 1, member batch // 2 is singular
+    (K7: all ones), negative definite (K10), or starts from a previous
+    inverse holding a NaN (K8, K11), and alone must come out non-finite."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_spd_batch,
+        make_square_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_gauss_jordan,
+        cuda_gp,
+        cuda_gp_lml,
+        linalg,
+        newton_schulz,
+    )
+
+    bad = batch // 2 if batch > 1 else None
+    seed = 1000 * n + batch
+    gen = torch.tensor(make_square_batch(batch, n, rng), dtype=torch.float32,
+                       device=dev)
+    sing = gen.clone()
+    if bad is not None:
+        sing[bad] = 1.0
+    _compare("k7", cuda_gauss_jordan.gauss_jordan_cuda,
+             cuda_gauss_jordan.gauss_jordan_plain, (sing,), bad, K7_RTOL,
+             err, torch)
+    if k7_only:
+        return
+    spd = torch.tensor(make_spd_batch(batch, n, rng), dtype=torch.float32,
+                       device=dev)
+    for key, a0, delta, split3 in (("k8", spd, WARM_DELTA, False),
+                                   ("k8_split3", gen, SPLIT3_DELTA, True)):
+        x0 = torch.linalg.inv(a0.double()).float()
+        if bad is not None:
+            x0[bad, 0, 0] = float("nan")
+        a = _drift(a0, delta, seed, not split3, torch)
+        _compare(key, newton_schulz.ns_refine_cuda,
+                 newton_schulz.ns_refine_plain, (a, x0, 2, 1, split3), bad,
+                 WARM_RTOL, err, torch)
+    g = make_gp_batch(batch, n, rng)
+    t = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
+         for k in "abcde"}
+    b_bad = t["b"].clone()
+    if bad is not None:
+        b_bad[bad] = -b_bad[bad]
+    c, d = t["c"][..., 0].contiguous(), t["d"][..., 0].contiguous()
+    for key, emit_w in (("k10", False), ("k10_emit_w", True)):
+        _compare(key, cuda_gp_lml.lml_quad_logdet_cuda,
+                 cuda_gp_lml.lml_quad_logdet_plain, (b_bad, c, d, emit_w),
+                 bad, LML_RTOL, err, torch)
+    x0 = torch.linalg.inv(linalg.add_diagonal(t["b"], t["c"]).double()
+                          ).float()
+    if bad is not None:
+        x0[bad, 0, 0] = float("nan")
+    flat = cuda_gp._flat(t["a"], _drift(t["b"], WARM_DELTA, seed, True,
+                                        torch), t["c"], t["d"], t["e"])
+    _compare("k11", cuda_gp.gp_fused_warm_cuda, cuda_gp.gp_fused_warm_plain,
+             (*flat, x0), bad, WARM_RTOL, err, torch)
+
+
+def _fit_data(batch, n, seed):
+    """A fit batch as the CPU fit test draws it (tests/test_torch_gp_fit.py
+    ``_synth``): B = W Wᵀ + 0.05 I with rank 6, c ∈ [0.5, 1.5), d drawn from
+    K* = 1.8²·B + diag(0.5²·c)."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((batch, n, 6))
+    b = (w @ np.transpose(w, (0, 2, 1)) + 0.05 * np.eye(n)).astype(np.float32)
+    c = (rng.random((batch, n, 1)) + 0.5).astype(np.float32)
+    k = 1.8 ** 2 * b.astype(np.float64) + 0.5 ** 2 * np.eye(n) * c[:, :, 0][
+        :, None, :]
+    d = (np.linalg.cholesky(k) @ rng.standard_normal((batch, n, 1))
+         ).astype(np.float32)
+    return b, c, d
+
+
+def _engine_path(dev, cases, gp_host, gp_ref, torch):
+    """Phase 4's second path: the serving engines and the fit, NumPy in
+    and out, as a user calls them.  Returns one result line per check."""
+    from cuda_matrix_inversion_tpu_torch import GPEngine, InversionEngine
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+
+    lines = []
+
+    def gate(what, a, x):
+        err = identity_error_inf(a, x)
+        lines.append({"phase": "engine_path", "check": what, "gate": err})
+        if not (x.shape == a.shape and x.dtype == np.float32
+                and np.isfinite(x).all() and err < GATE):
+            raise AssertionError(f"{what}: gate {err:.3e} ({x.shape} "
+                                 f"{x.dtype})")
+
+    def closed_form(what, got, ref):
+        errs = [float(np.abs(x[:, 0, 0] - r).max()) for x, r in zip(got, ref)]
+        lines.append({"phase": "engine_path", "check": what,
+                      "mean_abs_err": errs[0], "var_abs_err": errs[1]})
+        if not max(errs) < GP_ATOL:
+            raise AssertionError(f"{what}: off the fp64 closed form {errs}")
+
+    eng = InversionEngine(algorithm="gauss_pallas", device=dev)
+    gate("gauss_pallas square_100x128", cases["square_100x128"],
+         eng.inverse(cases["square_100x128"]))
+    for algorithm in ("lu_pallas", "newton_schulz_spd10_pallas"):
+        eng = InversionEngine(algorithm=algorithm, device=dev)
+        for case in ("spd_100x128", "spd_1600x128"):
+            gate(f"{algorithm} {case}", cases[case],
+                 eng.inverse(cases[case]))
+    # warm serving: the spd10 engine's bf16 refinement (K8) of its own cold
+    # inverse after a drift, and a pan500 engine's split3 refinement
+    eng = InversionEngine(algorithm="newton_schulz_spd10_pallas", device=dev)
+    a = cases["spd_100x128"]
+    prev = eng.inverse(a)
+    a2 = _drift(torch.tensor(a), WARM_DELTA, 1, True, torch).numpy()
+    gate("spd10 inverse_warm bf16", a2, eng.inverse_warm(a2, prev))
+    gate("spd10 inverse_warm bf16 check", a2,
+         eng.inverse_warm(a2, prev, check=True))
+    eng = InversionEngine(algorithm="newton_schulz_pan500_pallas",
+                          device=dev)
+    sq = cases["square_100x128"]
+    prev = eng.inverse(sq)
+    sq2 = _drift(torch.tensor(sq), SPLIT3_DELTA, 2, False, torch).numpy()
+    gate("pan500 inverse_warm split3 check", sq2,
+         eng.inverse_warm(sq2, prev, check=True))
+
+    g = gp_host["gp_100x128"]
+    args = [g[k] for k in "abcde"]
+    closed_form("GPEngine pallas mean_variance gp_100x128",
+                GPEngine(method="pallas", device=dev).mean_variance(*args),
+                gp_ref["gp_100x128"])
+    # three drifting timesteps, the chain started from a cold K⁻¹
+    geng = GPEngine(device=dev)
+    n = g["b"].shape[-1]
+    kinv = np.linalg.inv(g["b"].astype(np.float64)
+                         + np.eye(n) * g["c"][:, :, 0][:, None, :]
+                         ).astype(np.float32)
+    b = g["b"]
+    for step in range(3):
+        b = _drift(torch.tensor(b), WARM_DELTA, 10 + step, True,
+                   torch).numpy()
+        mean, var, kinv = geng.mean_variance_warm(g["a"], b, g["c"], g["d"],
+                                                  g["e"], kinv)
+        closed_form(f"GPEngine mean_variance_warm step {step}", (mean, var),
+                    _gp_ref64(dict(g, b=b)))
+        k = b.astype(np.float64) + np.eye(n) * g["c"][:, :, 0][:, None, :]
+        gate(f"GPEngine mean_variance_warm step {step} kinv",
+             k.astype(np.float32), kinv)
+
+    fit = GPEngine(device=dev).fit(*_fit_data(1600, 128, 3), steps=150)
+    path = fit.lml_path
+    lines.append({"phase": "engine_path", "check": "GPEngine.fit 1600x128 "
+                  "150 steps", "lml_path_first": float(path[0]),
+                  "lml_path_last": float(path[-1])})
+    if not (np.isfinite(path).all() and np.isfinite(fit.lml).all()
+            and path[-1] > path[0] + 1.0):
+        raise AssertionError(f"GPEngine.fit: lml_path {path[0]} -> "
+                             f"{path[-1]}")
+    data = _fit_data(100, 128, 4)
+    res = {m: GPEngine(fit_method=m, device=dev).fit(*data, steps=60)
+           for m in ("pallas", "xla")}
+    k10, ref = res["pallas"], res["xla"]
+    diffs = {"lml": float(np.abs(k10.lml - ref.lml).max()),
+             "theta": float(max(np.abs(k10.log_amp - ref.log_amp).max(),
+                                np.abs(k10.log_noise - ref.log_noise).max()))}
+    lines.append({"phase": "engine_path", "check": "fit pallas vs xla "
+                  "100x128 60 steps", **diffs})
+    if not (np.allclose(k10.lml, ref.lml, rtol=FIT_RTOL, atol=FIT_ATOL)
+            and diffs["theta"] <= FIT_THETA_ATOL):
+        raise AssertionError(f"fit pallas vs xla: {diffs}")
+    return lines
+
+
+def _ns_products(lo: int, hi: int, split3: bool, polish_highest: bool = True):
+    """(fp32, bf16) matrix products of a Newton-Schulz schedule, as the
+    kernels run it: a one-pass product is 1 bf16 product, the 3-pass split
+    3, an fp32 residual 1 fp32 product."""
+    one = 3 if split3 else 1
+    fp32, bf16 = 0, 2 * lo * one
+    for i in range(hi):
+        final = (i == hi - 1) and polish_highest
+        if split3 or final:
+            fp32 += 1
+        else:
+            bf16 += 3
+        bf16 += one
+    return fp32, bf16
+
+
+def _bound(fp32_flops: float, bf16_flops: float, nbytes: float):
+    """(ms, "operations" | "bytes"): the least time the card could take,
+    the larger of the operations at the peak rate of their type and the
+    bytes at the HBM rate."""
+    ops = fp32_flops / PEAK_FP32 + bf16_flops / PEAK_BF16
+    mem = nbytes / PEAK_HBM
+    return (1e3 * max(ops, mem), "operations" if ops >= mem else "bytes")
+
+
+def _kernel_bounds(batch: int, n: int, sched_spd10, sched_spd):
+    """The bound of each kernel at (batch, n) fp32, counting each input
+    read once and each output written once."""
+    mat, vec = 4.0 * n * n, 4.0 * n
+    cube = 2.0 * n ** 3  # one n×n product
+
+    def ns(sched):
+        return _ns_products(sched.lo_iters, sched.hi_iters, sched.split3,
+                            sched.polish_highest)
+
+    f1, b1 = ns(sched_spd10)
+    f6, b6 = ns(sched_spd)
+    f8, b8 = _ns_products(2, 1, False)
+    per = {
+        "k1": (f1 * cube, b1 * cube, 2 * mat),
+        "k2": (cube, 0.0, 2 * mat + vec),
+        "k3": (n ** 3, 0.0, 2 * mat),
+        "k4": (n ** 3 / 3, 0.0, 2 * mat),
+        "k5": (n ** 3 / 3 + 4 * n * n, 0.0, mat + 3 * vec + 12),
+        "k6": (f6 * cube + 4 * n * n, b6 * cube, mat + 3 * vec + 12),
+        "k7": (cube, 0.0, 2 * mat),
+        "k8": (f8 * cube, b8 * cube, 3 * mat),
+        "k10": (2 * n ** 3 / 3 + 4 * n * n, 0.0, 2 * mat + 3 * vec + 8),
+        "k11": (f8 * cube + 4 * n * n, b8 * cube, 3 * mat + 3 * vec + 12),
+    }
+    return {k: _bound(batch * f, batch * b, batch * m)
+            for k, (f, b, m) in per.items()}
+
+
+def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
+    """Phase 5 for K7, K8, K10 and K11 at 100×128 and 1600×128: each
+    kernel beside its plain version and the library call, the warm lanes
+    beside the cold ones, one fit step of each method, and one engine
+    request NumPy in and out.  Fills ``timing`` and ``library`` under
+    (key, case) with case the SPD inversion case of the same batch."""
+    from cuda_matrix_inversion_tpu_torch import GPEngine, InversionEngine
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
+    from cuda_matrix_inversion_tpu_torch.models import gp, gp_fit
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_gauss_jordan,
+        cuda_gp,
+        cuda_gp_lml,
+        linalg,
+        newton_schulz,
+    )
+
+    def show(what, case, **ms):
+        print(json.dumps({"timing": what, "case": case, **ms, **card}),
+              flush=True)
+
+    squares = {"spd_100x128": dev_cases["square_100x128"],
+               "spd_1600x128": torch.tensor(make_square_batch(
+                   1600, 128, np.random.default_rng(2028)),
+                   dtype=torch.float32, device=dev)}
+    for batch, case, gp_case in ((100, "spd_100x128", "gp_100x128"),
+                                 (1600, "spd_1600x128", "gp_1600x128")):
+        sq = squares[case]
+        inv_ms = _median_ms(lambda: torch.linalg.inv(sq), torch)
+        ms = _median_ms(lambda: cuda_gauss_jordan.gauss_jordan_cuda(sq),
+                        torch)
+        plain_ms = _median_ms(
+            lambda: cuda_gauss_jordan.gauss_jordan_plain(sq), torch)
+        lane_ms = _median_ms(
+            lambda: cuda_gauss_jordan.inverse_gauss_jordan(sq), torch)
+        timing[("k7", case)], library[("k7", case)] = (ms, plain_ms), inv_ms
+        show("K7", case.replace("spd", "square"), kernel_ms=ms,
+             plain_ms=plain_ms, lane_gauss_pallas_ms=lane_ms,
+             torch_linalg_inv_ms=inv_ms)
+
+        a0 = dev_cases[case]
+        for key, base, delta, split3, cold_kw in (
+                ("k8", a0, WARM_DELTA, False, {"init": "spd"}),
+                ("k8_split3", sq, SPLIT3_DELTA, True,
+                 {"precision": "split3"})):
+            x0 = torch.linalg.inv(base.double()).float()
+            a = _drift(base, delta, batch, not split3, torch)
+            precision = "split3" if split3 else "bf16"
+            ms = _median_ms(lambda: newton_schulz.ns_refine_cuda(
+                a, x0, 2, 1, split3), torch)
+            plain_ms = _median_ms(lambda: newton_schulz.ns_refine_plain(
+                a, x0, 2, 1, split3), torch)
+            warm_ms = _median_ms(
+                lambda: newton_schulz.inverse_newton_schulz_warm(
+                    a, x0, precision=precision), torch)
+            cold_ms = _median_ms(
+                lambda: newton_schulz.inverse_newton_schulz_fixed(
+                    a, **cold_kw), torch)
+            inv_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
+            timing[(key, case)], library[(key, case)] = (ms, plain_ms), inv_ms
+            show(key.upper(), case if not split3 else
+                 case.replace("spd", "square"), kernel_ms=ms,
+                 plain_ms=plain_ms, warm_lane_ms=warm_ms,
+                 cold_lane_ms=cold_ms, cold_lane=cold_kw,
+                 torch_linalg_inv_ms=inv_ms)
+
+        b, c, d = (torch.tensor(x, device=dev)
+                   for x in _fit_data(batch, 128, 5))
+        c2, d2 = c[..., 0].contiguous(), d[..., 0].contiguous()
+        for key, emit_w in (("k10", False), ("k10_emit_w", True)):
+            ms = _median_ms(lambda: cuda_gp_lml.lml_quad_logdet_cuda(
+                b, c2, d2, emit_w), torch)
+            plain_ms = _median_ms(lambda: cuda_gp_lml.lml_quad_logdet_plain(
+                b, c2, d2, emit_w), torch)
+            timing[(key, case)], library[(key, case)] = (ms, plain_ms), None
+            show(key.upper(), f"fit_{batch}x128", kernel_ms=ms,
+                 plain_ms=plain_ms)
+        step_ms = {}
+        for method in ("pallas", "xla"):
+            theta = torch.zeros((batch, 2), device=dev, requires_grad=True)
+            opt = torch.optim.Adam([theta], lr=0.05)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                loss = -gp_fit._batch_lml(theta, b, c, d,
+                                          method=method).mean()
+                loss.backward()
+                opt.step()
+
+            step_ms[method] = _median_ms(step, torch)
+        lml_xla_ms = _median_ms(lambda: gp.gp_log_marginal_likelihood(
+            b, c, d), torch)
+        show("fit_step", f"fit_{batch}x128", pallas_ms=step_ms["pallas"],
+             xla_ms=step_ms["xla"], lml_forward_xla_ms=lml_xla_ms)
+
+        ga, gb, gc, gd, ge = gp_dev[gp_case]
+        x0 = torch.linalg.inv(linalg.add_diagonal(gb, gc).double()).float()
+        flat = cuda_gp._flat(ga, _drift(gb, WARM_DELTA, batch, True, torch),
+                             gc, gd, ge)
+        ms = _median_ms(lambda: cuda_gp.gp_fused_warm_cuda(*flat, x0), torch)
+        plain_ms = _median_ms(lambda: cuda_gp.gp_fused_warm_plain(*flat, x0),
+                              torch)
+        k6_ms = _median_ms(lambda: cuda_gp.gp_fused_ns_cuda(*flat), torch)
+        solve_ms = _median_ms(lambda: gp.gp_mean_variance(
+            ga, gb, gc, gd, ge, method="solve"), torch)
+        timing[("k11", gp_case)] = (ms, plain_ms)
+        library[("k11", gp_case)] = solve_ms
+        show("K11", gp_case, kernel_ms=ms, plain_ms=plain_ms,
+             k6_cold_kernel_ms=k6_ms, solve_method_ms=solve_ms)
+
+    # one engine request, NumPy in and out, host clock (ends in the copy
+    # back, which waits for the device)
+    a = dev_cases["spd_100x128"].cpu().numpy()
+    eng = InversionEngine(algorithm="newton_schulz_spd10_pallas", device=dev)
+    eng.warmup([a.shape[:2]])
+    g = [x.cpu().numpy() for x in gp_dev["gp_100x128"]]
+    geng = GPEngine(method="pallas", device=dev)
+    geng.warmup([(100, 128)])
+    for what, fn in (("InversionEngine spd10 inverse",
+                      lambda: eng.inverse(a)),
+                     ("GPEngine pallas mean_variance",
+                      lambda: geng.mean_variance(*g))):
+        times = []
+        for _ in range(TIMED_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        show("engine_request", "100x128 numpy in/out", request=what,
+             ms=statistics.median(times))
+
+
 def main() -> int:
     import torch
 
@@ -131,7 +560,9 @@ def main() -> int:
     from cuda_matrix_inversion_tpu_torch.ops import (
         cuda_build,
         cuda_cholesky,
+        cuda_gauss_jordan,
         cuda_gp,
+        cuda_gp_lml,
         cuda_lu,
         host_api,
         linalg,
@@ -169,6 +600,7 @@ def main() -> int:
     k1_err = {"abs": 0.0, "rel": 0.0}
     k2_err = {"abs": 0.0, "rel_spd": 0.0, "rel_general": 0.0}
     gp_err = {k: {"abs": 0.0, "rel": 0.0} for k in ("k3", "k4", "k5", "k6")}
+    new_err = {}  # K7, K8, K10, K11 (_compare's keys)
     shapes = [(b, n) for n in (8, 20, 64, 128) for b in (1, 7, 100)]
     shapes.append((1600, 128))
     for batch, n in shapes:
@@ -267,8 +699,13 @@ def main() -> int:
             elif key == "k6" and not (diff <= K6_ATOL and rel <= K6_RTOL):
                 raise AssertionError(f"{what}: kernel vs plain {diff:.3e} "
                                      f"abs, {rel:.3e} rel")
+        _new_kernels_vs_plain(batch, n, rng, dev, new_err, torch)
+    for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
+        _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
+                              dev, new_err, torch, k7_only=True)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
-                      "k1": k1_err, "k2": k2_err, **gp_err}), flush=True)
+                      "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
+          flush=True)
 
     # ---- 4. the main path ----
     rng = np.random.default_rng(2026)
@@ -307,7 +744,13 @@ def main() -> int:
                 "k3": cuda_cholesky.inverse_cholesky_cuda,
                 "k4": cuda_cholesky.cholesky_cuda,
                 "k5": cuda_gp.gp_fused_cuda,
-                "k6": cuda_gp.gp_fused_ns_cuda}
+                "k6": cuda_gp.gp_fused_ns_cuda,
+                "k7": cuda_gauss_jordan.gauss_jordan_cuda,
+                "k8": newton_schulz.ns_refine_cuda,
+                "k10": cuda_gp_lml.lml_quad_logdet_cuda,
+                "k11": cuda_gp.gp_fused_warm_cuda}
+    inversion_path = ("k1", "k2", "k3", "k4", "k5", "k6")
+    engine_path = ("k7", "k8", "k10", "k11")
 
     for fn in counters.values():
         fn.launches = 0
@@ -388,14 +831,30 @@ def main() -> int:
                       "launches": launches}), flush=True)
     if not l_rel < GATE:
         raise AssertionError(f"cholesky: {l_rel:.3e} off the fp64 factor")
-    if not all(launches.values()):
+    if not all(launches[k] for k in inversion_path):
         raise AssertionError(f"main path did not launch every kernel: "
                              f"{launches}")
+
+    # the serving and fitting path, counted on its own
+    for fn in counters.values():
+        fn.launches = 0
+    engine_lines = _engine_path(dev, cases, gp_host, gp_ref, torch)
+    torch.cuda.synchronize()
+    engine_launches = {key: fn.launches for key, fn in counters.items()}
+    for line in engine_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "engine_path", "launches": engine_launches}),
+          flush=True)
+    if not all(engine_launches[k] for k in engine_path):
+        raise AssertionError(f"engine path did not launch every kernel: "
+                             f"{engine_launches}")
+    launches = {k: launches[k] + engine_launches[k] for k in counters}
 
     # ---- 5. timing ----
     name, limit = [s.strip() for s in smi.split(",", 1)]
     card = {"card": name, "power_limit": limit}
     timing = {}
+    library = {}  # the one PyTorch call computing the same function
     for case in ("spd_100x128", "spd_1600x128"):
         a = dev_cases[case]
         linalg_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
@@ -414,6 +873,7 @@ def main() -> int:
             plain_ms = _median_ms(
                 lambda: newton_schulz.ns_iterate_plain(a, sched), torch)
             timing[("k1", lane, case)] = (ms, plain_ms)
+            library[("k1", lane, case)] = linalg_ms
             print(json.dumps({"timing": "K1", "lane": lane, "case": case,
                               "kernel_ms": ms, "plain_ms": plain_ms,
                               "torch_linalg_inv_ms": linalg_ms, **card}),
@@ -421,6 +881,7 @@ def main() -> int:
         ms = _median_ms(lambda: cuda_lu.lu_inverse_cuda(a), torch)
         plain_ms = _median_ms(lambda: cuda_lu.lu_inverse_plain(a), torch)
         timing[("k2", "lu_pallas", case)] = (ms, plain_ms)
+        library[("k2", "lu_pallas", case)] = linalg_ms
         print(json.dumps({"timing": "K2", "lane": "lu_pallas", "case": case,
                           "kernel_ms": ms, "plain_ms": plain_ms,
                           "torch_linalg_inv_ms": linalg_ms, **card}),
@@ -436,6 +897,8 @@ def main() -> int:
             ms = _median_ms(lambda: kernel(a), torch)
             plain_ms = _median_ms(lambda: plain(a), torch)
             timing[(key, case)] = (ms, plain_ms)
+            library[(key, case)] = (lane_ms["cholesky"] if key == "k3"
+                                    else chol_ms)
             print(json.dumps({"timing": key.upper(), "lane": lane,
                               "case": case, "kernel_ms": ms,
                               "plain_ms": plain_ms, "lane_ms": lane_t,
@@ -461,21 +924,36 @@ def main() -> int:
             ms = _median_ms(lambda: kernel(*flat), torch)
             plain_ms = _median_ms(lambda: plain(*flat), torch)
             timing[(key, case)] = (ms, plain_ms)
+            library[(key, case)] = method_ms["solve"]
             print(json.dumps({"timing": key.upper(), "method": method,
                               "case": case, "kernel_ms": ms,
                               "plain_ms": plain_ms,
                               "lane_ms": method_ms[method],
                               "solve_method_ms": method_ms["solve"],
                               **card}), flush=True)
+    _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch)
+
+    scheds = (LANES["newton_schulz_spd10_pallas"]["schedule"],
+              cuda_gp.GP_NS_SCHEDULE)
+    bounds = _kernel_bounds(100, 128, *scheds)
+    print(json.dumps({"bounds_ms": {
+        f"{batch}x128": {k: v[0] for k, v in
+                         _kernel_bounds(batch, 128, *scheds).items()}
+        for batch in (100, 1600)}, "peaks": {
+            "fp32": PEAK_FP32, "bf16": PEAK_BF16, "hbm": PEAK_HBM}}),
+          flush=True)
 
     def entry_line(key, title, source, replaces, ms_key):
-        err = {"k1": k1_err, "k2": k2_err, **gp_err}[key]
+        err = {"k1": k1_err, "k2": k2_err, **gp_err, **new_err}[
+            "k10_emit_w" if key == "k10" else key]
         ms, plain_ms = timing[ms_key]
+        bound_ms, bound_by = bounds[key]
         return {"name": title, "route": "cuda",
                 "source": f"cuda_matrix_inversion_tpu_torch/csrc/{source}",
                 "replaces": f"cuda_matrix_inversion_tpu/ops/{replaces}",
                 "launches": launches[key], "max_abs_err": err["abs"],
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library.get(ms_key)}
 
     kernels = [
         entry_line("k1", "K1 newton_schulz (spd10 schedule, 100x128)",
@@ -493,6 +971,18 @@ def main() -> int:
         entry_line("k6", "K6 fused GP mean/variance, Newton-Schulz "
                    "(100x128)", "gp.cu", "pallas_gp.py:606",
                    ("k6", "gp_100x128")),
+        entry_line("k7", "K7 gauss_jordan (pivoted, no polish, square "
+                   "100x128)", "gauss_jordan.cu",
+                   "pallas_gauss_jordan.py:244", ("k7", "spd_100x128")),
+        entry_line("k8", "K8 newton_schulz warm (bf16, 2+1 rounds, drifted "
+                   "spd 100x128)", "newton_schulz.cu", "newton_schulz.py:742",
+                   ("k8", "spd_100x128")),
+        entry_line("k10", "K10 fused GP log marginal likelihood (emit_w, "
+                   "the fit's forward, 100x128)", "gp.cu", "pallas_gp.py:304",
+                   ("k10_emit_w", "spd_100x128")),
+        entry_line("k11", "K11 fused GP mean/variance, warm Newton-Schulz "
+                   "(100x128)", "gp.cu", "pallas_gp.py:491",
+                   ("k11", "gp_100x128")),
     ]
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)
     print(smi)

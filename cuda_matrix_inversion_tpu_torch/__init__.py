@@ -2,14 +2,16 @@
 ``cuda_matrix_inversion_tpu``.
 
 Batched inversion of many small dense matrices through the same registry
-of algorithms as the JAX package, and the Gaussian-Process mean/variance
-pipeline on top of it.  The fixed-schedule Newton-Schulz, pivoted LU and
-Cholesky lanes and the fused GP methods run hand-written CUDA kernels
-(``csrc/``, built for ``sm_90a`` at first use) on CUDA tensors, and their
-plain PyTorch versions on CPU tensors.  This package imports ``torch`` and
-never ``jax``.
+of algorithms as the JAX package, the Gaussian-Process mean/variance
+pipeline and its hyper-parameter fit on top of it, and the bucketed serving
+engines.  The fixed-schedule and warm-start Newton-Schulz, pivoted LU,
+Gauss-Jordan and Cholesky lanes, the fused GP methods and the fused log
+marginal likelihood run hand-written CUDA kernels (``csrc/``, built for
+``sm_90a`` at first use) on CUDA tensors, and their plain PyTorch versions
+on CPU tensors.  This package imports ``torch`` and never ``jax``.
 """
 
+from cuda_matrix_inversion_tpu_torch.engine import GPEngine, InversionEngine
 from cuda_matrix_inversion_tpu_torch.models.gp import (
     gp_log_marginal_likelihood,
     gp_mean,
@@ -19,6 +21,10 @@ from cuda_matrix_inversion_tpu_torch.models.gp import (
     gp_mean_variance_multi,
     gp_variance,
     gp_variance_host,
+)
+from cuda_matrix_inversion_tpu_torch.models.gp_fit import (
+    GPFitResult,
+    fit_gp_scales,
 )
 from cuda_matrix_inversion_tpu_torch.ops.host_api import (
     SingularBatchError,
@@ -34,7 +40,11 @@ from cuda_matrix_inversion_tpu_torch.ops.registry import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "GPEngine",
+    "GPFitResult",
+    "InversionEngine",
     "SingularBatchError",
+    "fit_gp_scales",
     "get_inverse_algorithm",
     "gp_log_marginal_likelihood",
     "gp_mean",

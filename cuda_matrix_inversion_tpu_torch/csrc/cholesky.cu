@@ -75,19 +75,7 @@ __global__ void __launch_bounds__(kThreads)
   load_matrix(a, L, n, ld);
   __syncthreads();
   chol_factor(L, n, ld);
-
-  // W = L^-1, thread j owns column j: the forward substitution of
-  // L w = e_j, in the order of the plain version (row k divided by L[k][k],
-  // then eliminated from the rows below).  Rows k < j stay zero.
-  for (int j = tid; j < n; j += kThreads) {
-    for (int i = 0; i < n; ++i) W[i * ld + j] = i == j ? 1.f : 0.f;
-    for (int k = j; k < n; ++k) {
-      const float wk = W[k * ld + j] / L[k * ld + k];
-      W[k * ld + j] = wk;
-      for (int i = k + 1; i < n; ++i)
-        W[i * ld + j] = __fsub_rn(W[i * ld + j], __fmul_rn(L[i * ld + k], wk));
-    }
-  }
+  chol_tri_inverse(L, W, n, ld);  // W = L^-1, thread j owns column j
   __syncthreads();
 
   // A^-1 = W^T W: acc[r][c] = sum_m W[m][i] W[m][j] with i = ty + 16r,

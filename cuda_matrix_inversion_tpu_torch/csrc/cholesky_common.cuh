@@ -1,5 +1,6 @@
-// Device code shared by K3, K4 (cholesky.cu) and K5 (gp.cu): one
-// right-looking Cholesky factorization of a matrix held in shared memory.
+// Device code shared by K3, K4 (cholesky.cu) and K5, K10 (gp.cu): one
+// right-looking Cholesky factorization of a matrix held in shared memory,
+// and the inverse W = L^-1 of the factor (K3 and K10's emit_w variant).
 //
 // Arithmetic, column k (the JAX kernel's _cholesky_factor_body):
 //   inv = 1 / sqrtf(K[k][k])      IEEE sqrt and a true division, never
@@ -48,6 +49,25 @@ __device__ __forceinline__ void chol_factor(float* K, int n, int ld) {
         K[i * ld + j] = __fsub_rn(K[i * ld + j], __fmul_rn(lik, K[j * ld + k]));
     }
     __syncthreads();
+  }
+}
+
+// W = L^-1 for the factor in the lower triangle of L (row stride ld), into
+// W (row stride ld), zeros above the diagonal.  Thread j owns column j: the
+// forward substitution of L w = e_j, in the order of the plain version
+// (row k divided by L[k][k], then eliminated from the rows below), with no
+// barrier inside.  The caller has passed a barrier since L was written and
+// adds one before W is read by other threads.
+__device__ __forceinline__ void chol_tri_inverse(const float* L, float* W,
+                                                 int n, int ld) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    for (int i = 0; i < n; ++i) W[i * ld + j] = i == j ? 1.f : 0.f;
+    for (int k = j; k < n; ++k) {
+      const float wk = W[k * ld + j] / L[k * ld + k];
+      W[k * ld + j] = wk;
+      for (int i = k + 1; i < n; ++i)
+        W[i * ld + j] = __fsub_rn(W[i * ld + j], __fmul_rn(L[i * ld + k], wk));
+    }
   }
 }
 

@@ -1,5 +1,6 @@
-// K5 and K6: the fused GP mean/variance, one thread block per system, for
-// sm_90a.  For every system of the batch, with K = B + diag(c),
+// K5, K6 and K11: the fused GP mean/variance, and K10: the fused log
+// marginal likelihood, one thread block per system, for sm_90a.  For every
+// system of the batch, with K = B + diag(c),
 //     mean = a^T K^-1 d,    var = e - a^T K^-1 a,
 // and only those two floats are written, so device memory sees B read once.
 //
@@ -29,6 +30,24 @@
 // with no block barrier, and its dot products are warp reductions.
 // Tensor-core products, blocked factors and several systems per block are
 // later work.
+//
+// K11 replaces ops/pallas_gp.py::_gp_warm_kernel (pallas_call in
+// gp_mean_variance_fused_warm): K6 with X loaded from the previous
+// timestep's K^-1 instead of seeded, K8's unscaled rounds (2 + 1 by
+// default), the same fp32 epilogue, and the refined X written back so the
+// caller can chain it into the next timestep.  Device memory sees B and X0
+// read and X written once; the chain of products is 6 instead of K6's 16.
+//
+// K10 replaces ops/pallas_gp.py::_gp_lml_kernel (pallas_call in
+// _lml_fused_quad_logdet): per system quad = d^T K^-1 d and
+// logdet = 2 sum_k log L[k][k].  Without emit_w it factors K (the shared
+// chol_factor) and one warp forward-solves y = L^-1 d as K5 does,
+// quad = y . y; n (n+1) + 2n fp32 of shared memory.  With emit_w (the
+// autograd forward) it also forms W = L^-1 by K3's column-owned
+// substitution (chol_tri_inverse), t = W d (thread i owns row i),
+// alpha = W^T t = K^-1 d (thread j owns column j), quad = t . t, and writes
+// W and alpha for the backward; 2 n (n+1) + 2n fp32.  Bound as K5 and K3:
+// the factor's serial chain, then the substitution's longest column.
 
 #include <cuda_runtime.h>
 
@@ -110,6 +129,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The fp32 epilogue of K6 and K11 from X ~= K^-1 in sX and sv = [d a]:
+// x_d[j] = sum_i d[i] X[i][j] and x_a likewise (thread j), then
+// mean = x_d . a and var = e - x_a . a into out[0], out[1].  The block has
+// passed a barrier since sX was written.
+template <int M>
+__device__ __forceinline__ void ns_gp_epilogue(const float* sX,
+                                               const float* sv, int n,
+                                               float e, float* out,
+                                               float* red) {
+  constexpr int LD = 16 * M + 1;
+  const int tid = threadIdx.x;
+  float mean_part = 0.f, quad_part = 0.f;
+  if (tid < n) {
+    float xd = 0.f, xa = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float xij = sX[i * LD + tid];
+      xd = fmaf(sv[i], xij, xd);
+      xa = fmaf(sv[n + i], xij, xa);
+    }
+    mean_part = __fmul_rn(xd, sv[n + tid]);
+    quad_part = __fmul_rn(xa, sv[n + tid]);
+  }
+  const float mean = block_sum(mean_part, red);
+  const float quad = block_sum(quad_part, red);
+  if (tid == 0) {
+    out[0] = mean;
+    out[1] = e - quad;
+  }
+}
+
 template <int M>
 __global__ void __launch_bounds__(kThreads)
     gp_ns_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -141,37 +190,142 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  ns_rounds<M>(sA, sX, sT, prm, red);
+  ns_seed<M>(sA, sX, prm, red);
+  ns_rounds<M>(sA, sX, sT, prm);
+  ns_gp_epilogue<M>(sX, sv, n, e[sys], out + 2 * sys, red);
+}
 
-  // x_d[j] = sum_i d[i] X[i][j] and x_a likewise (thread j), in fp32
-  float mean_part = 0.f, quad_part = 0.f;
-  if (tid < n) {
-    float xd = 0.f, xa = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float xij = sX[i * LD + tid];
-      xd = fmaf(sv[i], xij, xd);
-      xa = fmaf(sv[n + i], xij, xa);
-    }
-    mean_part = __fmul_rn(xd, sv[n + tid]);
-    quad_part = __fmul_rn(xa, sv[n + tid]);
+// K11: K6 with X loaded from x0 and the refined X written to kinv.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+    gp_warm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ c, const float* __restrict__ d,
+                   const float* __restrict__ e, const float* __restrict__ x0,
+                   float* __restrict__ out, float* __restrict__ kinv,
+                   NSParams prm) {
+  constexpr int NP = 16 * M;
+  constexpr int LD = NP + 1;
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads / 32];
+  float* sA = smem;
+  float* sX = sA + NP * LD;
+  float* sT = sX + NP * LD;
+  float* sv = sT + NP * LD;  // sv[0..n) = d, sv[n..2n) = a
+  const int n = prm.n;
+  const int tid = threadIdx.x;
+  const size_t sys = blockIdx.x;
+  const float* bs = b + sys * n * n;
+  const float* cs = c + sys * n;
+  const float* xs = x0 + sys * n * n;
+  for (int x = tid; x < NP * NP; x += kThreads) {
+    const int i = x / NP, j = x % NP;
+    const bool in = i < n && j < n;
+    sA[i * LD + j] = in ? stage_k(bs, cs, i, j, n) : 0.f;
+    sX[i * LD + j] = in ? xs[i * n + j] : 0.f;
+    sT[i * LD + j] = 0.f;
   }
-  const float mean = block_sum(mean_part, red);
-  const float quad = block_sum(quad_part, red);
-  if (tid == 0) {
-    out[2 * sys] = mean;
-    out[2 * sys + 1] = e[sys] - quad;
+  for (int i = tid; i < n; i += kThreads) {
+    sv[i] = d[sys * n + i];
+    sv[n + i] = a[sys * n + i];
+  }
+  __syncthreads();
+
+  ns_rounds<M>(sA, sX, sT, prm);
+  ns_gp_epilogue<M>(sX, sv, n, e[sys], out + 2 * sys, red);
+  float* ks = kinv + sys * n * n;
+  for (int x = tid; x < n * n; x += kThreads) ks[x] = sX[(x / n) * LD + x % n];
+}
+
+// K10.  EMIT_W = false: quad and logdet only; true: also W = L^-1 and
+// alpha = K^-1 d.
+template <bool EMIT_W>
+__global__ void __launch_bounds__(kThreads)
+    gp_lml_kernel(const float* __restrict__ b, const float* __restrict__ c,
+                  const float* __restrict__ d, float* __restrict__ out,
+                  float* __restrict__ w_out, float* __restrict__ alpha_out,
+                  int n) {
+  extern __shared__ float smem[];
+  const int ld = chol_ld(n);
+  float* K = smem;
+  float* W = smem + n * ld;                     // EMIT_W only
+  float* v = smem + (EMIT_W ? 2 : 1) * n * ld;  // v[0..n) = d, v[n..2n) = t
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t sys = blockIdx.x;
+  const float* bs = b + sys * n * n;
+  const float* cs = c + sys * n;
+  for (int x = tid; x < n * n; x += kThreads) {
+    const int i = x / n, j = x % n;
+    K[i * ld + j] = stage_k(bs, cs, i, j, n);
+  }
+  for (int i = tid; i < n; i += kThreads) v[i] = d[sys * n + i];
+  __syncthreads();
+  chol_factor(K, n, ld);
+
+  const float* u = v;  // the vector whose squares sum to quad
+  if (!EMIT_W) {
+    if (warp == 0) {
+      // L y = d in place, in the plain version's order (as K5)
+      for (int k = 0; k < n; ++k) {
+        const float yk = v[k] / K[k * ld + k];
+        __syncwarp();
+        if (lane == 0) v[k] = yk;
+        for (int i = k + 1 + lane; i < n; i += 32)
+          v[i] = __fsub_rn(v[i], __fmul_rn(K[i * ld + k], yk));
+        __syncwarp();
+      }
+    }
+  } else {
+    chol_tri_inverse(K, W, n, ld);
+    __syncthreads();
+    // t = W d, thread i owns row i (W is zero above the diagonal)
+    for (int i = tid; i < n; i += kThreads) {
+      float t = 0.f;
+      for (int k = 0; k <= i; ++k) t = fmaf(W[i * ld + k], v[k], t);
+      v[n + i] = t;
+    }
+    __syncthreads();
+    // alpha = W^T t, thread j owns column j
+    for (int j = tid; j < n; j += kThreads) {
+      float s = 0.f;
+      for (int i = j; i < n; ++i) s = fmaf(W[i * ld + j], v[n + i], s);
+      alpha_out[sys * n + j] = s;
+    }
+    float* ws = w_out + sys * n * n;
+    for (int x = tid; x < n * n; x += kThreads) {
+      const int i = x / n, j = x % n;
+      ws[x] = j <= i ? W[i * ld + j] : 0.f;
+    }
+    u = v + n;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float q = 0.f, ld_sum = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      q = fmaf(u[i], u[i], q);
+      ld_sum += logf(K[i * ld + i]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+      ld_sum += __shfl_xor_sync(0xffffffffu, ld_sum, o);
+    }
+    if (lane == 0) {
+      out[2 * sys] = q;
+      out[2 * sys + 1] = 2.f * ld_sum;
+    }
   }
 }
 
-template <typename Kernel, typename Arg>
+template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
-                   const float* a, const float* b, const float* c,
-                   const float* d, const float* e, float* out, Arg arg) {
+                   Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch, kThreads, smem, stream>>>(a, b, c, d, e, out, arg);
+  kernel<<<batch, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -221,5 +375,56 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
     case 4: err = launch(gp_ns_kernel<4>, smem, batch, s, a, b, c, d, e, out, prm); break;
     default: err = launch(gp_ns_kernel<8>, smem, batch, s, a, b, c, d, e, out, prm); break;
   }
+  return static_cast<int>(err);
+}
+
+// K11.  As cmi_gp_fused_ns, with X loaded from x0 (batch, n, n) instead of
+// seeded, `lo` unscaled bf16 rounds and `hi` polish rounds (the last
+// residual in fp32), and the refined X written to kinv (batch, n, n).
+extern "C" int cmi_gp_fused_warm(const float* a, const float* b,
+                                 const float* c, const float* d,
+                                 const float* e, float* out, int batch, int n,
+                                 const float* x0, float* kinv, int lo, int hi,
+                                 int device, void* stream) {
+  NSParams prm;
+  if (batch < 0 || !make_warm_params(n, lo, hi, /*split3=*/0, &prm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = ns_tile(n);
+  const size_t np = 16ull * m;
+  const size_t smem = (3 * np * (np + 1) + 2ull * n) * sizeof(float);
+  switch (m) {
+    case 1: err = launch(gp_warm_kernel<1>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
+    case 2: err = launch(gp_warm_kernel<2>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
+    case 4: err = launch(gp_warm_kernel<4>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
+    default: err = launch(gp_warm_kernel<8>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
+  }
+  return static_cast<int>(err);
+}
+
+// K10.  b: (batch, n, n); c, d: (batch, n); out: (batch, 2) = [quad,
+// logdet]; with emit_w also w: (batch, n, n) = L^-1 and alpha: (batch, n) =
+// K^-1 d (both ignored, and may be null, without it).  All fp32,
+// contiguous, on `device`.  Returns the CUDA error of the launch.
+extern "C" int cmi_gp_lml(const float* b, const float* c, const float* d,
+                          float* out, float* w, float* alpha, int batch,
+                          int n, int emit_w, int device, void* stream) {
+  if (n < 1 || n > kMaxN || batch < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t mats = emit_w ? 2 : 1;
+  const size_t smem = (mats * n * chol_ld(n) + 2ull * n) * sizeof(float);
+  if (emit_w)
+    err = launch(gp_lml_kernel<true>, smem, batch, s, b, c, d, out, w, alpha,
+                 n);
+  else
+    err = launch(gp_lml_kernel<false>, smem, batch, s, b, c, d, out, w, alpha,
+                 n);
   return static_cast<int>(err);
 }

@@ -1,5 +1,5 @@
-// K1: fixed-schedule scaled Newton-Schulz batched inverse, one thread block
-// per matrix, for sm_90a.
+// K1: fixed-schedule scaled Newton-Schulz batched inverse, and K8: its
+// warm-start refinement, one thread block per matrix, for sm_90a.
 //
 // Replaces the TPU kernel cuda_matrix_inversion_tpu/ops/newton_schulz.py::
 // ns_vmem_iterate / ns_vmem_rounds (pallas_call in
@@ -32,8 +32,21 @@
 // (16M + 1) so the column reads of the left operand hit distinct banks.
 // Products into an operand (X = X T, X = X + X R) finish all reads before a
 // barrier and only then write.  Tensor cores (mma.sync / wgmma) and
-// splitting a matrix across blocks are later work.  The product routine and
-// the round loop live in ns_common.cuh, which K6 (gp.cu) shares.
+// splitting a matrix across blocks are later work.  The product routine,
+// the seed and the round loop live in ns_common.cuh, which K6 and K11
+// (gp.cu) share.
+//
+// K8 replaces cuda_matrix_inversion_tpu/ops/newton_schulz.py::
+// _ns_warm_kernel (pallas_call in inverse_newton_schulz_warm): X is loaded
+// from a previous inverse X0 of a nearby batch instead of seeded, then the
+// same rounds run without recentering scalars (2c = 2, c^2 = 1): `lo`
+// rounds X = X(2I - AX) and `hi` polish rounds, the last residual in fp32;
+// bf16 one-pass products, or the 3-pass split for the split3 precision.
+// Valid while the drift delta of A satisfies delta * kappa <~ 0.3 (bf16 also
+// kappa <~ 30).  What bounds it: as K1, the serial chain of dependent
+// products (2 x 2 + 2 at the default 2 + 1 rounds against K1 spd10's 12),
+// with one more n^2 read (X0) than K1.  A, X and T live in shared memory
+// (3 n (n+1) fp32, the K1 footprint), so n <= 128.
 
 #include "ns_common.cuh"
 
@@ -66,7 +79,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  ns_rounds<M>(sA, sX, sT, prm, red);
+  ns_seed<M>(sA, sX, prm, red);
+  ns_rounds<M>(sA, sX, sT, prm);
 
   for (int e = tid; e < n * n; e += kThreads) {
     const int i = e / n, j = e % n;
@@ -74,16 +88,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K8: A and X0 into shared memory (zero padding, as in K1), the rounds, X
+// out.
 template <int M>
-cudaError_t launch(const float* a, float* x, int batch, const NSParams& prm,
-                   cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    ns_warm_kernel(const float* __restrict__ a, const float* __restrict__ x0,
+                   float* __restrict__ x, NSParams prm) {
   constexpr int NP = 16 * M;
-  const size_t smem = 3ull * NP * (NP + 1) * sizeof(float);
+  constexpr int LD = NP + 1;
+  extern __shared__ float smem[];
+  float* sA = smem;
+  float* sX = sA + NP * LD;
+  float* sT = sX + NP * LD;
+  const int n = prm.n;
+  const int tid = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+
+  for (int e = tid; e < NP * NP; e += kThreads) {
+    const int i = e / NP, j = e % NP;
+    const bool in = i < n && j < n;
+    sA[i * LD + j] = in ? a[base + i * n + j] : 0.f;
+    sX[i * LD + j] = in ? x0[base + i * n + j] : 0.f;
+    sT[i * LD + j] = 0.f;
+  }
+  __syncthreads();
+
+  ns_rounds<M>(sA, sX, sT, prm);
+
+  for (int e = tid; e < n * n; e += kThreads) {
+    const int i = e / n, j = e % n;
+    x[base + e] = sX[i * LD + j];
+  }
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int m, int batch, cudaStream_t stream,
+                   Args... args) {
+  const size_t np = 16ull * m;
+  const size_t smem = 3 * np * (np + 1) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ns_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  ns_kernel<M><<<batch, kThreads, smem, stream>>>(a, x, prm);
+  kernel<<<batch, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -104,10 +151,32 @@ extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ns_tile(n)) {
-    case 1: err = launch<1>(a, x, batch, prm, s); break;
-    case 2: err = launch<2>(a, x, batch, prm, s); break;
-    case 4: err = launch<4>(a, x, batch, prm, s); break;
-    default: err = launch<8>(a, x, batch, prm, s); break;
+    case 1: err = launch(ns_kernel<1>, 1, batch, s, a, x, prm); break;
+    case 2: err = launch(ns_kernel<2>, 2, batch, s, a, x, prm); break;
+    case 4: err = launch(ns_kernel<4>, 4, batch, s, a, x, prm); break;
+    default: err = launch(ns_kernel<8>, 8, batch, s, a, x, prm); break;
+  }
+  return static_cast<int>(err);
+}
+
+// K8.  a, x0, x: (batch, n, n) fp32, contiguous, on `device`.  `lo` unscaled
+// rounds and `hi` polish rounds, one-pass bf16 products or (split3) the
+// 3-pass split.  Returns the CUDA error of the launch.
+extern "C" int cmi_ns_warm(const float* a, const float* x0, float* x,
+                           int batch, int n, int lo, int hi, int split3,
+                           int device, void* stream) {
+  NSParams prm;
+  if (batch < 0 || !make_warm_params(n, lo, hi, split3, &prm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ns_tile(n)) {
+    case 1: err = launch(ns_warm_kernel<1>, 1, batch, s, a, x0, x, prm); break;
+    case 2: err = launch(ns_warm_kernel<2>, 2, batch, s, a, x0, x, prm); break;
+    case 4: err = launch(ns_warm_kernel<4>, 4, batch, s, a, x0, x, prm); break;
+    default: err = launch(ns_warm_kernel<8>, 8, batch, s, a, x0, x, prm); break;
   }
   return static_cast<int>(err);
 }

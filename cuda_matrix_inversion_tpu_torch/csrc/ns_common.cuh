@@ -1,6 +1,11 @@
-// Device code shared by K1 (newton_schulz.cu) and K6 (gp.cu): the
-// shared-memory product routine, the block maximum, and the whole
-// fixed-schedule Newton-Schulz round loop on shared-memory operands.
+// Device code shared by K1, K8 (newton_schulz.cu) and K6, K11 (gp.cu): the
+// shared-memory product routine, the block maximum, the cold-start seed and
+// the fixed-schedule Newton-Schulz round loop on shared-memory operands.
+// The seed (ns_seed) and the rounds (ns_rounds) are separate, as the JAX
+// package's ns_vmem_iterate and ns_vmem_rounds are: the warm kernels K8 and
+// K11 load X from a previous inverse and run the rounds alone, with the
+// per-round scalars 2c = 2 and c^2 = 1 (no recentering: a scalar calibrated
+// for a cold start would blow a converged start apart).
 //
 // Arithmetic (the compiled-TPU semantics, mid_split=True):
 //   seed   spd: X1 = 2sI - s^2 A, s = 1/||A||_inf;  pan: X0 = A^T/(||A||_1 ||A||_inf)
@@ -62,6 +67,20 @@ inline bool make_ns_params(int n, int init_spd, int lo, int hi, int split3,
     prm->c_sq[i] = c_sq[i];
   }
   return true;
+}
+
+// Host: `prm` for the warm rounds, which take no recentering scalars
+// (2c = 2, c^2 = 1 in every lo round) and always end on the fp32 residual;
+// false when an argument is out of range.
+inline bool make_warm_params(int n, int lo, int hi, int split3,
+                             NSParams* prm) {
+  float two[kMaxRounds], one[kMaxRounds];
+  for (int i = 0; i < kMaxRounds; ++i) {
+    two[i] = 2.f;
+    one[i] = 1.f;
+  }
+  return make_ns_params(n, /*init_spd=*/0, lo, hi, split3,
+                        /*polish_highest=*/1, two, one, prm);
 }
 
 // The register tile M (16M >= n) for a matrix dimension n <= kMaxN.
@@ -156,20 +175,16 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return r;
 }
 
-// The whole schedule on shared-memory operands.  On entry sA holds A (zero
-// outside the n x n block), sX and sT are zero, and the block has passed a
-// barrier since they were written.  On return sX holds the inverse, and
-// the block has passed a barrier since it was written.  `red` is
-// kThreads / 32 floats of scratch.
+// The cold-start seed X from A (spd or pan, prm.init_spd).  On entry sA
+// holds A (zero outside the n x n block), sX is zero, and the block has
+// passed a barrier since they were written; on return the same holds for
+// the seeded sX.  `red` is kThreads / 32 floats of scratch.
 template <int M>
-__device__ __forceinline__ void ns_rounds(const float* sA, float* sX,
-                                          float* sT, const NSParams& prm,
-                                          float* red) {
+__device__ __forceinline__ void ns_seed(const float* sA, float* sX,
+                                        const NSParams& prm, float* red) {
   constexpr int LD = 16 * M + 1;
   const int n = prm.n;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
 
   float row = 0.f, col = 0.f;
   if (tid < n) {
@@ -196,6 +211,21 @@ __device__ __forceinline__ void ns_rounds(const float* sA, float* sX,
     }
   }
   __syncthreads();
+}
+
+// The lo and hi rounds of the schedule, from whatever sX holds.  On entry
+// sA holds A and sX the start X (both zero outside the n x n block), sT is
+// zero, and the block has passed a barrier since they were written.  On
+// return sX holds the refined inverse, and the block has passed a barrier
+// since it was written.
+template <int M>
+__device__ __forceinline__ void ns_rounds(const float* sA, float* sX,
+                                          float* sT, const NSParams& prm) {
+  const int n = prm.n;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  constexpr int LD = 16 * M + 1;
 
   float acc[M][M];
   const int contract = prm.split3 ? kSplit3 : kBF16;

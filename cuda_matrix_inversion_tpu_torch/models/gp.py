@@ -98,7 +98,9 @@ def gp_mean_variance_multi(a, b, c, d, e, method: str = "solve"):
 
 def gp_log_marginal_likelihood(b, c, d):
     """Batched log p(d) = −½ dᵀK⁻¹d − ½ log|K| − n/2 · log 2π from one
-    Cholesky factor on ``torch.linalg`` (its fused kernel is not ported).
+    Cholesky factor on ``torch.linalg``, differentiable by autograd (the
+    fused kernel K10 is
+    :func:`ops.cuda_gp_lml.gp_log_marginal_likelihood_fused`).
     b — (batch, n, n); c, d — (batch, n, 1) → (batch,)."""
     l = linalg.cholesky(linalg.add_diagonal(b, c))
     y = torch.linalg.solve_triangular(l, d, upper=False)

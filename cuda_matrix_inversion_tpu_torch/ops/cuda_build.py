@@ -34,10 +34,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# Largest matrix dimension the shared-memory-resident kernels take: K1 and
-# K6 keep A, X and T (3·n² fp32) in one block's shared memory, 198 KB at
-# n = 128 against the 227 KB a block may opt into; K2 and K3 keep two n×n
-# buffers, K4 and K5 one.
+# Largest matrix dimension the shared-memory-resident kernels take.  Each
+# kernel holds its matrices in one block's shared memory, of which a block
+# may opt into 227 KB: K1, K6, K8 and K11 keep A, X and T (3·n² fp32,
+# 198 KB at n = 128); K2, K3 and K10 with ``emit_w`` keep two n×n buffers
+# (2·n²); K4, K5 and K10 one (n²).  K7 keeps one n×n buffer too and states
+# its own larger ceiling, GAUSS_JORDAN_MAX_N = 192 (148 KB), the JAX
+# kernel's.
 MAX_N = 128
 
 _VP = ctypes.c_void_p
@@ -60,6 +63,15 @@ _SIGNATURES = {
     # c_sq (host float*), device, stream
     "cmi_gp_fused_ns": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
                         _VP, _I, _VP],
+    # a, inv, batch, n, device, stream
+    "cmi_gauss_jordan": [_VP, _VP, _I, _I, _I, _VP],
+    # a, x0, x, batch, n, lo, hi, split3, device, stream
+    "cmi_ns_warm": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    # a, b, c, d, e, out, batch, n, x0, kinv, lo, hi, device, stream
+    "cmi_gp_fused_warm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _I,
+                          _I, _I, _VP],
+    # b, c, d, out, w, alpha, batch, n, emit_w, device, stream
+    "cmi_gp_lml": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 
 _lock = threading.Lock()
@@ -137,16 +149,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def check_kernel_input(a: torch.Tensor, what: str) -> None:
+def check_kernel_input(a: torch.Tensor, what: str,
+                       max_n: int = MAX_N) -> None:
     """Shape check shared by the kernels' wrappers: a ``(batch, n, n)``
-    batch with 1 ≤ n ≤ :data:`MAX_N`.  Larger n is rejected, never
-    rerouted: lifting the ceiling is kernel work, not a silent detour."""
+    batch with 1 ≤ n ≤ ``max_n`` (the kernel's ceiling, :data:`MAX_N`
+    unless it states its own).  Larger n is rejected, never rerouted:
+    lifting the ceiling is kernel work, not a silent detour."""
     if a.ndim != 3 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"{what}: expected (batch, n, n), got {tuple(a.shape)}")
     n = a.shape[-1]
-    if not 1 <= n <= MAX_N:
+    if not 1 <= n <= max_n:
         raise ValueError(
-            f"{what}: n = {n} is outside the kernel's range 1..{MAX_N} "
+            f"{what}: n = {n} is outside the kernel's range 1..{max_n} "
             f"(the matrix must fit one thread block's shared memory)")
 
 

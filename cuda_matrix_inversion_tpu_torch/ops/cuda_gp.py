@@ -1,14 +1,17 @@
-"""Fused GP mean/variance: kernels K5 (Cholesky) and K6 (Newton-Schulz).
+"""Fused GP mean/variance: kernels K5 (Cholesky), K6 (Newton-Schulz) and
+K11 (warm-start Newton-Schulz).
 
-Counterpart of ``gp_mean_variance_fused`` and ``gp_mean_variance_fused_ns``
-of ``cuda_matrix_inversion_tpu/ops/pallas_gp.py``.  For every system, with
+Counterpart of ``gp_mean_variance_fused``, ``gp_mean_variance_fused_ns``
+and ``gp_mean_variance_fused_warm`` of
+``cuda_matrix_inversion_tpu/ops/pallas_gp.py``.  For every system, with
 K = B + diag(c),
 
     mean = aᵀ K⁻¹ d,    var = e − aᵀ K⁻¹ a,
 
-in one launch that writes two floats per system (``csrc/gp.cu``).  On a CPU
-tensor each runs its plain PyTorch version (:func:`gp_fused_plain`,
-:func:`gp_fused_ns_plain`), which repeats the kernel's steps in order.
+in one launch that writes two floats per system (``csrc/gp.cu``); K11 also
+writes the refined K⁻¹ for the next timestep.  On a CPU tensor each runs its
+plain PyTorch version (:func:`gp_fused_plain`, :func:`gp_fused_ns_plain`,
+:func:`gp_fused_warm_plain`), which repeats the kernel's steps in order.
 
 The kernels take the flat layout a, c, d ``(batch, n)``, b
 ``(batch, n, n)``, e ``(batch,)`` and return ``(batch, 2)`` = [mean, var];
@@ -61,6 +64,18 @@ def gp_fused_ns_plain(a, b, c, d, e, bf16_products: bool = True):
     return torch.stack([proj[:, 0], e - proj[:, 1]], dim=-1)
 
 
+def gp_fused_warm_plain(a, b, c, d, e, x0, lo: int = 2, hi: int = 1,
+                        bf16_products: bool = True):
+    """Plain PyTorch version of K11 on the flat layout: X ← ``x0`` refined
+    by K8's unscaled rounds (:func:`newton_schulz.ns_refine_plain`), then
+    K6's fp32 epilogue.  Returns ``(out, kinv)``: ``(batch, 2)`` =
+    [mean, var] and the refined X."""
+    x = newton_schulz.ns_refine_plain(linalg.add_diagonal(b, c), x0, lo, hi,
+                                      False, bf16_products)
+    proj = (linalg.matmul(torch.stack([d, a], 1), x) * a[:, None, :]).sum(-1)
+    return torch.stack([proj[:, 0], e - proj[:, 1]], dim=-1), x
+
+
 def _gp_launch(fn_name: str, a, b, c, d, e, *extra):
     cuda_build.check_kernel_input(b, "gp kernel")
     cuda_build.check_cuda_f32("gp kernel", a, b, c, d, e)
@@ -95,8 +110,25 @@ def gp_fused_ns_cuda(a, b, c, d, e):
     return out
 
 
+def gp_fused_warm_cuda(a, b, c, d, e, x0, lo: int = 2, hi: int = 1):
+    """Launch K11 on contiguous CUDA fp32 tensors in the flat layout:
+    ``(out, kinv)`` as :func:`gp_fused_warm_plain`.
+    ``gp_fused_warm_cuda.launches`` counts the launches."""
+    cuda_build.check_cuda_f32("gp warm kernel", x0)
+    if x0.shape != b.shape:
+        raise ValueError(f"gp warm kernel: x0 {tuple(x0.shape)} must match "
+                         f"b {tuple(b.shape)}")
+    x0 = x0.contiguous()
+    kinv = torch.empty_like(x0)
+    out = _gp_launch("cmi_gp_fused_warm", a, b, c, d, e, x0.data_ptr(),
+                     kinv.data_ptr(), lo, hi)
+    gp_fused_warm_cuda.launches += 1
+    return out, kinv
+
+
 gp_fused_cuda.launches = 0
 gp_fused_ns_cuda.launches = 0
+gp_fused_warm_cuda.launches = 0
 
 
 def _flat(a, b, c, d, e):
@@ -148,3 +180,35 @@ def gp_mean_variance_fused_ns(a, b, c, d, e):
     if b.dtype == torch.float64 or b.shape[-1] > cuda_build.MAX_N:
         return gp_mean_variance_fused(a, b, c, d, e)
     return _run(b, gp_fused_ns_cuda, gp_fused_ns_plain, _flat(a, b, c, d, e))
+
+
+def gp_mean_variance_fused_warm(a, b, c, d, e, prev_kinv, lo_iters: int = 2,
+                                hi_iters: int = 1):
+    """Warm-start fused GP, one K11 launch: refine ``prev_kinv`` (the
+    ``kinv`` this function returned for the previous timestep, or a cold
+    K⁻¹) for K = B + diag(c), then mean and variance from it.
+
+    Same shapes as :func:`gp_mean_variance_fused` plus ``prev_kinv``
+    ``(batch, n, n)``; returns ``(mean, var, kinv)``, and ``kinv`` chains
+    into the next call.  Valid while the drift δ of K satisfies
+    δ·κ(K) ≲ 0.3 and κ(K) ≲ 30 (K8's bf16 domain).  float64 and n > 128
+    (the JAX kernel's ceiling is 224) take the JAX package's route past its
+    kernel: mean and variance by :func:`gp_mean_variance_fused`, kinv by
+    :func:`newton_schulz.inverse_newton_schulz_warm` with its default
+    rounds (which warns and solves cold past 128).
+    """
+    if tuple(prev_kinv.shape) != tuple(b.shape):
+        raise ValueError(f"prev_kinv shape {tuple(prev_kinv.shape)} must "
+                         f"match b {tuple(b.shape)}")
+    if b.dtype == torch.float64 or b.shape[-1] > cuda_build.MAX_N:
+        mean, var = gp_mean_variance_fused(a, b, c, d, e)
+        kinv = newton_schulz.inverse_newton_schulz_warm(
+            linalg.add_diagonal(b, c), prev_kinv)
+        return mean, var, kinv
+    flat = _flat(a, b, c, d, e)
+    x0 = prev_kinv.to(torch.float32).contiguous()
+    out, kinv = cuda_build.on_device(b, "gp warm", gp_fused_warm_cuda,
+                                     gp_fused_warm_plain, *flat, x0,
+                                     lo_iters, hi_iters)
+    out = out.to(b.dtype)
+    return out[:, 0, None, None], out[:, 1, None, None], kinv.to(b.dtype)

@@ -11,6 +11,10 @@ quadratically once ‖I − AX‖ < 1.
   plain PyTorch version :func:`ns_iterate_plain`.
 * :func:`inverse_newton_schulz` — the adaptive, residual-monitored loop
   (lanes ``newton_schulz``, ``newton_schulz_spd``), plain PyTorch.
+* :func:`inverse_newton_schulz_warm` — warm-start refinement of a previous
+  inverse of a nearby batch, counterpart of ``inverse_newton_schulz_warm``:
+  the hand-written kernel K8 (``csrc/newton_schulz.cu``) on a CUDA tensor,
+  its plain version :func:`ns_refine_plain` on a CPU tensor.
 
 The schedule constants and :func:`scaled_round_coeffs` are copies of the
 JAX package's (the port cannot import it where JAX is missing); the CPU
@@ -137,35 +141,53 @@ def _seed(a: torch.Tensor, init: str) -> torch.Tensor:
     return a.transpose(1, 2) * (1.0 / (r_inf * c_1))[:, None, None]
 
 
-def ns_iterate_plain(a: torch.Tensor, sched: Schedule,
-                     bf16_products: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of K1 on an fp32 ``(batch, n, n)`` tensor.
+def _rounds(a: torch.Tensor, x: torch.Tensor, coeffs, hi_iters: int,
+            split3: bool, polish_highest: bool,
+            bf16_products: bool) -> torch.Tensor:
+    """The lo rounds X ← X·(2cI − c²AX), one per scalar c of ``coeffs``,
+    then ``hi_iters`` polish rounds X ← X + X(I − AX), from ``x`` (the
+    kernels' ``ns_rounds``).
 
-    ``bf16_products=True`` is the kernel's (compiled-TPU) arithmetic:
+    ``bf16_products=True`` is the kernels' (compiled-TPU) arithmetic:
     one-pass products on bf16-rounded operands, the 3-pass split where the
     TPU kernel used it.  ``False`` is what the JAX reference computes in
     interpret mode on the CPU (``mid_split=False``): every product full
-    fp32, and every polish round counts as final.
-    """
+    fp32, and every polish round counts as final."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     if bf16_products:
         one, dot3 = _mm_bf16, _mm_split3
     else:
         one = dot3 = matmul
-    contract = dot3 if sched.split3 else one
-    x = _seed(a, sched.init)
-    for c in sched.coeffs:
+    contract = dot3 if split3 else one
+    for c in coeffs:
         t = (2.0 * c) * eye - (c * c) * contract(a, x)
         x = contract(x, t)
-    for i in range(sched.hi_iters):
-        if sched.split3:
+    for i in range(hi_iters):
+        if split3:
             x = x + dot3(x, eye - matmul(a, x))
             continue
-        final = ((i == sched.hi_iters - 1) and sched.polish_highest
-                 ) or not bf16_products
+        final = ((i == hi_iters - 1) and polish_highest) or not bf16_products
         r = eye - (matmul(a, x) if final else dot3(a, x))
         x = x + one(x, r)
     return x
+
+
+def ns_iterate_plain(a: torch.Tensor, sched: Schedule,
+                     bf16_products: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K1 on an fp32 ``(batch, n, n)`` tensor:
+    the seed, then the schedule's rounds (``bf16_products`` as in
+    :func:`_rounds`)."""
+    return _rounds(a, _seed(a, sched.init), sched.coeffs, sched.hi_iters,
+                   sched.split3, sched.polish_highest, bf16_products)
+
+
+def ns_refine_plain(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
+                    split3: bool, bf16_products: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K8 on fp32 ``(batch, n, n)`` tensors:
+    ``lo`` rounds X ← X(2I − AX) from X0 with no recentering scalar (c = 1:
+    the start is already converged), then ``hi`` polish rounds, the last
+    residual in fp32 (``bf16_products`` as in :func:`_rounds`)."""
+    return _rounds(a, x0, (1.0,) * lo, hi, split3, True, bf16_products)
 
 
 def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
@@ -230,6 +252,97 @@ def inverse_newton_schulz_fixed(
     # the plain version with bf16 products, the kernel's arithmetic
     x = cuda_build.on_device(a32, "newton_schulz", ns_iterate_cuda,
                              ns_iterate_plain, a32, sched)
+    return x.to(a.dtype)
+
+
+def ns_refine_cuda(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
+                   split3: bool) -> torch.Tensor:
+    """Launch K8 (``csrc/newton_schulz.cu``) on CUDA fp32 batches.
+
+    ``ns_refine_cuda.launches`` counts the launches."""
+    cuda_build.check_kernel_input(a, "newton_schulz warm kernel")
+    cuda_build.check_cuda_f32("newton_schulz warm kernel", a, x0)
+    if x0.shape != a.shape:
+        raise ValueError(f"newton_schulz warm kernel: x0 {tuple(x0.shape)} "
+                         f"must match a {tuple(a.shape)}")
+    if lo > MAX_LO_ROUNDS:
+        raise ValueError(f"newton_schulz warm kernel: lo_iters = {lo} "
+                         f"exceeds the kernel's {MAX_LO_ROUNDS} rounds")
+    a, x0 = a.contiguous(), x0.contiguous()
+    x = torch.empty_like(a)
+    device, stream = cuda_build.launch_args(a)
+    err = cuda_build.library().cmi_ns_warm(
+        a.data_ptr(), x0.data_ptr(), x.data_ptr(), a.shape[0], a.shape[-1],
+        lo, hi, int(split3), device, stream)
+    cuda_build.check(err, "newton_schulz warm kernel")
+    ns_refine_cuda.launches += 1
+    return x
+
+
+ns_refine_cuda.launches = 0
+
+
+def _warm_refine_split(a: torch.Tensor, x0: torch.Tensor, lo: int,
+                       hi: int) -> torch.Tensor:
+    """The warm rounds past the kernel's ceiling, as batched products:
+    the counterpart of the JAX package's ``_warm_refine_split_xla`` (which
+    JAX computes outside any Pallas kernel).  Every product the 3-pass bf16
+    split (XLA ``HIGH``), every residual fp32 (``HIGHEST``)."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    x = x0
+    for _ in range(lo):
+        x = _mm_split3(x, 2.0 * eye - _mm_split3(a, x))
+    for _ in range(hi):
+        x = x + _mm_split3(x, eye - matmul(a, x))
+    return x
+
+
+def inverse_newton_schulz_warm(a: torch.Tensor, x0: torch.Tensor,
+                               lo_iters: int = 2, hi_iters: int = 1,
+                               precision: str = "bf16") -> torch.Tensor:
+    """Warm-start batched inversion: refine ``x0``, an inverse of a
+    nearby batch, for ``a`` in one K8 launch.
+
+    Counterpart of the JAX package's ``inverse_newton_schulz_warm`` (its
+    ``block`` and ``interpret`` are TPU knobs).  When A drifts by a relative
+    δ, the old inverse has residual ≈ δ·κ(A); ``lo_iters`` unscaled rounds
+    and ``hi_iters`` polish rounds (the last residual fp32) recover the 1e-4
+    gate while δ·κ ≲ 0.3, and for ``precision="bf16"`` also κ ≲ 30 (the
+    one-pass X·R update carries 2⁻⁹·κ·‖R‖).  ``precision="split3"`` runs
+    every product as the 3-pass split, for κ ≲ 500.
+
+    Routes, the JAX package's own past its ceilings: float64 takes the
+    adaptive :func:`inverse_newton_schulz` (its LU route).  n above the
+    kernel's 128 (the JAX kernel's ceiling is 224) takes, for split3,
+    :func:`_warm_refine_split` with one extra polish round, as JAX does
+    past 224; for bf16 a cold adaptive solve, which discards ``x0`` and
+    warns.
+    """
+    if precision not in ("bf16", "split3"):
+        raise ValueError(
+            f"precision must be 'bf16' or 'split3', got {precision!r}")
+    if x0.shape != a.shape:
+        raise ValueError(f"x0 {tuple(x0.shape)} must match a "
+                         f"{tuple(a.shape)}")
+    if a.dtype == torch.float64:
+        return inverse_newton_schulz(a)
+    split3 = precision == "split3"
+    if a.shape[-1] > cuda_build.MAX_N:
+        if split3:
+            out = _warm_refine_split(a.to(torch.float32),
+                                     x0.to(torch.float32), lo_iters,
+                                     hi_iters + 1)
+            return out.to(a.dtype)
+        warnings.warn(
+            f"the warm kernel serves n <= {cuda_build.MAX_N}; "
+            f"n={a.shape[-1]} runs a cold adaptive solve (prev inverse "
+            f"discarded)", stacklevel=2)
+        return inverse_newton_schulz(a)
+    cuda_build.check_kernel_input(a, "newton_schulz warm kernel")
+    a32, x32 = a.to(torch.float32), x0.to(torch.float32)
+    x = cuda_build.on_device(a32, "newton_schulz warm", ns_refine_cuda,
+                             ns_refine_plain, a32, x32, lo_iters, hi_iters,
+                             split3)
     return x.to(a.dtype)
 
 

@@ -21,6 +21,7 @@ from typing import Callable, Mapping
 
 from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_cholesky,
+    cuda_gauss_jordan,
     cuda_lu,
     linalg,
     newton_schulz,
@@ -36,6 +37,7 @@ LANE_KEYWORDS: dict[str, dict] = {
     "newton_schulz": {},
     "newton_schulz_spd": {"init": "spd"},
     "lu_pallas": {},
+    "gauss_pallas": {},
     "lu": {},
     "cholesky": {},
     "cholesky_pallas": {},
@@ -49,6 +51,7 @@ _FUNCTIONS: dict[str, Callable] = {
     "newton_schulz": newton_schulz.inverse_newton_schulz,
     "newton_schulz_spd": newton_schulz.inverse_newton_schulz,
     "lu_pallas": cuda_lu.inverse_lu,
+    "gauss_pallas": cuda_gauss_jordan.inverse_gauss_jordan,
     "lu": linalg.inverse_lu,
     "cholesky": linalg.inverse_cholesky,
     "cholesky_pallas": cuda_cholesky.inverse_cholesky,

@@ -159,7 +159,8 @@ def test_library_path_hashes_headers(monkeypatch, tmp_path):
     before = cuda_build.library_path()
     assert cuda_build.library_path() == before
     assert [p.name for p in cuda_build._sources()] == [
-        "cholesky.cu", "gp.cu", "lu.cu", "newton_schulz.cu"]
+        "cholesky.cu", "gauss_jordan.cu", "gp.cu", "lu.cu",
+        "newton_schulz.cu"]
     for header in ("cholesky_common.cuh", "ns_common.cuh"):
         path = csrc / header
         text = path.read_text()

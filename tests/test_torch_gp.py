@@ -300,3 +300,82 @@ def test_linalg_additions_match_jax():
     rs, rl = xla.lu_logdet(g)
     np.testing.assert_array_equal(sign.numpy(), np.asarray(rs))
     assert np.abs(logdet.numpy() - np.asarray(rl)).max() <= 1e-5
+
+
+# ---- K11: the warm fused GP ----
+
+def _warm_chain(n, seed):
+    """A GP system, JAX's warm step from a cold K⁻¹ (step 0), and the
+    system after a drift of B by δ = 1e-3 (relative 2-norm, symmetric).
+    Returns (step-1 inputs, JAX's step-0 K⁻¹, fp64 mean and var at step 1):
+    the state a serving loop carries across is JAX's own."""
+    rng = np.random.default_rng(seed)
+    data, _, _ = _system(n, seed)
+    k0 = (data["b"].astype(np.float64)
+          + np.eye(n) * data["c"][:, :, 0][:, None, :])
+    kinv0 = np.linalg.inv(k0).astype(np.float32)
+    _, _, kinv1 = pallas_gp.gp_mean_variance_fused_warm(
+        *(data[k] for k in "abcde"), kinv0, block=1)
+    noise = rng.standard_normal(data["b"].shape)
+    noise = (noise + np.transpose(noise, (0, 2, 1))) / 2
+    scale = (np.linalg.norm(data["b"], 2, axis=(1, 2))
+             / np.linalg.norm(noise, 2, axis=(1, 2)))[:, None, None]
+    step1 = dict(data, b=(data["b"] + 1e-3 * scale * noise).astype(np.float32))
+    k1 = (step1["b"].astype(np.float64)
+          + np.eye(n) * step1["c"][:, :, 0][:, None, :])
+    kinv = np.linalg.inv(k1)
+    at = np.transpose(step1["a"], (0, 2, 1)).astype(np.float64)
+    means = at @ kinv @ step1["d"].astype(np.float64)
+    variances = step1["e"] - at @ kinv @ step1["a"].astype(np.float64)
+    return step1, np.asarray(kinv1), means, variances
+
+
+@pytest.mark.parametrize("n", [12, 16, 64])
+def test_k11_plain_matches_jax(n):
+    """From JAX's own previous K⁻¹: the fp32 plain version (the JAX
+    kernel's interpret-mode arithmetic) within 1e-5 of JAX on mean and var
+    and 1e-5 relative on the refined K⁻¹; the port's bf16 path within
+    K1's 2e-4 relative of it; both within 1e-4 of fp64 and the refined K⁻¹
+    under the gate."""
+    data, kinv0, means, variances = _warm_chain(n, 40 + n)
+    args = [data[k] for k in "abcde"]
+    ref = _np(pallas_gp.gp_mean_variance_fused_warm(*args, kinv0, block=1))
+    flat = cuda_gp._flat(*_t(data, "abcde"))
+    out32, kinv32 = cuda_gp.gp_fused_warm_plain(*flat, torch.tensor(kinv0),
+                                                bf16_products=False)
+    got = _np(cuda_gp.gp_mean_variance_fused_warm(*_t(data, "abcde"),
+                                                  torch.tensor(kinv0)))
+    for col, exact in enumerate((means, variances)):
+        assert np.abs(out32[:, col].numpy() - ref[col][:, 0, 0]).max() <= 1e-5
+        rel = (np.abs(got[col][:, 0, 0] - out32[:, col].numpy()).max()
+               / np.abs(ref[col]).max())
+        assert rel <= 2e-4
+        assert np.abs(got[col] - exact).max() < 1e-4
+        assert np.abs(ref[col] - exact).max() < 1e-4
+    assert np.abs(kinv32.numpy() - ref[2]).max() / np.abs(ref[2]).max() <= 1e-5
+    assert got[2].shape == (BATCH, n, n) and got[2].dtype == np.float32
+    k = linalg.add_diagonal(torch.tensor(data["b"]),
+                            torch.tensor(data["c"])).numpy()
+    assert np.abs(k.astype(np.float64) @ got[2] - np.eye(n)).sum(-1).max() < 1e-4
+
+
+def test_k11_route_past_128_and_validation():
+    """n = 140: mean and var by K5's route, K⁻¹ by the warm NS route,
+    which warns and solves cold past the kernel's 128; a prev_kinv of the
+    wrong shape raises; CPU tensors launch no kernel."""
+    cuda_gp.gp_fused_warm_cuda.launches = 0
+    data, kinv0, means, variances = _warm_chain(140, 3)
+    with pytest.warns(UserWarning, match="cold adaptive solve"):
+        mean, var, kinv = _np(cuda_gp.gp_mean_variance_fused_warm(
+            *_t(data, "abcde"), torch.tensor(kinv0)))
+    assert np.abs(mean - means).max() < 1e-4
+    assert np.abs(var - variances).max() < 1e-4
+    assert kinv.shape == (BATCH, 140, 140)
+    assert cuda_gp.gp_fused_warm_cuda.launches == 0
+    with pytest.raises(ValueError, match="prev_kinv"):
+        cuda_gp.gp_mean_variance_fused_warm(*_t(data, "abcde"),
+                                            torch.tensor(kinv0)[:2])
+    small, k0, _, _ = _warm_chain(8, 4)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        cuda_gp.gp_fused_warm_cuda(*cuda_gp._flat(*_t(small, "abcde")),
+                                   torch.tensor(k0))

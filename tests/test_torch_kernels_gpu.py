@@ -19,7 +19,9 @@ from cuda_matrix_inversion_tpu_torch.io.fixtures import (
 )
 from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_cholesky,
+    cuda_gauss_jordan,
     cuda_gp,
+    cuda_gp_lml,
     cuda_lu,
     newton_schulz,
 )
@@ -43,6 +45,14 @@ K5_ATOL = 1e-5
 # test's 1e-4 absolute on mean and var
 K6_RTOL = 2e-4
 K6_ATOL = 1e-4
+# K7 repeats the plain version's operations in order (IEEE division, no FMA
+# contraction); the raw inverse carries κ·ε₃₂ forward error on both sides
+K7_RTOL = 1e-5
+# K8 / K11: K1's arithmetic from a warm start, 2e-4 relative as K1
+WARM_RTOL = 2e-4
+# K10: the same factor and substitution as K5 / K3 (bitwise on the card);
+# quad, logdet and α differ only in summation order
+LML_RTOL = 1e-5
 
 _K1_LANES = ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
              "newton_schulz_pallas", "newton_schulz_pan500_pallas")
@@ -164,3 +174,130 @@ def test_kernels_reject_n129_on_cuda(cuda):
     for kernel in (cuda_gp.gp_fused_cuda, cuda_gp.gp_fused_ns_cuda):
         with pytest.raises(ValueError, match="128"):
             kernel(v, a, v, v, e)
+
+
+@pytest.mark.parametrize("kind", ["general", "permuted", "singular"])
+@pytest.mark.parametrize("n", [8, 20, 64, 128, 192])
+def test_k7_matches_plain(cuda, kind, n):
+    """K7 against its plain version (no polish); member 3 of the singular
+    batch is all ones and alone comes out non-finite; the polished lane
+    passes the gate."""
+    rng = np.random.default_rng(500 + n)
+    a = make_square_batch(7, n, rng).astype(np.float32)
+    if kind == "permuted":
+        a = a + n * np.eye(n, dtype=np.float32)[rng.permutation(n)]
+    if kind == "singular":
+        a[3] = 1.0
+    at = torch.tensor(a, device=cuda)
+    before = cuda_gauss_jordan.gauss_jordan_cuda.launches
+    x = cuda_gauss_jordan.gauss_jordan_cuda(at)
+    torch.cuda.synchronize()
+    assert cuda_gauss_jordan.gauss_jordan_cuda.launches == before + 1
+    ref = cuda_gauss_jordan.gauss_jordan_plain(at)
+    x, ref = x.cpu().numpy(), ref.cpu().numpy()
+    ok = np.arange(7) != 3 if kind == "singular" else np.ones(7, bool)
+    assert (np.isfinite(x).all(axis=(1, 2)) == ok).all()
+    assert (np.isfinite(ref).all(axis=(1, 2)) == ok).all()
+    assert _rel(x[ok], ref[ok]) <= K7_RTOL
+    polished = cuda_gauss_jordan.inverse_gauss_jordan(at).cpu().numpy()
+    assert identity_error_inf(a[ok], polished[ok]) < 1e-4
+
+
+def _drifted(a, delta, rng, symmetric):
+    """``a`` plus a Gaussian perturbation of relative 2-norm δ (symmetrised
+    for SPD input), float32."""
+    noise = rng.standard_normal(a.shape)
+    if symmetric:
+        noise = (noise + np.transpose(noise, (0, 2, 1))) / 2
+    scale = (np.linalg.norm(a, 2, axis=(1, 2))
+             / np.linalg.norm(noise, 2, axis=(1, 2)))[:, None, None]
+    return (a + delta * scale * noise).astype(np.float32)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("n", [8, 20, 64, 128])
+def test_k8_matches_plain(cuda, precision, n):
+    """K8 refines the inverse of a batch for its drifted copy; against its
+    plain version and through the gate."""
+    rng = np.random.default_rng(600 + n)
+    split3 = precision == "split3"
+    a0 = (make_square_batch if split3 else make_spd_batch)(7, n, rng)
+    x0 = np.linalg.inv(a0).astype(np.float32)
+    a = _drifted(a0, 1e-4 if split3 else 1e-3, rng, not split3)
+    at, x0t = torch.tensor(a, device=cuda), torch.tensor(x0, device=cuda)
+    before = newton_schulz.ns_refine_cuda.launches
+    x = newton_schulz.ns_refine_cuda(at, x0t, 2, 1, split3)
+    torch.cuda.synchronize()
+    assert newton_schulz.ns_refine_cuda.launches == before + 1
+    ref = newton_schulz.ns_refine_plain(at, x0t, 2, 1, split3)
+    assert _rel(x.cpu(), ref.cpu()) <= WARM_RTOL
+    assert identity_error_inf(a, x.cpu().numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("emit_w", [False, True])
+@pytest.mark.parametrize("n", [8, 11, 64, 128])
+def test_k10_matches_plain(cuda, emit_w, n):
+    """K10 against its plain version; system 3 is negative definite and is
+    the only non-finite one."""
+    g = make_gp_batch(7, n, np.random.default_rng(700 + n))
+    b, c, d = (torch.tensor(g[k], dtype=torch.float32, device=cuda)
+               for k in "bcd")
+    b[3] = -b[3]
+    c, d = c[..., 0].contiguous(), d[..., 0].contiguous()
+    before = cuda_gp_lml.lml_quad_logdet_cuda.launches
+    got = cuda_gp_lml.lml_quad_logdet_cuda(b, c, d, emit_w)
+    torch.cuda.synchronize()
+    assert cuda_gp_lml.lml_quad_logdet_cuda.launches == before + 1
+    ref = cuda_gp_lml.lml_quad_logdet_plain(b, c, d, emit_w)
+    ok = np.arange(7) != 3
+    assert len(got) == (4 if emit_w else 2)
+    for x, r in zip(got, ref):
+        x, r = x.cpu().numpy(), r.cpu().numpy()
+        flat = x.reshape(7, -1)
+        assert (np.isfinite(flat).all(axis=1) == ok).all()
+        assert _rel(x[ok], r[ok]) <= LML_RTOL
+
+
+@pytest.mark.parametrize("n", [8, 20, 64, 128])
+def test_k11_matches_plain(cuda, n):
+    """K11 from the previous timestep's K⁻¹ on a drifted system: mean, var
+    and the refined K⁻¹ against the plain version and the fp64 closed
+    form."""
+    rng = np.random.default_rng(800 + n)
+    g = make_gp_batch(7, n, rng)
+    k0 = g["b"] + np.eye(n) * g["c"][:, :, 0][:, None, :]
+    x0 = np.linalg.inv(k0).astype(np.float32)
+    g["b"] = _drifted(g["b"], 1e-3, rng, True)
+    t = {k: torch.tensor(g[k], dtype=torch.float32, device=cuda)
+         for k in "abcde"}
+    flat = cuda_gp._flat(*(t[k] for k in "abcde"))
+    x0t = torch.tensor(x0, device=cuda)
+    before = cuda_gp.gp_fused_warm_cuda.launches
+    out, kinv = cuda_gp.gp_fused_warm_cuda(*flat, x0t)
+    torch.cuda.synchronize()
+    assert cuda_gp.gp_fused_warm_cuda.launches == before + 1
+    ref, ref_kinv = cuda_gp.gp_fused_warm_plain(*flat, x0t)
+    assert np.abs(out.cpu().numpy() - ref.cpu().numpy()).max() <= K6_ATOL
+    assert _rel(kinv.cpu(), ref_kinv.cpu()) <= WARM_RTOL
+    k = g["b"].astype(np.float32).astype(np.float64) + np.eye(n) * g["c"][
+        :, :, 0].astype(np.float32)[:, None, :]
+    kinv64 = np.linalg.inv(k)
+    a64 = g["a"].astype(np.float32).astype(np.float64)
+    d64 = g["d"].astype(np.float32).astype(np.float64)
+    mean = (np.transpose(a64, (0, 2, 1)) @ kinv64 @ d64)[:, 0, 0]
+    assert np.abs(out.cpu().numpy()[:, 0] - mean).max() < 1e-4
+    assert identity_error_inf(k.astype(np.float32),
+                              kinv.cpu().numpy()) < 1e-4
+
+
+def test_new_kernels_reject_past_their_ceiling(cuda):
+    a = torch.eye(129, device=cuda)[None]
+    with pytest.raises(ValueError, match="128"):
+        newton_schulz.ns_refine_cuda(a, a, 2, 1, False)
+    v = torch.ones(1, 129, device=cuda)
+    with pytest.raises(ValueError, match="128"):
+        cuda_gp_lml.lml_quad_logdet_cuda(a, v, v)
+    with pytest.raises(ValueError, match="128"):
+        cuda_gp.gp_fused_warm_cuda(v, a, v, v, torch.ones(1, device=cuda), a)
+    with pytest.raises(ValueError, match="192"):
+        cuda_gauss_jordan.gauss_jordan_cuda(torch.eye(193, device=cuda)[None])

@@ -7,13 +7,14 @@ through the port.  Tolerances are max-norm relative differences.
 """
 
 import struct
+import warnings
 
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
-from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
+from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch, make_square_batch
 from cuda_matrix_inversion_tpu.ops import newton_schulz as jax_ns
 from cuda_matrix_inversion_tpu.ops import registry as jax_registry
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
@@ -222,3 +223,124 @@ def test_polish_highest_false_uses_split_residual():
     x = ns.ns_iterate_plain(torch.tensor(a), sched).numpy()
     assert identity_error_inf(a, x) < 1e-4
     assert _rel(x, _emulate_k1(a, sched)) <= 2e-4
+
+
+# ---- K8: warm-start refinement ----
+
+def _drifted(a, delta, rng, symmetric):
+    """``a`` plus a Gaussian perturbation of relative 2-norm δ (symmetrised
+    for SPD input), float32."""
+    noise = rng.standard_normal(a.shape)
+    if symmetric:
+        noise = (noise + np.transpose(noise, (0, 2, 1))) / 2
+    scale = (np.linalg.norm(a, 2, axis=(1, 2))
+             / np.linalg.norm(noise, 2, axis=(1, 2)))[:, None, None]
+    return (a + delta * scale * noise).astype(np.float32)
+
+
+def _warm_case(precision, n, seed):
+    """(a, x0): a drifted batch and JAX's own cold inverse of the batch
+    before the drift (the state a serving loop carries across).  bf16: the
+    reference's SPD class (``make_spd_batch``, κ ≈ 2–3) drifted by δ = 1e-3;
+    split3: a nonsymmetric κ = 300 batch drifted by δ = 5e-4 (δ·κ = 0.15)."""
+    rng = np.random.default_rng(seed)
+    if precision == "bf16":
+        a0 = make_spd_batch(4, n, rng).astype(np.float32)
+        x0 = jax_ns.inverse_newton_schulz_pallas(a0, init="spd", block=1)
+        return _drifted(a0, 1e-3, rng, True), np.asarray(x0)
+    a0 = _nonsym_cond(4, n, 300.0, rng)
+    x0 = jax_ns.inverse_newton_schulz_pallas(a0, precision="split3", block=1)
+    return _drifted(a0, 5e-4, rng, False), np.asarray(x0)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("n", [16, 48])
+def test_warm_plain_fp32_matches_jax_interpret(precision, n):
+    """K8's plain version with fp32 products (bf16_products=False) is the
+    JAX warm kernel's interpret-mode arithmetic: 1e-5 relative, from the
+    same X0 (JAX's previous inverse), and both under the gate."""
+    a, x0 = _warm_case(precision, n, n + len(precision))
+    ref = np.asarray(jax_ns.inverse_newton_schulz_warm(
+        a, x0, block=1, precision=precision))
+    x = ns.ns_refine_plain(torch.tensor(a), torch.tensor(x0), 2, 1,
+                           precision == "split3", bf16_products=False).numpy()
+    assert _rel(x, ref) <= 1e-5
+    assert identity_error_inf(a, x) < 1e-4
+    assert identity_error_inf(a, ref) < 1e-4
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("n", [16, 48])
+def test_warm_bf16_products_hold_gate(precision, n):
+    """The card's arithmetic (bf16_products=True, through
+    ``inverse_newton_schulz_warm``) on the same drifted batches: the fp64
+    gate holds (the TPU ledger's warm edge on this SPD class is 5.93e-5 at
+    16×128), and the result is within 2e-4 relative of the fp32 path (K1's
+    bound: each sits within its residual of A⁻¹)."""
+    a, x0 = _warm_case(precision, n, n + len(precision))
+    x = ns.inverse_newton_schulz_warm(torch.tensor(a), torch.tensor(x0),
+                                      precision=precision).numpy()
+    fp32 = ns.ns_refine_plain(torch.tensor(a), torch.tensor(x0), 2, 1,
+                              precision == "split3",
+                              bf16_products=False).numpy()
+    assert identity_error_inf(a, x) < 1e-4
+    assert _rel(x, fp32) <= 2e-4
+
+
+@pytest.mark.parametrize("kappa", [30.0, 300.0])
+def test_warm_split3_where_bf16_stalls(kappa):
+    """At κ = 30 (SPD) and κ = 300 (nonsymmetric), δ·κ = 0.15: split3
+    recovers the gate, and the bf16 lane does not — its one-pass products
+    carry 2⁻⁹·κ·‖R‖ (measured ≈ 1e-3 at κ = 30, ≈ 4e-2 at κ = 300), which
+    is why the pan500 engine refines through split3."""
+    rng = np.random.default_rng(int(kappa))
+    a0 = (_make_cond(4, 48, kappa, rng) if kappa < 100
+          else _nonsym_cond(4, 48, kappa, rng))
+    x0 = np.linalg.inv(a0.astype(np.float64)).astype(np.float32)
+    a = _drifted(a0, 0.15 / kappa, rng, kappa < 100)
+    at, xt = torch.tensor(a), torch.tensor(x0)
+    split3 = ns.inverse_newton_schulz_warm(at, xt, precision="split3")
+    bf16 = ns.inverse_newton_schulz_warm(at, xt, precision="bf16")
+    assert identity_error_inf(a, split3.numpy()) < 1e-4
+    assert identity_error_inf(a, bf16.numpy()) > 1e-4
+
+
+def test_warm_routes_past_128_and_f64():
+    """n = 140 > the kernel's 128: split3 refines through batched products
+    with one extra polish and no warning (JAX's route past its 224); bf16
+    warns and solves cold.  float64 takes the adaptive route."""
+    rng = np.random.default_rng(140)
+    a0 = make_square_batch(2, 140, rng).astype(np.float32)
+    x0 = np.linalg.inv(a0.astype(np.float64)).astype(np.float32)
+    a = _drifted(a0, 1e-4, rng, False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        x = ns.inverse_newton_schulz_warm(torch.tensor(a), torch.tensor(x0),
+                                          precision="split3")
+    assert identity_error_inf(a, x.numpy()) < 1e-4
+    spd = make_spd_batch(2, 140, rng).astype(np.float32)
+    with pytest.warns(UserWarning, match="cold adaptive solve"):
+        x = ns.inverse_newton_schulz_warm(torch.tensor(spd),
+                                          torch.tensor(spd))
+    assert identity_error_inf(spd, x.numpy()) < 1e-4
+    a64 = make_spd_batch(2, 12, rng)
+    x64 = ns.inverse_newton_schulz_warm(torch.tensor(a64),
+                                        torch.zeros(2, 12, 12,
+                                                    dtype=torch.float64))
+    assert x64.dtype == torch.float64
+    assert identity_error_inf(a64, x64.numpy()) < 1e-8
+
+
+def test_warm_validation_and_no_launch_on_cpu():
+    ns.ns_refine_cuda.launches = 0
+    a = torch.tensor(make_spd_batch(3, 8, np.random.default_rng(0)),
+                     dtype=torch.float32)
+    x = ns.inverse_newton_schulz_warm(a, torch.linalg.inv(a))
+    assert identity_error_inf(a.numpy(), x.numpy()) < 1e-4
+    assert ns.ns_refine_cuda.launches == 0
+    with pytest.raises(ValueError, match="precision"):
+        ns.inverse_newton_schulz_warm(a, a, precision="fp8")
+    with pytest.raises(ValueError, match="must match"):
+        ns.inverse_newton_schulz_warm(a, a[:2])
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        ns.ns_refine_cuda(a, a, 2, 1, False)

@@ -33,10 +33,10 @@ from cuda_matrix_inversion_tpu_torch.ops.registry import (
     list_inverse_algorithms,
 )
 
-LANES = ["cholesky", "cholesky_pallas", "lu", "lu_pallas", "newton_schulz",
-         "newton_schulz_pallas", "newton_schulz_pan500_pallas",
-         "newton_schulz_spd", "newton_schulz_spd10_pallas",
-         "newton_schulz_spd_pallas"]
+LANES = ["cholesky", "cholesky_pallas", "gauss_pallas", "lu", "lu_pallas",
+         "newton_schulz", "newton_schulz_pallas",
+         "newton_schulz_pan500_pallas", "newton_schulz_spd",
+         "newton_schulz_spd10_pallas", "newton_schulz_spd_pallas"]
 
 
 def _rel(x, ref):
@@ -48,8 +48,8 @@ def test_registry_lanes():
     assert list_inverse_algorithms() == LANES
     assert list_inverse_algorithms(cpu=False) == LANES
     assert list_inverse_algorithms(cpu=True) == []
-    with pytest.raises(KeyError, match="gauss_pallas"):
-        get_inverse_algorithm("gauss_pallas")
+    with pytest.raises(KeyError, match="lu_bign_pallas"):
+        get_inverse_algorithm("lu_bign_pallas")
 
 
 @pytest.mark.parametrize("lane,batch,n", [(lane, 8, 32) for lane in LANES]
@@ -58,7 +58,8 @@ def test_registry_lanes():
 def test_inverse_batched_matches_jax(lane, batch, n):
     """≤ 2e-4 on the Newton-Schulz lanes (the port's CPU path rounds
     products to bf16 as the card does; JAX on the CPU computes them in
-    fp32), ≤ 1e-4 on lu_pallas, lu, cholesky and cholesky_pallas."""
+    fp32), ≤ 1e-4 on lu_pallas, gauss_pallas, lu, cholesky and
+    cholesky_pallas."""
     a = fixtures.make_spd_batch(batch, n, np.random.default_rng(n + batch)
                                 ).astype(np.float32)
     ref = jax_host_api.inverse_batched(a, algorithm=lane)
