@@ -13,7 +13,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (and 1600 at n = 128; K7 also at n = 192); K2–K7 and K10 with one
    singular or indefinite member per batch, K8 and K11 with one member
    whose previous inverse holds a NaN, which alone must come out
-   non-finite;
+   non-finite; K9 in the blocked factor and the whole polished blocked LU
+   against the same routine on its plain version, n ∈ {160, 256, 512} ×
+   batch ∈ {1, 7, 100} and 1600×256, one member with a zero column;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -34,12 +36,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    drifting timesteps, ``fit`` at 1600×128 for 150 steps, and the K10 fit
    against the ``torch.linalg`` fit at 100×128), every result through the
    gate or within 1e-4 of the fp64 closed form; K7, K8, K10 and K11's
-   counters must move in this path;
+   counters must move in this path.  Then the big-n and fp64 path, with the
+   counters reset: ``lu_pallas`` and ``lu_bign_pallas`` at 100×512 (JAX's
+   κ = 500 ``lu_bign_512_gate`` draw), ``lu_pallas`` at 1600×256, the
+   pan500, spd10 and spd lanes at n = 256, an ``lu_pallas`` engine in its
+   256 and 512 buckets, ``bucketed_inverse`` on a ragged list (5 … 512)
+   with ``lu_pallas`` and ``cholesky_pallas``, all through the gate; and
+   ``lu_hiacc`` against JAX's fp64 contracts (≤ 1e-11 at κ = 500, n = 128,
+   also beside a singular member; ≤ 1e-8 at κ = 2e4 adaptive and on the
+   κ ≈ 4n class at n = 512); K2 and K9's counters must move in this path;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
    ``solve`` method on cuSOLVER); the warm lanes against the cold ones,
-   one fit step of each method, and one engine request NumPy in and out.
+   one fit step of each method, and one engine request NumPy in and out;
+   at 100×512 and 1600×256 K9 alone (its launches in one call, summed),
+   the ``lu_bign_pallas`` lane beside its bound, ``torch.linalg.inv``, the
+   plain routine, ``lu_hiacc`` and the panel-width ladder.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 bound (the larger of its bytes over the HBM rate and its operations over
@@ -101,6 +114,15 @@ WARM_DELTA, SPLIT3_DELTA = 1e-3, 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): fp32
 # outside the tensor cores, dense bf16 tensor cores, HBM3.
 PEAK_FP32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
+# K9 and its blocked LU vs the plain version, max-norm relative: the kernel
+# repeats the plain version's operations in order (IEEE division, no FMA
+# contraction) and was bitwise equal on the card; 1e-6 leaves room for
+# cuBLAS picking another algorithm for one of the two routines' products.
+K9_RTOL = 1e-6
+# The fp64-class lane (lu_hiacc): JAX's contracts (bench/chip_tests.py),
+# max |I − AX| in fp64: κ = 500 at n = 128, and a batch with one singular
+# member; κ = 2e4 adaptive; the κ ≈ 4n class at n = 512.
+HIACC_TIGHT, HIACC_LOOSE = 1e-11, 1e-8
 
 
 def _rel(x, ref) -> float:
@@ -543,6 +565,319 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
              ms=statistics.median(times))
 
 
+def _k9_vs_plain(dev, err, torch):
+    """Phase 3 for K9 at n ∈ {160, 256, 512} × batch ∈ {1, 7, 100} and
+    1600×256, each at its default panel width (n = 160 pads to 192 at
+    pw = 64: a ragged last panel) and 512 also at pw = 32: the blocked
+    factor with K9 against the same routine with the plain version, then
+    the whole polished output of both.  For batch > 1 member batch // 2
+    has a zero column and alone must come out non-finite."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
+    from cuda_matrix_inversion_tpu_torch.ops import lu_bign
+
+    cases = [(b, n, None) for n in (160, 256, 512) for b in (1, 7, 100)]
+    cases += [(100, 512, 32), (1600, 256, None)]
+    entry = err.setdefault("k9", {"abs": 0.0, "rel": 0.0})
+    for batch, n, pw in cases:
+        pw = pw or lu_bign.pick_pw(n)
+        bad = batch // 2 if batch > 1 else None
+        a = torch.tensor(make_square_batch(batch, n, np.random.default_rng(
+            9000 + n + batch)), dtype=torch.float32, device=dev)
+        if bad is not None:
+            a[bad, :, n // 3] = 0.0
+        n_pad = -(-n // pw) * pw
+        work = torch.eye(n_pad, device=dev).repeat(batch, 1, 1)
+        work[:, :n, :n] = a
+        what = f"K9 {batch}x{n} pw={pw}"
+        got = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_cuda)
+        torch.cuda.synchronize()
+        ref = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_plain)
+        ok = _confined(got[0], bad, what, torch)
+        _confined(ref[0], bad, f"{what} plain", torch)
+        for part in (1, 2):  # perm, pivots: integers, equal
+            gp = got[part] if part == 1 else torch.stack(got[part], 1)
+            rp = ref[part] if part == 1 else torch.stack(ref[part], 1)
+            if not torch.equal(gp[ok], rp[ok]):
+                raise AssertionError(f"{what}: pivots differ from the plain "
+                                     f"version")
+        # the factor and the polished inverse: member bad alone
+        # non-finite; the per-panel triangle inverses: compared on the others
+        whole = [(got[0], ref[0]), (lu_bign.inverse_lu_big(a, pw=pw),
+                                    lu_bign.inverse_lu_big_plain(a, pw=pw))]
+        for x, r in whole:
+            _confined(x, bad, what, torch)
+            _confined(r, bad, f"{what} plain", torch)
+        for x, r in whole + list(zip(got[3] + got[4], ref[3] + ref[4])):
+            diff = float((x[ok] - r[ok]).abs().max())
+            rel = diff / float(r[ok].abs().max())
+            entry["abs"] = max(entry["abs"], diff)
+            entry["rel"] = max(entry["rel"], rel)
+            if not rel <= K9_RTOL:
+                raise AssertionError(f"{what}: kernel vs plain {rel:.3e} > "
+                                     f"{K9_RTOL:g}")
+
+
+def _max_resid64(a, x, torch) -> float:
+    """max |I − AX| over the batch in fp64 (JAX's ``residual_inf_ds``)."""
+    a64, x64 = a.double(), x.double()
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    return float((eye - a64 @ x64).abs().max())
+
+
+def _big_n_cases():
+    """The big-n path's inputs, NumPy float32 (fp64 where the lane's
+    contract is fp64), each as JAX's chip test draws it."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_nonsym_cond,
+        make_spd_batch,
+        make_square_batch,
+    )
+
+    cases = {
+        # JAX's lu_bign_512_gate draw (κ = 500: the κ ≈ 4n class sits on
+        # the fp32 floor at n = 512, ROADMAP W3)
+        "nonsym500_100x512": make_nonsym_cond(
+            100, 512, 500.0, np.random.default_rng(63)),
+        "square_1600x256": make_square_batch(
+            1600, 256, np.random.default_rng(2029)).astype(np.float32),
+        # JAX's ns_pan500_xla_n256_kappa500
+        "nonsym500_4x256": make_nonsym_cond(
+            4, 256, 500.0, np.random.default_rng(41)),
+        "spd_100x256": make_spd_batch(
+            100, 256, np.random.default_rng(2030)).astype(np.float32),
+        "request_100x200": make_nonsym_cond(
+            100, 200, 500.0, np.random.default_rng(2031)),
+        # lu_hiacc's contracts (chip_tests.py lu_hiacc_*, hiacc_rescues_*)
+        "hiacc_kappa500_2x128": make_nonsym_cond(
+            2, 128, 500.0, np.random.default_rng(61)).astype(np.float64),
+        "hiacc_kappa2e4_2x32": make_nonsym_cond(
+            2, 32, 2e4, np.random.default_rng(62)).astype(np.float64),
+        "hiacc_square_8x512": make_square_batch(
+            8, 512, np.random.default_rng(65)).astype(np.float32).astype(
+                np.float64),
+    }
+    singular = make_nonsym_cond(3, 128, 500.0, np.random.default_rng(64)
+                                ).astype(np.float64)
+    singular[1, :, 7] = 0.0
+    cases["hiacc_singular_3x128"] = singular
+    rng = np.random.default_rng(2032)
+    cases["ragged_general"] = [make_nonsym_cond(1, n, 500.0, rng)[0]
+                               for n in (5, 20, 100, 300, 512)]
+    cases["ragged_spd"] = [make_spd_batch(1, n, rng)[0].astype(np.float32)
+                           for n in (5, 20, 100, 300, 512)]
+    return cases
+
+
+def _big_n_path(dev, cases, torch):
+    """Phase 4's third path, through the entry points a user calls: the
+    lanes past n = 128, an ``lu_pallas`` engine in its 256 and 512 buckets,
+    ``bucketed_inverse`` on a ragged list, and the fp64-class lane.  Every
+    fp32 result through the gate, every fp64 one through its contract.
+    Returns one result line per check."""
+    from cuda_matrix_inversion_tpu_torch import InversionEngine
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops import double_single, host_api
+    from cuda_matrix_inversion_tpu_torch.ops.registry import (
+        get_inverse_algorithm,
+    )
+    from cuda_matrix_inversion_tpu_torch.parallel import bucketing
+
+    lines = []
+
+    def gate(what, a, x):
+        err = identity_error_inf(a, x)
+        lines.append({"phase": "big_n_path", "check": what, "gate": err})
+        if not (x.shape == a.shape and x.dtype == np.float32
+                and np.isfinite(x).all() and err < GATE):
+            raise AssertionError(f"{what}: gate {err:.3e} ({x.shape} "
+                                 f"{x.dtype})")
+
+    def contract(what, err, bound):
+        lines.append({"phase": "big_n_path", "check": what,
+                      "max_abs_resid_fp64": err, "bound": bound})
+        if not err <= bound:
+            raise AssertionError(f"{what}: {err:.3e} > {bound:g}")
+
+    runs = [("lu_pallas", "nonsym500_100x512"),
+            ("lu_bign_pallas", "nonsym500_100x512"),
+            ("lu_pallas", "square_1600x256"),
+            ("newton_schulz_pan500_pallas", "nonsym500_4x256"),
+            ("newton_schulz_spd10_pallas", "spd_100x256"),
+            ("newton_schulz_spd_pallas", "spd_100x256")]
+    outs = [(lane, case, host_api.inverse_batched_device(
+        torch.tensor(cases[case], device=dev), lane)) for lane, case in runs]
+    for lane, case, x in outs:
+        gate(f"{lane} {case}", cases[case], x.cpu().numpy())
+
+    eng = InversionEngine(algorithm="lu_pallas", device=dev)
+    for case, a in (("request_100x200", cases["request_100x200"]),
+                    ("request_100x512", cases["nonsym500_100x512"])):
+        gate(f"InversionEngine lu_pallas {case}", a, eng.inverse(a))
+    if [dim for _, dim in eng.compiled_shapes] != [256, 512]:
+        raise AssertionError(f"engine buckets {eng.compiled_shapes}")
+
+    for algorithm, ms in (("lu_pallas", cases["ragged_general"]),
+                          ("cholesky_pallas", cases["ragged_spd"])):
+        got = bucketing.bucketed_inverse(ms, algorithm=algorithm, device=dev)
+        for m, x in zip(ms, got):
+            gate(f"bucketed_inverse {algorithm} n={m.shape[0]}", m[None],
+                 x[None])
+
+    hiacc = get_inverse_algorithm("lu_hiacc")
+    for case, fn, bound in (
+            ("hiacc_kappa500_2x128", hiacc, HIACC_TIGHT),
+            ("hiacc_kappa2e4_2x32", double_single.inverse_hiacc,
+             HIACC_LOOSE),
+            ("hiacc_square_8x512", hiacc, HIACC_LOOSE)):
+        a = torch.tensor(cases[case], device=dev)
+        x = fn(a)
+        if x.dtype != torch.float64:
+            raise AssertionError(f"lu_hiacc {case}: dtype {x.dtype}")
+        contract(f"lu_hiacc {case}", _max_resid64(a, x, torch), bound)
+    a = torch.tensor(cases["hiacc_singular_3x128"], device=dev)
+    x = double_single.inverse_hiacc(a)
+    _confined(x, 1, "lu_hiacc adaptive singular member", torch)
+    keep = torch.tensor([0, 2], device=dev)
+    contract("lu_hiacc adaptive, singular member 1, members 0 and 2",
+             _max_resid64(a[keep], x[keep], torch), HIACC_TIGHT)
+    return lines
+
+
+def _fp32_residual_floor(dev, cases, torch):
+    """What the fp32-residual polish of the JAX package would give on the
+    card (informational): the blocked LU and the split3 batched lane with
+    their polish residual in fp32 instead of fp64."""
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops import lu_bign, newton_schulz
+    from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
+
+    a_np = cases["nonsym500_100x512"]
+    a = torch.tensor(a_np, device=dev)
+    x = lu_bign.inverse_lu_big(a, polish=False)
+    eye = torch.eye(a.shape[-1], device=dev)
+    fp32 = x + x @ (eye - a @ x)
+    b_np = cases["nonsym500_4x256"]
+    b = torch.tensor(b_np, device=dev)
+    ns = newton_schulz.ns_iterate_plain(
+        b, LANES["newton_schulz_pan500_pallas"]["schedule"])
+    return {"phase": "big_n_path", "check": "fp32-residual polish "
+            "(informational)", "lu_bign_nonsym500_100x512_unpolished":
+            identity_error_inf(a_np, x.cpu().numpy()),
+            "lu_bign_nonsym500_100x512_fp32_polish":
+            identity_error_inf(a_np, fp32.cpu().numpy()),
+            "pan500_nonsym500_4x256_fp32_residual":
+            identity_error_inf(b_np, ns.cpu().numpy())}
+
+
+def _k9_work(batch: int, n: int, pw: int, ipivs):
+    """(fp32 flops, bytes) of K9's launches in one blocked factor: per
+    panel over m = n − k0 rows, getf2 (the multipliers and the rank-1
+    updates, ~Σ_j 2(m−j−1)(pw−j−1) + (m−j−1)) and the two pw×pw triangle
+    inverses (pw³/3 each); bytes the panel read and written, the two
+    triangles and the pivots written, and each row swap this run's pivots
+    made outside the panel (two rows of n − pw read and written)."""
+    flops = nbytes = 0.0
+    for p, ipiv in enumerate(ipivs):
+        k0 = p * pw
+        m = n - k0
+        flops += batch * sum(2.0 * (m - j - 1) * (pw - j - 1) + (m - j - 1)
+                             for j in range(pw))
+        flops += batch * 2 * pw ** 3 / 3
+        nbytes += batch * (8.0 * m * pw + 8.0 * pw * pw + 4.0 * pw)
+        rows = np.arange(k0, k0 + pw)[None, :]
+        swaps = int((ipiv.cpu().numpy() != rows).sum())
+        nbytes += swaps * 16.0 * (n - pw)
+    return flops, nbytes
+
+
+def _time_k9_call(a, pw, panel, torch):
+    """Device time of the K9 launches (or their plain version's work) in
+    one blocked factor of ``a``, summed: CUDA events around each panel call
+    (the trailing products queued before it keep the device busy, so the
+    host's time to issue the call is not in the window)."""
+    from cuda_matrix_inversion_tpu_torch.ops import lu_bign
+
+    spans = []
+
+    def timed(work, perm, k0, pw_):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = panel(work, perm, k0, pw_)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    lu_bign.lu_factor_big(a, pw, panel=timed)
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans)
+
+
+def _median_k9(a, pw, panel, calls, torch) -> float:
+    """Median over ``calls`` blocked factors (after one warm-up) of
+    :func:`_time_k9_call`."""
+    _time_k9_call(a, pw, panel, torch)
+    return statistics.median(_time_k9_call(a, pw, panel, torch)
+                             for _ in range(calls))
+
+
+def _time_big_n(dev, cases, timing, library, card, torch):
+    """Phase 5 for the big-n path at 100×512 and 1600×256: K9 alone (all
+    panel launches of one call, summed) beside its plain version, the
+    ``lu_bign_pallas`` lane beside its bound (LAPACK's 2n³ for getrf +
+    getri and 4n³ for the polish at the fp32 peak), ``torch.linalg.inv``,
+    the plain routine, ``lu_hiacc`` against ``lu_pallas``, and the panel
+    width ladder."""
+    from cuda_matrix_inversion_tpu_torch.ops import host_api, lu_bign
+
+    def show(what, case, **ms):
+        print(json.dumps({"timing": what, "case": case, **ms, **card}),
+              flush=True)
+
+    for case in ("nonsym500_100x512", "square_1600x256"):
+        a = torch.tensor(cases[case], device=dev)
+        batch, n = a.shape[0], a.shape[-1]
+        pw = lu_bign.pick_pw(n)
+        k9_ms = _median_k9(a, pw, lu_bign.lu_panel_cuda, TIMED_CALLS, torch)
+        k9_plain_ms = _median_k9(a, pw, lu_bign.lu_panel_plain, 5, torch)
+        # the work is what this run's data needs: its own pivots
+        ipivs = lu_bign.lu_factor_big(a, pw)[2]
+        flops, nbytes = _k9_work(batch, n, pw, ipivs)
+        bound = _bound(flops, 0.0, nbytes)
+        inv_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
+        lane_ms = _median_ms(lambda: host_api.inverse_batched_device(
+            a, "lu_bign_pallas"), torch)
+        lu_pallas_ms = _median_ms(lambda: host_api.inverse_batched_device(
+            a, "lu_pallas"), torch)
+        plain_lane_ms = _median_ms(lambda: lu_bign.inverse_lu_big_plain(a),
+                                   torch, calls=5, warmup=1)
+        a64 = a.double()
+        hiacc_ms = _median_ms(lambda: host_api.inverse_batched_device(
+            a64, "lu_hiacc"), torch)
+        lane_bound_ms = 1e3 * batch * 6.0 * n ** 3 / PEAK_FP32
+        timing[("k9", case)] = (k9_ms, k9_plain_ms)
+        library[("k9", case)] = inv_ms
+        timing[("k9_bound", case)] = bound
+        show("K9", case, pw=pw, kernel_ms_sum_of_launches=k9_ms,
+             plain_ms_sum_of_panels=k9_plain_ms, bound_ms=bound[0],
+             bound_by=bound[1], launches_per_call=len(ipivs),
+             lane_lu_bign_pallas_ms=lane_ms, lane_lu_pallas_ms=lu_pallas_ms,
+             lane_bound_ms=lane_bound_ms, plain_lane_ms=plain_lane_ms,
+             torch_linalg_inv_ms=inv_ms, lu_hiacc_f64_ms=hiacc_ms)
+        ladder = {}
+        for width in (16, 32, 64):
+            ladder[width] = {
+                "lane_ms": _median_ms(lambda: lu_bign.inverse_lu_big(
+                    a, pw=width), torch),
+                "k9_ms": _median_k9(a, width, lu_bign.lu_panel_cuda,
+                                    TIMED_CALLS, torch)}
+        show("pw_ladder", case, default_pw=lu_bign.DEFAULT_PW, ladder=ladder)
+
+
 def main() -> int:
     import torch
 
@@ -566,6 +901,7 @@ def main() -> int:
         cuda_lu,
         host_api,
         linalg,
+        lu_bign,
         newton_schulz,
     )
     from cuda_matrix_inversion_tpu_torch.ops.registry import (
@@ -703,6 +1039,7 @@ def main() -> int:
     for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
         _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
                               dev, new_err, torch, k7_only=True)
+    _k9_vs_plain(dev, new_err, torch)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
                       "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
           flush=True)
@@ -748,9 +1085,11 @@ def main() -> int:
                 "k7": cuda_gauss_jordan.gauss_jordan_cuda,
                 "k8": newton_schulz.ns_refine_cuda,
                 "k10": cuda_gp_lml.lml_quad_logdet_cuda,
-                "k11": cuda_gp.gp_fused_warm_cuda}
+                "k11": cuda_gp.gp_fused_warm_cuda,
+                "k9": lu_bign.lu_panel_cuda}
     inversion_path = ("k1", "k2", "k3", "k4", "k5", "k6")
     engine_path = ("k7", "k8", "k10", "k11")
+    big_n_path = ("k2", "k9")
 
     for fn in counters.values():
         fn.launches = 0
@@ -848,7 +1187,25 @@ def main() -> int:
     if not all(engine_launches[k] for k in engine_path):
         raise AssertionError(f"engine path did not launch every kernel: "
                              f"{engine_launches}")
-    launches = {k: launches[k] + engine_launches[k] for k in counters}
+
+    # the big-n and fp64 path, counted on its own
+    big_cases = _big_n_cases()
+    for fn in counters.values():
+        fn.launches = 0
+    big_lines = _big_n_path(dev, big_cases, torch)
+    torch.cuda.synchronize()
+    big_launches = {key: fn.launches for key, fn in counters.items()}
+    for line in big_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "big_n_path", "launches": big_launches}),
+          flush=True)
+    if not all(big_launches[k] for k in big_n_path):
+        raise AssertionError(f"big-n path did not launch every kernel: "
+                             f"{big_launches}")
+    print(json.dumps(_fp32_residual_floor(dev, big_cases, torch)),
+          flush=True)
+    launches = {k: launches[k] + engine_launches[k] + big_launches[k]
+                for k in counters}
 
     # ---- 5. timing ----
     name, limit = [s.strip() for s in smi.split(",", 1)]
@@ -932,6 +1289,7 @@ def main() -> int:
                               "solve_method_ms": method_ms["solve"],
                               **card}), flush=True)
     _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch)
+    _time_big_n(dev, big_cases, timing, library, card, torch)
 
     scheds = (LANES["newton_schulz_spd10_pallas"]["schedule"],
               cuda_gp.GP_NS_SCHEDULE)
@@ -984,6 +1342,19 @@ def main() -> int:
                    "(100x128)", "gp.cu", "pallas_gp.py:491",
                    ("k11", "gp_100x128")),
     ]
+    k9_ms, k9_plain_ms = timing[("k9", "nonsym500_100x512")]
+    k9_bound_ms, k9_bound_by = timing[("k9_bound", "nonsym500_100x512")]
+    kernels.insert(8, {
+        "name": f"K9 lu_bign panel (getf2 + laswp + the two triangle "
+                f"inverses; all {512 // lu_bign.pick_pw(512)} panel launches "
+                f"of one 100x512 call, summed)",
+        "route": "cuda",
+        "source": "cuda_matrix_inversion_tpu_torch/csrc/lu_bign.cu",
+        "replaces": "cuda_matrix_inversion_tpu/ops/lu_bign.py:195",
+        "launches": launches["k9"], "max_abs_err": new_err["k9"]["abs"],
+        "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_bound_ms,
+        "bound_by": k9_bound_by,
+        "library_ms": library[("k9", "nonsym500_100x512")]})
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,17 @@
 """cuda_matrix_inversion_tpu_torch — the PyTorch / NVIDIA Hopper port of
 ``cuda_matrix_inversion_tpu``.
 
-Batched inversion of many small dense matrices through the same registry
-of algorithms as the JAX package, the Gaussian-Process mean/variance
-pipeline and its hyper-parameter fit on top of it, and the bucketed serving
-engines.  The fixed-schedule and warm-start Newton-Schulz, pivoted LU,
-Gauss-Jordan and Cholesky lanes, the fused GP methods and the fused log
-marginal likelihood run hand-written CUDA kernels (``csrc/``, built for
-``sm_90a`` at first use) on CUDA tensors, and their plain PyTorch versions
-on CPU tensors.  This package imports ``torch`` and never ``jax``.
+Batched inversion of many dense matrices (8 … 512 and past) through the
+same registry of algorithms as the JAX package, an fp64-class lane refined
+in native float64, the Gaussian-Process mean/variance pipeline and its
+hyper-parameter fit on top of it, the bucketed serving engines and the
+mixed-dimension bucketing.  The fixed-schedule and warm-start
+Newton-Schulz, pivoted LU (one block per matrix to n = 128, blocked panels
+past it), Gauss-Jordan and Cholesky lanes, the fused GP methods and the
+fused log marginal likelihood run hand-written CUDA kernels (``csrc/``,
+built for ``sm_90a`` at first use) on CUDA tensors, and their plain
+PyTorch versions on CPU tensors.  This package imports ``torch`` and never
+``jax``.
 """
 
 from cuda_matrix_inversion_tpu_torch.engine import GPEngine, InversionEngine
@@ -36,6 +39,10 @@ from cuda_matrix_inversion_tpu_torch.ops.registry import (
     get_inverse_algorithm,
     list_inverse_algorithms,
 )
+from cuda_matrix_inversion_tpu_torch.parallel.bucketing import (
+    bucketed_gp_mean_variance,
+    bucketed_inverse,
+)
 
 __version__ = "0.1.0"
 
@@ -44,6 +51,8 @@ __all__ = [
     "GPFitResult",
     "InversionEngine",
     "SingularBatchError",
+    "bucketed_gp_mean_variance",
+    "bucketed_inverse",
     "fit_gp_scales",
     "get_inverse_algorithm",
     "gp_log_marginal_likelihood",

@@ -1,11 +1,13 @@
 """Deterministic NumPy fixture batches.
 
 Copies of ``make_spd_batch``, ``make_square_batch`` and
-``generate_gaussian_fixtures`` from ``cuda_matrix_inversion_tpu/io/fixtures.py``.
+``generate_gaussian_fixtures`` from ``cuda_matrix_inversion_tpu/io/fixtures.py``,
+and of the κ-controlled nonsymmetric class of
+``cuda_matrix_inversion_tpu/bench/chip_tests.py`` (``make_nonsym_cond``).
 The port carries its own copies because importing the JAX package imports
 JAX, which the machine with the GPU does not have;
-``tests/test_torch_slice.py`` and ``tests/test_torch_gp.py`` pin each copy
-to its original.
+``tests/test_torch_slice.py``, ``tests/test_torch_gp.py`` and
+``tests/test_torch_lu_bign.py`` pin each copy to its original.
 """
 
 from __future__ import annotations
@@ -45,6 +47,17 @@ def make_square_batch(num: int, dim: int, rng: np.random.Generator,
         out[got:got + take] = ok[:take]
         got += take
     return out
+
+
+def make_nonsym_cond(batch: int, n: int, kappa: float,
+                     rng: np.random.Generator) -> np.ndarray:
+    """Nonsymmetric float32 batch with exact 2-norm condition number
+    ``kappa``: a geomspace spectrum between two independent orthogonal
+    factors (copy of ``bench/chip_tests.py::_make_nonsym_cond``)."""
+    q1, _ = np.linalg.qr(rng.standard_normal((batch, n, n)))
+    q2, _ = np.linalg.qr(rng.standard_normal((batch, n, n)))
+    s = np.geomspace(1.0 / kappa, 1.0, n)
+    return ((q1 * s[None, None, :]) @ q2).astype(np.float32)
 
 
 def make_gp_batch(num: int, dim: int, rng: np.random.Generator) -> dict:

@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # 198 KB at n = 128); K2, K3 and K10 with ``emit_w`` keep two n×n buffers
 # (2·n²); K4, K5 and K10 one (n²).  K7 keeps one n×n buffer too and states
 # its own larger ceiling, GAUSS_JORDAN_MAX_N = 192 (148 KB), the JAX
-# kernel's.
+# kernel's.  K9 keeps one n×pw panel and checks its own ceiling
+# (``lu_bign.panel_smem_bytes``).
 MAX_N = 128
 
 _VP = ctypes.c_void_p
@@ -72,6 +73,8 @@ _SIGNATURES = {
                           _I, _I, _VP],
     # b, c, d, out, w, alpha, batch, n, emit_w, device, stream
     "cmi_gp_lml": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # work, perm, ipiv, ldi, udi, batch, n, k0, pw, device, stream
+    "cmi_lu_panel": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 _lock = threading.Lock()

@@ -95,10 +95,12 @@ inverse_cholesky_cuda.launches = 0
 def cholesky(a: torch.Tensor) -> torch.Tensor:
     """Batched lower Cholesky factor of an SPD batch (K4).
 
-    float64 takes the library route (:func:`linalg.cholesky`); n > 128
-    raises ``ValueError`` (the matrix lives in one block's shared memory).
+    float64, and n > 128 past the kernel's shared memory, take the library
+    route (:func:`linalg.cholesky`), as the JAX package takes XLA's factor
+    past its kernel.
     """
-    if a.dtype == torch.float64:
+    if a.dtype == torch.float64 or (a.ndim == 3
+                                    and a.shape[-1] > cuda_build.MAX_N):
         return linalg.cholesky(a)
     cuda_build.check_kernel_input(a, "cholesky kernel")
     a32 = a.to(torch.float32)

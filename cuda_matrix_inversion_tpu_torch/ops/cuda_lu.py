@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from cuda_matrix_inversion_tpu_torch.ops import cuda_build
-from cuda_matrix_inversion_tpu_torch.ops import linalg
+from cuda_matrix_inversion_tpu_torch.ops import cuda_build, linalg, lu_bign
 
 
 def lu_factor_plain(a: torch.Tensor):
@@ -84,12 +83,17 @@ def inverse_lu(a: torch.Tensor) -> torch.Tensor:
     ``lu_pallas``): one K2 launch, then one fp32 Newton polish
     X ← X + X(I − AX).
 
-    Any nonsingular batch with 1 ≤ n ≤ 128; a singular member comes out
-    non-finite and the others are unaffected.  float64 takes the library
-    route (:func:`linalg.inverse_lu`); n > 128 raises ``ValueError``.
+    Any nonsingular batch; a singular member comes out non-finite and the
+    others are unaffected.  float64 takes the library route
+    (:func:`linalg.inverse_lu`).  n > 128, past K2's shared memory, takes
+    the blocked route on K9 (:func:`lu_bign.inverse_lu_big`); the JAX
+    package takes its own from n = 257, its one-launch kernel serving
+    129..256.
     """
     if a.dtype == torch.float64:
         return linalg.inverse_lu(a)
+    if a.ndim == 3 and a.shape[-1] > cuda_build.MAX_N:
+        return lu_bign.inverse_lu_big(a)
     cuda_build.check_kernel_input(a, "lu kernel")
     a32 = a.to(torch.float32)
     x, _ = cuda_build.on_device(a32, "lu", lu_inverse_cuda, lu_inverse_plain,

@@ -27,6 +27,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def residual_f64(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The residual I − AX of a batched inverse with its product and
+    subtraction in float64 (cuBLAS DGEMM on the card), rounded to fp32.
+
+    A polish X ← X + X·R is only as good as R: with R in fp32 the rounding
+    of its n-term sums leaves the κ = 500 class over the 1e-4 gate from
+    n ≈ 256 on the card (PERF.md §6), where the TPU's HIGHEST residual held
+    it.  The routes past the one-block kernels polish with this one."""
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    r = eye - matmul(a.to(torch.float64), x.to(torch.float64))
+    return r.to(torch.float32)
+
+
 def add_diagonal(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Batched ``B + diag(c)``; ``c`` is ``(batch, n)`` or ``(batch, n, 1)``."""
     if c.ndim == 3:

@@ -8,7 +8,9 @@ quadratically once ‖I − AX‖ < 1.
   (lanes ``newton_schulz{,_spd,_spd10,_pan500}_pallas``), counterpart of
   ``inverse_newton_schulz_pallas``.  On a CUDA tensor it runs the
   hand-written kernel ``csrc/newton_schulz.cu`` (K1); on a CPU tensor its
-  plain PyTorch version :func:`ns_iterate_plain`.
+  plain PyTorch version :func:`ns_iterate_plain`.  Past the kernel's
+  n = 128 it takes the JAX package's routes past its ceiling (Schur,
+  :func:`inverse_newton_schulz_pan500_batched`, adaptive).
 * :func:`inverse_newton_schulz` — the adaptive, residual-monitored loop
   (lanes ``newton_schulz``, ``newton_schulz_spd``), plain PyTorch.
 * :func:`inverse_newton_schulz_warm` — warm-start refinement of a previous
@@ -27,12 +29,17 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import warnings
 
 import torch
 
-from cuda_matrix_inversion_tpu_torch.ops import cuda_build
-from cuda_matrix_inversion_tpu_torch.ops.linalg import inverse_lu, matmul
+from cuda_matrix_inversion_tpu_torch.ops import cuda_build, schur
+from cuda_matrix_inversion_tpu_torch.ops.linalg import (
+    inverse_lu,
+    matmul,
+    residual_f64,
+)
 
 # Default (lo_iters, hi_iters) schedules, calibrated on the TPU to hold the
 # 1e-4 gate to kappa <= 30 (spd, pan) and kappa <= 500 (split3).
@@ -235,8 +242,14 @@ def inverse_newton_schulz_fixed(
     κ ≲ 30; ``init="spd"`` SPD A (caller-asserted) with κ ≲ 30;
     ``precision="split3"`` (pan only) any nonsingular A with κ ≲ 500.
     float64 input goes to the adaptive :func:`inverse_newton_schulz`
-    (which takes the LU route), with a warning for split3.  n > 128 raises
-    ``ValueError``: the kernel holds a matrix in one block's shared memory.
+    (which takes the LU route), with a warning for split3.
+
+    n > 128, past the kernel's shared memory, takes the JAX package's
+    routes past its own ceiling (224 there): ``init="spd"`` the Schur
+    recursion (:func:`schur.spd_blocked_inverse`) down to this lane with
+    every schedule keyword forwarded; split3
+    :func:`inverse_newton_schulz_pan500_batched`; bf16 ``init="pan"`` the
+    adaptive :func:`inverse_newton_schulz`.
     """
     sched = resolve_schedule(lo_iters, hi_iters, init, polish_highest,
                              mu_min, precision)
@@ -247,11 +260,53 @@ def inverse_newton_schulz_fixed(
                 "adaptive f64 Newton-Schulz path (f64 arithmetic already "
                 "exceeds the split-precision floor)", stacklevel=2)
         return inverse_newton_schulz(a, init=init)
+    if a.ndim == 3 and a.shape[-1] > cuda_build.MAX_N:
+        if init == "spd":
+            # κ(A11), κ(S) ≤ κ(A) for SPD A, so the lane's κ domain carries
+            base = functools.partial(
+                inverse_newton_schulz_fixed, lo_iters=lo_iters,
+                hi_iters=hi_iters, init="spd", polish_highest=polish_highest,
+                mu_min=mu_min)
+            return schur.spd_blocked_inverse(a, base,
+                                             max_base_n=cuda_build.MAX_N)
+        if sched.split3:
+            return inverse_newton_schulz_pan500_batched(a, lo_iters, hi_iters,
+                                                        mu_min)
+        return inverse_newton_schulz(a, init=init)
     cuda_build.check_kernel_input(a, "newton_schulz kernel")
     a32 = a.to(torch.float32)
     # the plain version with bf16 products, the kernel's arithmetic
     x = cuda_build.on_device(a32, "newton_schulz", ns_iterate_cuda,
                              ns_iterate_plain, a32, sched)
+    return x.to(a.dtype)
+
+
+def inverse_newton_schulz_pan500_batched(
+    a: torch.Tensor,
+    lo_iters: int | None = None,
+    hi_iters: int | None = None,
+    mu_min: float | None = None,
+) -> torch.Tensor:
+    """The split3 (pan500) lane as batched products, any n: the
+    counterpart of the JAX package's ``inverse_newton_schulz_pan500_xla``,
+    which serves κ ≲ 500 general matrices past its kernel's ceiling.
+
+    The pan seed, ``lo_iters`` scaled rounds with both products the 3-pass
+    bf16 split (XLA ``HIGH``) and the recentering scalars of
+    ``scaled_round_coeffs(MU_MIN_PAN500, …, SPLIT3_NOISE_FLOOR)``: K1's
+    split3 rounds, outside any kernel.  Then ``hi_iters`` rounds with the
+    update split and the residual in float64
+    (:func:`linalg.residual_f64`), where JAX's is fp32 at ``HIGHEST``: an
+    fp32 residual on the card leaves κ = 500 at n = 256 over the gate.
+    float64 takes the LU route."""
+    if a.dtype == torch.float64:
+        return inverse_lu(a)
+    sched = resolve_schedule(lo_iters, hi_iters, "pan", True, mu_min,
+                             "split3")
+    a32 = a.to(torch.float32)
+    x = _rounds(a32, _seed(a32, "pan"), sched.coeffs, 0, True, True, True)
+    for _ in range(sched.hi_iters):
+        x = x + _mm_split3(x, residual_f64(a32, x))
     return x.to(a.dtype)
 
 

@@ -23,7 +23,9 @@ from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_cholesky,
     cuda_gauss_jordan,
     cuda_lu,
+    double_single,
     linalg,
+    lu_bign,
     newton_schulz,
 )
 
@@ -41,6 +43,8 @@ LANE_KEYWORDS: dict[str, dict] = {
     "lu": {},
     "cholesky": {},
     "cholesky_pallas": {},
+    "lu_bign_pallas": {},
+    "lu_hiacc": {"algorithm": "lu_pallas", "iters": 3},
 }
 
 _FUNCTIONS: dict[str, Callable] = {
@@ -55,6 +59,8 @@ _FUNCTIONS: dict[str, Callable] = {
     "lu": linalg.inverse_lu,
     "cholesky": linalg.inverse_cholesky,
     "cholesky_pallas": cuda_cholesky.inverse_cholesky,
+    "lu_bign_pallas": lu_bign.inverse_lu_big,
+    "lu_hiacc": double_single.inverse_hiacc,
 }
 
 

@@ -106,8 +106,8 @@ def test_indefinite_member_is_confined():
 
 def test_f64_and_big_n_routes():
     """float64 takes the library routes; n > 128 inverts through Schur onto
-    the kernel's plain version (n = 160 splits 80/80); the factor raises
-    past 128."""
+    the kernel's plain version (n = 160 splits 80/80); the factor takes the
+    library route past 128, as JAX takes XLA's past its kernel."""
     a64 = torch.tensor(make_spd_batch(2, 24, np.random.default_rng(4)))
     assert torch.equal(cuda_cholesky.inverse_cholesky(a64),
                        linalg.inverse_cholesky(a64))
@@ -115,8 +115,13 @@ def test_f64_and_big_n_routes():
     a = _spd(2, 160, 5)
     x = cuda_cholesky.inverse_cholesky(torch.tensor(a)).numpy()
     assert x.shape == a.shape and identity_error_inf(a, x) < 1e-4
-    with pytest.raises(ValueError, match="1..128"):
-        cuda_cholesky.cholesky(torch.tensor(a))
+    before = cuda_cholesky.cholesky_cuda.launches
+    l = cuda_cholesky.cholesky(torch.tensor(a))
+    assert cuda_cholesky.cholesky_cuda.launches == before
+    assert torch.equal(l, linalg.cholesky(torch.tensor(a)))
+    assert l.dtype == torch.float32
+    np.testing.assert_allclose(l.numpy(), np.linalg.cholesky(
+        a.astype(np.float64)), rtol=0, atol=1e-4 * np.abs(l.numpy()).max())
 
 
 @pytest.mark.parametrize("n", [8, 24, 100, 150, 160, 256, 272, 304, 512,
@@ -159,7 +164,7 @@ def test_library_path_hashes_headers(monkeypatch, tmp_path):
     before = cuda_build.library_path()
     assert cuda_build.library_path() == before
     assert [p.name for p in cuda_build._sources()] == [
-        "cholesky.cu", "gauss_jordan.cu", "gp.cu", "lu.cu",
+        "cholesky.cu", "gauss_jordan.cu", "gp.cu", "lu.cu", "lu_bign.cu",
         "newton_schulz.cu"]
     for header in ("cholesky_common.cuh", "ns_common.cuh"):
         path = csrc / header

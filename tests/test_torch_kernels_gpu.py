@@ -14,6 +14,7 @@ import torch
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
 from cuda_matrix_inversion_tpu_torch.io.fixtures import (
     make_gp_batch,
+    make_nonsym_cond,
     make_spd_batch,
     make_square_batch,
 )
@@ -23,9 +24,13 @@ from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_gp,
     cuda_gp_lml,
     cuda_lu,
+    lu_bign,
     newton_schulz,
 )
-from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
+from cuda_matrix_inversion_tpu_torch.ops.registry import (
+    LANES,
+    get_inverse_algorithm,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -53,6 +58,10 @@ WARM_RTOL = 2e-4
 # K10: the same factor and substitution as K5 / K3 (bitwise on the card);
 # quad, logdet and α differ only in summation order
 LML_RTOL = 1e-5
+# K9 repeats its plain version's operations in order (IEEE division, no FMA
+# contraction): the factors, pivots and triangle inverses come out equal,
+# and so do the two blocked LUs' outputs, which run the same cuBLAS products
+K9_RTOL = 0.0
 
 _K1_LANES = ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
              "newton_schulz_pallas", "newton_schulz_pan500_pallas")
@@ -301,3 +310,66 @@ def test_new_kernels_reject_past_their_ceiling(cuda):
         cuda_gp.gp_fused_warm_cuda(v, a, v, v, torch.ones(1, device=cuda), a)
     with pytest.raises(ValueError, match="192"):
         cuda_gauss_jordan.gauss_jordan_cuda(torch.eye(193, device=cuda)[None])
+
+
+@pytest.mark.parametrize("n,pw", [(160, 64), (256, 32), (300, 16),
+                                  (512, 64)])
+def test_k9_matches_plain(cuda, n, pw):
+    """The blocked factor with K9 against the same routine with K9's plain
+    version (n = 160 at pw = 64 and 300 at 16 pad a ragged last panel);
+    member 3 has a zero column and alone comes out non-finite; the lanes
+    pass the gate on the κ = 500 class."""
+    a = make_nonsym_cond(7, n, 500.0, np.random.default_rng(900 + n))
+    a[3, :, 5] = 0.0
+    at = torch.tensor(a, device=cuda)
+    n_pad = -(-n // pw) * pw
+    work = torch.eye(n_pad, device=cuda).repeat(7, 1, 1)
+    work[:, :n, :n] = at
+    before = lu_bign.lu_panel_cuda.launches
+    got = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_cuda)
+    torch.cuda.synchronize()
+    assert lu_bign.lu_panel_cuda.launches == before + n_pad // pw
+    ref = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_plain)
+    ok = np.arange(7) != 3
+    keep = torch.from_numpy(ok).to(cuda)
+    lu, ref_lu = got[0].cpu().numpy(), ref[0].cpu().numpy()
+    assert (np.isfinite(lu).all(axis=(1, 2)) == ok).all()
+    assert (np.isfinite(ref_lu).all(axis=(1, 2)) == ok).all()
+    assert _rel(lu[ok], ref_lu[ok]) <= K9_RTOL
+    assert torch.equal(got[1][keep], ref[1][keep])
+    for part in (2, 3, 4):
+        for x, r in zip(got[part], ref[part]):
+            assert torch.equal(x[keep], r[keep])
+    x = lu_bign.inverse_lu_big(at, pw=pw).cpu().numpy()
+    ref_x = lu_bign.inverse_lu_big_plain(at, pw=pw).cpu().numpy()
+    assert (np.isfinite(x).all(axis=(1, 2)) == ok).all()
+    assert _rel(x[ok], ref_x[ok]) <= K9_RTOL
+    assert identity_error_inf(a[ok], x[ok]) < 1e-4
+
+
+@pytest.mark.parametrize("lane", ["lu_pallas", "lu_bign_pallas"])
+def test_big_n_lanes_run_k9(cuda, lane):
+    """Past 128 ``lu_pallas`` runs the blocked LU on K9, never K2."""
+    a = make_nonsym_cond(5, 200, 500.0, np.random.default_rng(200))
+    before = (cuda_lu.lu_inverse_cuda.launches,
+              lu_bign.lu_panel_cuda.launches)
+    x = get_inverse_algorithm(lane)(torch.tensor(a, device=cuda))
+    torch.cuda.synchronize()
+    assert cuda_lu.lu_inverse_cuda.launches == before[0]
+    assert lu_bign.lu_panel_cuda.launches > before[1]
+    assert identity_error_inf(a, x.cpu().numpy()) < 1e-4
+
+
+def test_k9_rejects_past_its_ceiling(cuda):
+    """The first panel must fit one block's shared memory (n = 1696 at
+    pw = 32 does not); the wrapper also checks perm's type and layout."""
+    work = torch.zeros(1, 1696, 1696, device=cuda)
+    perm = torch.arange(1696, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(ValueError, match="shared memory"):
+        lu_bign.lu_panel_cuda(work, perm, 0, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        lu_bign.inverse_lu_big(torch.zeros(0, 7000, 7000, device=cuda))
+    with pytest.raises(ValueError, match="perm"):
+        lu_bign.lu_panel_cuda(work, perm.long(), 0, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        lu_bign.lu_panel_cuda(work.mT, perm, 0, 16)

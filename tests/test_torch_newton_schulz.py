@@ -225,6 +225,78 @@ def test_polish_highest_false_uses_split_residual():
     assert _rel(x, _emulate_k1(a, sched)) <= 2e-4
 
 
+@pytest.mark.parametrize("lane", _FIXED)
+def test_fixed_lanes_past_128_match_jax_routes(lane):
+    """n = 256, past K1's 128 and JAX's 224: both take JAX's routes — the
+    spd lanes the Schur recursion (128/128 on both sides, onto the kernel's
+    bf16 plain version here and JAX's interpreted fp32 kernel), pan500 the
+    split3 batched lane (bf16 splits here, fp32 on JAX's CPU), pan the
+    adaptive loop.  ≤ 2e-4 relative, as at n ≤ 128, and the gate; JAX's
+    pan500 polish (fp32 residual) sits on the CPU's floor at κ = 500 here
+    (1.2e-4), the port's (fp64 residual) under the gate."""
+    rng = np.random.default_rng(256)
+    if lane == "newton_schulz_pan500_pallas":
+        a = _nonsym_cond(2, 256, 500.0, rng)
+    else:
+        a = make_spd_batch(2, 256, rng).astype(np.float32)
+    ref = np.asarray(jax_registry.get_inverse_algorithm(lane)(a))
+    before = ns.ns_iterate_cuda.launches
+    x = ns.inverse_newton_schulz_fixed(torch.tensor(a),
+                                       **LANES[lane]["keywords"]).numpy()
+    assert ns.ns_iterate_cuda.launches == before
+    assert x.shape == a.shape and x.dtype == np.float32
+    assert identity_error_inf(a, x) < 1e-4
+    assert identity_error_inf(a, ref) < (1.3e-4 if "pan500" in lane
+                                         else 1e-4)
+    assert _rel(x, ref) <= 2e-4
+
+
+def test_spd10_schedule_reaches_the_schur_base(monkeypatch):
+    """Every schedule keyword of the spd10 lane (mu_min = 0.03 with 4 + 2
+    rounds) reaches the Schur base past 128; dropping one would run the
+    base on the spd defaults."""
+    seen = []
+    plain = ns.ns_iterate_plain
+
+    def spy(a, sched, bf16_products=True):
+        seen.append((a.shape[-1], sched))
+        return plain(a, sched, bf16_products)
+
+    monkeypatch.setattr(ns, "ns_iterate_plain", spy)
+    a = make_spd_batch(2, 256, np.random.default_rng(10)).astype(np.float32)
+    lane = LANES["newton_schulz_spd10_pallas"]
+    x = ns.inverse_newton_schulz_fixed(torch.tensor(a), **lane["keywords"])
+    assert identity_error_inf(a, x.numpy()) < 1e-4
+    assert [n for n, _ in seen] == [128, 128]
+    assert all(sched == lane["schedule"] for _, sched in seen)
+    assert lane["schedule"] != LANES["newton_schulz_spd_pallas"]["schedule"]
+
+
+def test_pan500_batched_is_k1s_split3_arithmetic():
+    """The split3 lane's batched route repeats K1's plain split3 lo rounds
+    (the JAX XLA lane runs the kernel's schedule at HIGH), then polishes
+    with fp64 residuals; its κ = 500 result at n = 256 passes the gate
+    where the fp32-residual polish (K1's own) does not on this CPU.
+    float64 goes to the LU route."""
+    a = _nonsym_cond(2, 24, 300.0, np.random.default_rng(11))
+    sched = LANES["newton_schulz_pan500_pallas"]["schedule"]
+    at = torch.tensor(a)
+    x = ns.inverse_newton_schulz_pan500_batched(at)
+    lo = ns._rounds(at, ns._seed(at, "pan"), sched.coeffs, 0, True, True,
+                    True)
+    for _ in range(sched.hi_iters):
+        lo = lo + ns._mm_split3(lo, ns.residual_f64(at, lo))
+    assert torch.equal(x, lo)
+    big = _nonsym_cond(4, 256, 500.0, np.random.default_rng(41))
+    x = ns.inverse_newton_schulz_pan500_batched(torch.tensor(big)).numpy()
+    assert identity_error_inf(big, x) < 1e-4
+    fp32 = ns.ns_iterate_plain(torch.tensor(big), sched).numpy()
+    assert identity_error_inf(big, fp32) > 1e-4
+    a64 = torch.tensor(a.astype(np.float64))
+    assert torch.equal(ns.inverse_newton_schulz_pan500_batched(a64),
+                       ns.inverse_lu(a64))
+
+
 # ---- K8: warm-start refinement ----
 
 def _drifted(a, delta, rng, symmetric):

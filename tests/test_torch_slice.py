@@ -18,6 +18,7 @@ import torch
 from cuda_matrix_inversion_tpu.bench import reporting as jax_reporting
 from cuda_matrix_inversion_tpu.io import fixtures as jax_fixtures
 from cuda_matrix_inversion_tpu.ops import host_api as jax_host_api
+from cuda_matrix_inversion_tpu.ops import xla as jax_xla
 from cuda_matrix_inversion_tpu_torch import types as port_types
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
 from cuda_matrix_inversion_tpu_torch.io import fixtures
@@ -26,6 +27,7 @@ from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_cholesky,
     cuda_lu,
     host_api,
+    lu_bign,
     newton_schulz,
 )
 from cuda_matrix_inversion_tpu_torch.ops.registry import (
@@ -33,10 +35,11 @@ from cuda_matrix_inversion_tpu_torch.ops.registry import (
     list_inverse_algorithms,
 )
 
-LANES = ["cholesky", "cholesky_pallas", "gauss_pallas", "lu", "lu_pallas",
-         "newton_schulz", "newton_schulz_pallas",
-         "newton_schulz_pan500_pallas", "newton_schulz_spd",
-         "newton_schulz_spd10_pallas", "newton_schulz_spd_pallas"]
+LANES = ["cholesky", "cholesky_pallas", "gauss_pallas", "lu",
+         "lu_bign_pallas", "lu_hiacc", "lu_pallas", "newton_schulz",
+         "newton_schulz_pallas", "newton_schulz_pan500_pallas",
+         "newton_schulz_spd", "newton_schulz_spd10_pallas",
+         "newton_schulz_spd_pallas"]
 
 
 def _rel(x, ref):
@@ -48,8 +51,8 @@ def test_registry_lanes():
     assert list_inverse_algorithms() == LANES
     assert list_inverse_algorithms(cpu=False) == LANES
     assert list_inverse_algorithms(cpu=True) == []
-    with pytest.raises(KeyError, match="lu_bign_pallas"):
-        get_inverse_algorithm("lu_bign_pallas")
+    with pytest.raises(KeyError, match="lu_cpu"):
+        get_inverse_algorithm("lu_cpu")
 
 
 @pytest.mark.parametrize("lane,batch,n", [(lane, 8, 32) for lane in LANES]
@@ -100,7 +103,7 @@ def test_solve_batched_matches_jax(method, rhs_shape):
 
 def test_cpu_tensors_do_not_launch_kernels():
     counted = (newton_schulz.ns_iterate_cuda, cuda_lu.lu_inverse_cuda,
-               cuda_cholesky.inverse_cholesky_cuda)
+               cuda_cholesky.inverse_cholesky_cuda, lu_bign.lu_panel_cuda)
     for fn in counted:
         fn.launches = 0
     a = torch.tensor(fixtures.make_spd_batch(3, 16, np.random.default_rng(1)),
@@ -108,7 +111,7 @@ def test_cpu_tensors_do_not_launch_kernels():
     for lane in LANES:
         assert identity_error_inf(a.numpy(), host_api.inverse_batched_device(
             a, lane).numpy()) < 1e-4
-    assert [fn.launches for fn in counted] == [0, 0, 0]
+    assert [fn.launches for fn in counted] == [0, 0, 0, 0]
 
 
 def test_explicit_cuda_device_raises_without_cuda():
@@ -123,19 +126,52 @@ def test_explicit_cuda_device_raises_without_cuda():
 
 
 def test_kernel_shape_check_rejects_n129():
-    """Both kernels cap n at 128 (one block's shared memory); larger n is
-    rejected on every device, never rerouted."""
+    """The one-block kernels cap n at 128 (one block's shared memory): the
+    shape check rejects larger n on every device.  The lanes route n = 129
+    past them, as the JAX package routes past its ceilings (Schur, the
+    split3 batched lane, the adaptive loop, the blocked LU), and return
+    inverses that pass the gate."""
     cuda_build.check_kernel_input(torch.zeros(2, 128, 128), "k")
     for bad in (torch.zeros(1, 129, 129), torch.zeros(2, 3, 4),
                 torch.zeros(4, 4)):
         with pytest.raises(ValueError):
             cuda_build.check_kernel_input(bad, "k")
-    a = torch.eye(129)[None].repeat(2, 1, 1)
+    spd = fixtures.make_spd_batch(2, 129, np.random.default_rng(129)
+                                  ).astype(np.float32)
+    general = fixtures.make_nonsym_cond(2, 129, 300.0,
+                                        np.random.default_rng(130))
     for lane in ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
                  "newton_schulz_pallas", "newton_schulz_pan500_pallas",
                  "lu_pallas"):
-        with pytest.raises(ValueError, match="1..128"):
-            host_api.inverse_batched_device(a, lane)
+        a = general if lane in ("newton_schulz_pan500_pallas",
+                                "lu_pallas") else spd
+        x = host_api.inverse_batched_device(torch.tensor(a), lane).numpy()
+        assert x.shape == a.shape and x.dtype == np.float32
+        assert identity_error_inf(a, x) < 1e-4, lane
+
+
+@pytest.mark.parametrize("lane", [
+    "lu_pallas", "lu_bign_pallas", "newton_schulz_spd10_pallas",
+    "newton_schulz_spd_pallas", "newton_schulz_pallas",
+    "newton_schulz_pan500_pallas"])
+@pytest.mark.parametrize("n", [129, 160, 256])
+def test_lanes_past_128_pass_the_gate_and_match_jax(lane, n):
+    """Past the one-block kernels every lane returns a gated inverse that
+    agrees with the JAX package's library inverse (``xla.inverse_lu``, its
+    LU and fp32 polish) on the same float32 input: ≤ 2e-4 relative on the
+    Newton-Schulz lanes (bf16 products), ≤ 1e-4 on the LU lanes.  General
+    lanes draw κ = 300 nonsymmetric batches, the others the SPD class."""
+    rng = np.random.default_rng(n + len(lane))
+    if lane in ("lu_pallas", "lu_bign_pallas",
+                "newton_schulz_pan500_pallas"):
+        a = fixtures.make_nonsym_cond(1, n, 300.0, rng)
+    else:
+        a = fixtures.make_spd_batch(1, n, rng).astype(np.float32)
+    x = host_api.inverse_batched(a, algorithm=lane, device="cpu")
+    ref = np.asarray(jax_xla.inverse_lu(a))
+    assert x.shape == a.shape and x.dtype == np.float32
+    assert identity_error_inf(a, x) < 1e-4
+    assert _rel(x, ref) <= (2e-4 if lane.startswith("newton") else 1e-4)
 
 
 def test_nvcc_missing_is_a_clear_error(monkeypatch):
@@ -178,6 +214,12 @@ def test_port_imports_no_jax():
                                               device="cpu")
             assert np.abs(mean - g["means"]).max() < 1e-4, method
             assert np.abs(var - g["variances"]).max() < 1e-4, method
+        sizes = (5, 20, 130)
+        ms = [make_spd_batch(1, n, np.random.default_rng(n))[0] for n in sizes]
+        for m, x in zip(ms, port.bucketed_inverse(ms, "lu_pallas",
+                                                  device="cpu")):
+            n = m.shape[0]
+            assert np.abs(m @ x - np.eye(n)).sum(-1).max() < 1e-4
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
         print("ok")
     """)
