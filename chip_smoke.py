@@ -10,7 +10,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build: compiles the hand-written kernels (``csrc/*.cu``, sm_90a);
 3. kernels: each kernel (K1–K8, K10, K11) against its plain PyTorch
    version on the card, at n ∈ {8, 20, 64, 128} and batch ∈ {1, 7, 100}
-   (and 1600 at n = 128; K7 also at n = 192); K2–K7 and K10 with one
+   (and 1600 at n = 128; K6 also at n = 72, K7 at n = 192); K2–K7 and K10
+   with one
    singular or indefinite member per batch, K8 and K11 with one member
    whose previous inverse holds a NaN, which alone must come out
    non-finite; K9 in the blocked factor and the whole polished blocked LU
@@ -41,14 +42,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    κ = 500 ``lu_bign_512_gate`` draw), ``lu_pallas`` at 1600×256, the
    pan500, spd10 and spd lanes at n = 256, an ``lu_pallas`` engine in its
    256 and 512 buckets, ``bucketed_inverse`` on a ragged list (5 … 512)
-   with ``lu_pallas`` and ``cholesky_pallas``, all through the gate; and
+   with ``lu_pallas`` and ``cholesky_pallas``, the warm split3 route at
+   100×256 (κ = 500, drifted by 1e-4 from its exact inverse), all through
+   the gate; and
    ``lu_hiacc`` against JAX's fp64 contracts (≤ 1e-11 at κ = 500, n = 128,
    also beside a singular member; ≤ 1e-8 at κ = 2e4 adaptive and on the
    κ ≈ 4n class at n = 512); K2 and K9's counters must move in this path;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
-   ``solve`` method on cuSOLVER); the warm lanes against the cold ones,
+   ``solve`` method on cuSOLVER), K6 also beside its CUDA-core time before
+   its tensor-core redesign; the warm lanes against the cold ones,
    one fit step of each method, and one engine request NumPy in and out;
    at 100×512 and 1600×256 K9 alone (its launches in one call, summed),
    the ``lu_bign_pallas`` lane beside its bound, ``torch.linalg.inv``, the
@@ -90,6 +94,10 @@ K5_ATOL = 1e-5
 # and the JAX test's 1e-4 absolute on mean and var.
 K6_RTOL = 2e-4
 K6_ATOL = 1e-4
+# K6 on CUDA-core FMAs before its tensor-core redesign, in ms (phase 5 of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W): kept beside the new
+# time so the kernel's row keeps its history.
+K6_BEFORE_MS = {"gp_100x128": 0.565, "gp_1600x128": 6.750}
 # GP main path: mean and var against the fp64 closed form (the JAX test's
 # bound, tests/test_gauss_jordan_gp.py).
 GP_ATOL = 1e-4
@@ -643,6 +651,9 @@ def _big_n_cases():
         # JAX's ns_pan500_xla_n256_kappa500
         "nonsym500_4x256": make_nonsym_cond(
             4, 256, 500.0, np.random.default_rng(41)),
+        # the warm split3 route past 128 (its polish residual in fp64)
+        "nonsym500_100x256": make_nonsym_cond(
+            100, 256, 500.0, np.random.default_rng(42)),
         "spd_100x256": make_spd_batch(
             100, 256, np.random.default_rng(2030)).astype(np.float32),
         "request_100x200": make_nonsym_cond(
@@ -678,7 +689,11 @@ def _big_n_path(dev, cases, torch):
     from cuda_matrix_inversion_tpu_torch.bench.reporting import (
         identity_error_inf,
     )
-    from cuda_matrix_inversion_tpu_torch.ops import double_single, host_api
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        double_single,
+        host_api,
+        newton_schulz,
+    )
     from cuda_matrix_inversion_tpu_torch.ops.registry import (
         get_inverse_algorithm,
     )
@@ -710,6 +725,11 @@ def _big_n_path(dev, cases, torch):
         torch.tensor(cases[case], device=dev), lane)) for lane, case in runs]
     for lane, case, x in outs:
         gate(f"{lane} {case}", cases[case], x.cpu().numpy())
+
+    a, x0 = _warm_split3_case(dev, cases, torch)
+    x = newton_schulz.inverse_newton_schulz_warm(a, x0, precision="split3")
+    gate("inverse_newton_schulz_warm split3 nonsym500_100x256 drifted 1e-4",
+         a.cpu().numpy(), x.cpu().numpy())
 
     eng = InversionEngine(algorithm="lu_pallas", device=dev)
     for case, a in (("request_100x200", cases["request_100x200"]),
@@ -745,10 +765,20 @@ def _big_n_path(dev, cases, torch):
     return lines
 
 
+def _warm_split3_case(dev, cases, torch):
+    """(a, x0) on the device: the κ = 500 batch at 100×256 drifted by a
+    relative 2-norm of 1e-4, and the exact inverse of the batch before the
+    drift."""
+    a0 = torch.tensor(cases["nonsym500_100x256"], device=dev)
+    x0 = torch.linalg.inv(a0.double()).float()
+    return _drift(a0, SPLIT3_DELTA, 256, False, torch), x0
+
+
 def _fp32_residual_floor(dev, cases, torch):
     """What the fp32-residual polish of the JAX package would give on the
-    card (informational): the blocked LU and the split3 batched lane with
-    their polish residual in fp32 instead of fp64."""
+    card (informational): the blocked LU, the split3 batched lane and the
+    warm split3 route with their polish residual in fp32 instead of
+    fp64."""
     from cuda_matrix_inversion_tpu_torch.bench.reporting import (
         identity_error_inf,
     )
@@ -764,13 +794,23 @@ def _fp32_residual_floor(dev, cases, torch):
     b = torch.tensor(b_np, device=dev)
     ns = newton_schulz.ns_iterate_plain(
         b, LANES["newton_schulz_pan500_pallas"]["schedule"])
+    w, w0 = _warm_split3_case(dev, cases, torch)
+    w_eye = torch.eye(w.shape[-1], device=dev)
+    xw = w0
+    for _ in range(2):  # the route's lo rounds
+        xw = newton_schulz._mm_split3(
+            xw, 2.0 * w_eye - newton_schulz._mm_split3(w, xw))
+    for _ in range(2):  # its polish rounds, the residual in fp32
+        xw = xw + newton_schulz._mm_split3(xw, w_eye - w @ xw)
     return {"phase": "big_n_path", "check": "fp32-residual polish "
             "(informational)", "lu_bign_nonsym500_100x512_unpolished":
             identity_error_inf(a_np, x.cpu().numpy()),
             "lu_bign_nonsym500_100x512_fp32_polish":
             identity_error_inf(a_np, fp32.cpu().numpy()),
             "pan500_nonsym500_4x256_fp32_residual":
-            identity_error_inf(b_np, ns.cpu().numpy())}
+            identity_error_inf(b_np, ns.cpu().numpy()),
+            "warm_split3_nonsym500_100x256_fp32_residual":
+            identity_error_inf(w.cpu().numpy(), xw.cpu().numpy())}
 
 
 def _k9_work(batch: int, n: int, pw: int, ipivs):
@@ -1036,6 +1076,19 @@ def main() -> int:
                 raise AssertionError(f"{what}: kernel vs plain {diff:.3e} "
                                      f"abs, {rel:.3e} rel")
         _new_kernels_vs_plain(batch, n, rng, dev, new_err, torch)
+    for batch in (1, 7, 100):  # K6 at n = 72: zero padding to 128
+        g = make_gp_batch(batch, 72, np.random.default_rng(72 + batch))
+        g = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
+             for k in "abcde"}
+        bad = batch // 2 if batch > 1 else None
+        if bad is not None:
+            g["b"][bad] = -g["b"][bad]
+        _compare("k6", cuda_gp.gp_fused_ns_cuda, cuda_gp.gp_fused_ns_plain,
+                 cuda_gp._flat(*(g[k] for k in "abcde")), bad, K6_RTOL,
+                 gp_err, torch)
+    if not gp_err["k6"]["abs"] <= K6_ATOL:
+        raise AssertionError(f"K6: kernel vs plain {gp_err['k6']['abs']:.3e}"
+                             f" abs > {K6_ATOL:g}")
     for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
         _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
                               dev, new_err, torch, k7_only=True)
@@ -1282,12 +1335,14 @@ def main() -> int:
             plain_ms = _median_ms(lambda: plain(*flat), torch)
             timing[(key, case)] = (ms, plain_ms)
             library[(key, case)] = method_ms["solve"]
+            before = ({"k6_before_ms": K6_BEFORE_MS[case]} if key == "k6"
+                      else {})
             print(json.dumps({"timing": key.upper(), "method": method,
                               "case": case, "kernel_ms": ms,
                               "plain_ms": plain_ms,
                               "lane_ms": method_ms[method],
                               "solve_method_ms": method_ms["solve"],
-                              **card}), flush=True)
+                              **before, **card}), flush=True)
     _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch)
     _time_big_n(dev, big_cases, timing, library, card, torch)
 

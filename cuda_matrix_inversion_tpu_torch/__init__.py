@@ -15,6 +15,12 @@ PyTorch versions on CPU tensors.  This package imports ``torch`` and never
 """
 
 from cuda_matrix_inversion_tpu_torch.engine import GPEngine, InversionEngine
+from cuda_matrix_inversion_tpu_torch.io.mats import (
+    read_mats,
+    read_test_folder,
+    write_mats,
+)
+from cuda_matrix_inversion_tpu_torch.io.replicate import replicate_matrices
 from cuda_matrix_inversion_tpu_torch.models.gp import (
     gp_log_marginal_likelihood,
     gp_mean,
@@ -43,6 +49,11 @@ from cuda_matrix_inversion_tpu_torch.parallel.bucketing import (
     bucketed_gp_mean_variance,
     bucketed_inverse,
 )
+from cuda_matrix_inversion_tpu_torch.types import (
+    MatrixBatch,
+    default_dtype,
+    set_default_dtype,
+)
 
 __version__ = "0.1.0"
 
@@ -50,9 +61,12 @@ __all__ = [
     "GPEngine",
     "GPFitResult",
     "InversionEngine",
+    "MatrixBatch",
     "SingularBatchError",
+    "__version__",
     "bucketed_gp_mean_variance",
     "bucketed_inverse",
+    "default_dtype",
     "fit_gp_scales",
     "get_inverse_algorithm",
     "gp_log_marginal_likelihood",
@@ -66,5 +80,10 @@ __all__ = [
     "inverse_batched",
     "inverse_batched_device",
     "list_inverse_algorithms",
+    "read_mats",
+    "read_test_folder",
+    "replicate_matrices",
+    "set_default_dtype",
     "solve_batched",
+    "write_mats",
 ]

@@ -13,23 +13,41 @@
 // O(n^3 / 3) factor, so K5 never forms W.
 //
 // K6 replaces ops/pallas_gp.py::_gp_ns_kernel (pallas_call in
-// gp_mean_variance_fused_ns).  It stages K into K1's A buffer and runs K1's
-// round loop (ns_common.cuh) with the spd schedule the host resolves
-// (resolve_schedule(init="spd"): 6 + 2 rounds at mu_min 0.01, the last
-// polish residual in fp32), then x = [d a] X in fp32, mean = x_d . a and
-// var = e - x_a . a.
+// gp_mean_variance_fused_ns).  It loads B with asynchronous copies, stages K,
+// seeds X1 = 2sI - s^2 K (ns_common.cuh::ns_seed's arithmetic) and runs the
+// spd schedule the host resolves (resolve_schedule(init="spd"): 6 lo rounds
+// at mu_min 0.01, then 2 polish rounds), then x = [d a] X in fp32,
+// mean = x_d . a and var = e - x_a . a.  Its 16 dependent products are 18
+// n^3 passes: 17 in bf16 (the 12 of the lo rounds, the 3 of the split
+// residual of the first polish round, and both polish updates X + X R) and
+// one in fp32.  The bf16 passes run on the tensor cores (ns_mma.cuh:
+// mma.sync m16n8k16 bf16 -> fp32 from ldmatrix fragments), where a
+// bf16 x bf16 product is exact in fp32, so they compute what K1's CUDA-core
+// emulation computes up to the order of the sums.  The last residual
+// R = I - K X is true fp32 on CUDA cores (ns_common.cuh::product<M, kF32>).
+// Never TF32: the schedule's scalars were calibrated for bf16 rounding.
 //
-// What bounds them on the card: not bytes (one read of B, 6.55 MB at
+// What bounds K5 and K6 on the card: not bytes (one read of B, 6.55 MB at
 // 100 x 128 x 128).  K5 is the factor's serial chain of n columns with two
 // barriers each, then n warp-synchronous substitution steps; its
 // n (n+1) + 2n fp32 of shared memory (67 KB at n = 128) lets three blocks
-// share an SM.  K6 is K1's chain of dependent 128^3 products on CUDA-core
-// FMAs, at one block per SM (3 n (n+1) + 2n fp32, 199 KB).
-// What the design does about it: everything stays in shared memory from the
-// load of B to the two scalars; K5's two substitutions run on two warps
-// with no block barrier, and its dot products are warp reductions.
-// Tensor-core products, blocked factors and several systems per block are
-// later work.
+// share an SM.  K6's bound is its operations: 17 bf16 passes at the tensor
+// cores' rate and the one fp32 product at the CUDA cores', which is half of
+// it.  Inside the block it is a chain of dependent products, 3 barriers a
+// round.
+// What the design does about it: everything stays in shared memory or
+// registers from the load of B to the two scalars.  K5's two substitutions
+// run on two warps with no block barrier, and its dot products are warp
+// reductions.  K6 keeps the fp32 master X in the warps' accumulator
+// fragments (each warp owns a 32 x 64 tile of every product at n = 128)
+// and publishes bf16(X) to shared memory once a round, where it feeds both
+// K X and X T; T and R go to shared memory as bf16, since their next
+// product rounds them anyway.  K stays in shared memory in fp32 for the
+// fp32 residual and the split's lo part, and as a bf16 copy for the
+// one-pass products.  Shared memory at n = 128: K 66 KB, four bf16 tiles
+// (K, X, T or R, X's lo part) 34 KB each, with X in fp32 over the last two
+// where needed: 201.5 KB, one block an SM.  Several systems per block and
+// wgmma are later work.
 //
 // K11 replaces ops/pallas_gp.py::_gp_warm_kernel (pallas_call in
 // gp_mean_variance_fused_warm): K6 with X loaded from the previous
@@ -53,6 +71,7 @@
 
 #include "cholesky_common.cuh"
 #include "ns_common.cuh"
+#include "ns_mma.cuh"
 
 namespace {
 
@@ -159,6 +178,13 @@ __device__ __forceinline__ void ns_gp_epilogue(const float* sX,
   }
 }
 
+// K6.  Shared memory (NP = 16M, LD = NP + 1, LDB = NP + 8): sK, K in fp32
+// (NP x LD: the fp32 residual and the split's lo part read it); then bf16
+// tiles (NP x LDB): sKh, bf16(K); sXh, bf16(X); sT, T or R; sXl, the split's
+// lo part of X; sXf, X in fp32 (NP x LD) over sT and sXl, written only where
+// neither is live; then sv = [d a].  B is copied in over sXh .. sXl before K
+// is staged from it.  The fp32 master X lives in the warps' accumulator
+// fragments (xm).
 template <int M>
 __global__ void __launch_bounds__(kThreads)
     gp_ns_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -167,32 +193,145 @@ __global__ void __launch_bounds__(kThreads)
                  NSParams prm) {
   constexpr int NP = 16 * M;
   constexpr int LD = NP + 1;
-  extern __shared__ float smem[];
+  using G = MmaGeometry<NP>;
+  constexpr int LDB = G::kLd;
+  constexpr int MT = G::kMT;
+  constexpr int NT = G::kNT;
+  extern __shared__ __align__(16) unsigned char gp_ns_smem[];
   __shared__ float red[kThreads / 32];
-  float* sA = smem;
-  float* sX = sA + NP * LD;
-  float* sT = sX + NP * LD;
-  float* sv = sT + NP * LD;  // sv[0..n) = d, sv[n..2n) = a
+  float* sK = reinterpret_cast<float*>(gp_ns_smem);
+  bf16* sKh = reinterpret_cast<bf16*>(sK + NP * LD);
+  bf16* sXh = sKh + NP * LDB;
+  bf16* sT = sXh + NP * LDB;
+  bf16* sXl = sT + NP * LDB;
+  float* sXf = reinterpret_cast<float*>(sT);
+  float* sv = reinterpret_cast<float*>(sXl + NP * LDB);
+  float* stage = reinterpret_cast<float*>(sXh);
   const int n = prm.n;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const size_t sys = blockIdx.x;
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
-  for (int x = tid; x < NP * NP; x += kThreads) {
-    const int i = x / NP, j = x % NP;
-    sA[i * LD + j] = (i < n && j < n) ? stage_k(bs, cs, i, j, n) : 0.f;
-    sX[i * LD + j] = 0.f;
-    sT[i * LD + j] = 0.f;
+
+  // B, read once, with asynchronous copies; then K = B + diag(c), zero
+  // padded to NP, in fp32 and bf16.
+  const int nn = n * n;
+  if ((nn & 3) == 0 && (reinterpret_cast<uintptr_t>(bs) & 15) == 0) {
+    for (int x = 4 * tid; x < nn; x += 4 * kThreads)
+      cp_async16(stage + x, bs + x);
+  } else {
+    for (int x = tid; x < nn; x += kThreads) cp_async4(stage + x, bs + x);
   }
   for (int i = tid; i < n; i += kThreads) {
     sv[i] = d[sys * n + i];
     sv[n + i] = a[sys * n + i];
   }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int x = tid; x < NP * NP; x += kThreads) {
+    const int i = x / NP, j = x % NP;
+    const float k = (i < n && j < n) ? stage_k(stage, cs, i, j, n) : 0.f;
+    sK[i * LD + j] = k;
+    sKh[i * LDB + j] = __float2bfloat16_rn(k);
+  }
   __syncthreads();
 
-  ns_seed<M>(sA, sX, prm, red);
-  ns_rounds<M>(sA, sX, sT, prm);
-  ns_gp_epilogue<M>(sX, sv, n, e[sys], out + 2 * sys, red);
+  // The spd seed X1 = 2sI - s^2 K, s = 1/||K||_inf (ns_common.cuh::ns_seed's
+  // arithmetic, the row sums a warp each), straight into the fragments.
+  float rmax = 0.f;
+  for (int i = tid >> 5; i < n; i += kThreads / 32) {
+    float r = 0.f;
+    for (int j = lane; j < n; j += 32) r += fabsf(sK[i * LD + j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+    rmax = fmaxf(rmax, r);
+  }
+  const float s_inv = 1.f / block_max(rmax, red);
+  const float two_s = 2.f * s_inv;
+  const float s2 = __fmul_rn(s_inv, s_inv);
+  const WarpTile w = warp_tile<NP>();
+  float xm[MT][NT][4];
+  if (w.active)
+    tile_for_each(xm, w, [&](int i, int j, float& v) {
+      v = (i < n && j < n)
+              ? __fsub_rn(i == j ? two_s : 0.f, __fmul_rn(s2, sK[i * LD + j]))
+              : 0.f;
+    });
+
+  // Publish X for round `r` (r = lo + hi: the epilogue): bf16(X) for every
+  // product, its lo part before a split residual, fp32 before the fp32
+  // residual and the epilogue.  The first barrier ends every read of the
+  // buffers written here.
+  const int rounds = prm.lo + prm.hi;
+  auto f32_round = [&](int r) {
+    return r == rounds || (r == rounds - 1 && prm.polish_highest);
+  };
+  auto publish = [&](int r) {
+    __syncthreads();
+    if (w.active) {
+      if (r < rounds) store_tile_bf16(xm, sXh, LDB, w);
+      if (r >= prm.lo && !f32_round(r))
+        store_tile_bf16<MT, NT, true>(xm, sXl, LDB, w);
+      if (f32_round(r)) store_tile_f32(xm, sXf, LD, w);
+    }
+    __syncthreads();
+  };
+  publish(0);
+
+  float acc[MT][NT][4];
+  for (int r = 0; r < prm.lo; ++r) {
+    // T = 2c I - c^2 (K X), then X = X T (the fp32 master is replaced)
+    const float tc = prm.two_c[r], c2 = prm.c_sq[r];
+    if (w.active) {
+      mma_tiles<NP>(acc, sKh, sXh, w);
+      tile_for_each(acc, w, [&](int i, int j, float& v) {
+        v = (i < n && j < n) ? __fsub_rn(i == j ? tc : 0.f, __fmul_rn(c2, v))
+                             : 0.f;
+      });
+      store_tile_bf16(acc, sT, LDB, w);
+    }
+    __syncthreads();
+    if (w.active) mma_tiles<NP>(xm, sXh, sT, w);
+    publish(r + 1);
+  }
+  for (int r = prm.lo; r < rounds; ++r) {
+    // R = I - K X (the 3-pass split, or fp32 on CUDA cores), X = X + X R
+    if (f32_round(r)) {
+      float accf[M][M];
+      const int tx = tid % 16, ty = tid / 16;
+      product<M, kF32>(sK, sXf, n, ty, tx, accf);
+      __syncthreads();  // sXf lies under sT
+#pragma unroll
+      for (int p = 0; p < M; ++p)
+#pragma unroll
+        for (int q = 0; q < M; ++q) {
+          const int i = ty + 16 * p, j = tx + 16 * q;
+          sT[i * LDB + j] = __float2bfloat16_rn(
+              (i < n && j < n) ? __fsub_rn(i == j ? 1.f : 0.f, accf[p][q])
+                               : 0.f);
+        }
+    } else if (w.active) {
+      mma_split3<NP>(acc, sKh, sK, LD, sXh, sXl, w);
+      tile_for_each(acc, w, [&](int i, int j, float& v) {
+        v = (i < n && j < n) ? __fsub_rn(i == j ? 1.f : 0.f, v) : 0.f;
+      });
+      store_tile_bf16(acc, sT, LDB, w);
+    }
+    __syncthreads();
+    if (w.active) {
+      mma_tiles<NP>(acc, sXh, sT, w);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            xm[m][j][q] = __fadd_rn(xm[m][j][q], acc[m][j][q]);
+    }
+    publish(r + 1);
+  }
+  ns_gp_epilogue<M>(sXf, sv, n, e[sys], out + 2 * sys, red);
 }
 
 // K11: K6 with X loaded from x0 and the refined X written to kinv.
@@ -368,7 +507,9 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = ns_tile(n);
   const size_t np = 16ull * m;
-  const size_t smem = (3 * np * (np + 1) + 2ull * n) * sizeof(float);
+  // sK and the fp32 vectors, then sKh, sXh, sT, sXl (201.5 KB at n = 128)
+  const size_t smem = (np * (np + 1) + 2ull * n) * sizeof(float) +
+                      4 * mma_tile_bytes(np);
   switch (m) {
     case 1: err = launch(gp_ns_kernel<1>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 2: err = launch(gp_ns_kernel<2>, smem, batch, s, a, b, c, d, e, out, prm); break;

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` hold plain C entry points; ``csrc/*.cuh`` hold the device
 code that several of them share.  At first use the ``.cu`` files are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library under
+compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` a file, all started
+together, and linked into one shared library under
 ``build/torch_kernels/`` at the root of the checkout, and loaded with
 ``ctypes``.  The file name carries a hash of the flags and of every source
 and header, so an edited file builds anew and an unchanged tree is loaded
@@ -32,13 +33,14 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # Largest matrix dimension the shared-memory-resident kernels take.  Each
 # kernel holds its matrices in one block's shared memory, of which a block
-# may opt into 227 KB: K1, K6, K8 and K11 keep A, X and T (3·n² fp32,
-# 198 KB at n = 128); K2, K3 and K10 with ``emit_w`` keep two n×n buffers
-# (2·n²); K4, K5 and K10 one (n²).  K7 keeps one n×n buffer too and states
+# may opt into 227 KB: K1, K8 and K11 keep A, X and T (3·n² fp32,
+# 198 KB at n = 128); K6 keeps K in fp32 and four bf16 n×n tiles (201.5 KB);
+# K2, K3 and K10 with ``emit_w`` keep two n×n buffers (2·n²); K4, K5 and
+# K10 one (n²).  K7 keeps one n×n buffer too and states
 # its own larger ceiling, GAUSS_JORDAN_MAX_N = 192 (148 KB), the JAX
 # kernel's.  K9 keeps one n×pw panel and checks its own ceiling
 # (``lu_bign.panel_smem_bytes``).
@@ -121,15 +123,41 @@ def build() -> Path:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objdir = out.with_suffix(f".{os.getpid()}.objs")
+    objdir.mkdir()
+    objs = [objdir / f"{src.stem}.o" for src in _sources()]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for obj, src in zip(objs, _sources())]
+    link_cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                *map(str, objs)]
+    procs = []
+    try:
+        for cmd in compile_cmds:
+            procs.append((cmd, _start(cmd)))
+        for cmd, proc in procs:
+            _finish(cmd, proc)
+        _finish(link_cmd, _start(link_cmd))
+        os.replace(tmp, out)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:  # a sibling failed: stop the rest
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+        shutil.rmtree(objdir, ignore_errors=True)
     return out
+
+
+def _start(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(cmd: list[str], proc: subprocess.Popen) -> None:
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
 
 
 def library() -> ctypes.CDLL:

@@ -342,13 +342,16 @@ def _warm_refine_split(a: torch.Tensor, x0: torch.Tensor, lo: int,
     """The warm rounds past the kernel's ceiling, as batched products:
     the counterpart of the JAX package's ``_warm_refine_split_xla`` (which
     JAX computes outside any Pallas kernel).  Every product the 3-pass bf16
-    split (XLA ``HIGH``), every residual fp32 (``HIGHEST``)."""
+    split (XLA ``HIGH``); the polish residual in float64
+    (:func:`linalg.residual_f64`), where JAX's is fp32 at ``HIGHEST``: an
+    fp32 residual leaves κ = 500 at n = 256 over the gate, as on the cold
+    routes past 128."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     x = x0
     for _ in range(lo):
         x = _mm_split3(x, 2.0 * eye - _mm_split3(a, x))
     for _ in range(hi):
-        x = x + _mm_split3(x, eye - matmul(a, x))
+        x = x + _mm_split3(x, residual_f64(a, x))
     return x
 
 

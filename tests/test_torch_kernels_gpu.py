@@ -143,10 +143,11 @@ def test_cholesky_kernels_match_plain(cuda, n):
     assert (np.triu(l.cpu().numpy()[ok], 1) == 0).all()
 
 
-@pytest.mark.parametrize("n", [8, 20, 64, 128])
+@pytest.mark.parametrize("n", [8, 20, 64, 72, 128])
 def test_gp_kernels_match_plain(cuda, n):
     """K5 and K6 against their plain versions and the fp64 closed form;
-    system 3 is negative definite and is the only non-finite one."""
+    system 3 is negative definite and is the only non-finite one.  n = 20
+    and 72 leave zero padding in K6's 16-multiple tiles."""
     g = make_gp_batch(7, n, np.random.default_rng(300 + n))
     t = {k: torch.tensor(v, dtype=torch.float32, device=cuda)
          for k, v in g.items()}
@@ -166,6 +167,24 @@ def test_gp_kernels_match_plain(cuda, n):
         assert np.abs(out[ok] - ref[ok]).max() <= atol
         assert _rel(out[ok], ref[ok]) <= rtol
         assert np.abs(out[ok] - ref64[ok]).max() < 1e-4
+
+
+def test_k6_matches_plain_at_1600x128(cuda):
+    """K6 at the main path's largest batch (13 waves of one block an SM)
+    against its plain version and the fp64 closed form, in one launch."""
+    g = make_gp_batch(1600, 128, np.random.default_rng(1600))
+    flat = cuda_gp._flat(*(torch.tensor(g[k], dtype=torch.float32,
+                                        device=cuda) for k in "abcde"))
+    before = cuda_gp.gp_fused_ns_cuda.launches
+    out = cuda_gp.gp_fused_ns_cuda(*flat)
+    torch.cuda.synchronize()
+    assert cuda_gp.gp_fused_ns_cuda.launches == before + 1
+    out, ref = out.cpu().numpy(), cuda_gp.gp_fused_ns_plain(*flat).cpu().numpy()
+    ref64 = np.stack([g["means"][:, 0, 0], g["variances"][:, 0, 0]], -1)
+    assert np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= K6_ATOL
+    assert _rel(out, ref) <= K6_RTOL
+    assert np.abs(out - ref64).max() < 1e-4
 
 
 def test_kernels_reject_n129_on_cuda(cuda):

@@ -18,6 +18,7 @@ from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch, make_square_ba
 from cuda_matrix_inversion_tpu.ops import newton_schulz as jax_ns
 from cuda_matrix_inversion_tpu.ops import registry as jax_registry
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
+from cuda_matrix_inversion_tpu_torch.io.fixtures import make_nonsym_cond
 from cuda_matrix_inversion_tpu_torch.ops import newton_schulz as ns
 from cuda_matrix_inversion_tpu_torch.ops.registry import LANES, build_lane_table
 
@@ -401,6 +402,30 @@ def test_warm_routes_past_128_and_f64():
                                                     dtype=torch.float64))
     assert x64.dtype == torch.float64
     assert identity_error_inf(a64, x64.numpy()) < 1e-8
+
+
+def test_warm_split3_past_128_polishes_with_fp64_residual():
+    """The warm split3 route past the kernel's 128 on the κ = 500 class at
+    4×256, drifted by δ = 1e-4 from its exact inverse: its polish residual
+    is fp64 (the rounds written out here with ``residual_f64``), and it
+    holds the gate, where the same rounds with an fp32 residual do not."""
+    rng = np.random.default_rng(256)
+    a0 = make_nonsym_cond(4, 256, 500.0, rng)
+    x0 = np.linalg.inv(a0.astype(np.float64)).astype(np.float32)
+    at = torch.tensor(_drifted(a0, 1e-4, rng, False))
+    xt = torch.tensor(x0)
+    x = ns.inverse_newton_schulz_warm(at, xt, precision="split3")
+    eye = torch.eye(256)
+    want = xt
+    for _ in range(2):  # lo_iters
+        want = ns._mm_split3(want, 2.0 * eye - ns._mm_split3(at, want))
+    fp32 = want
+    for _ in range(2):  # hi_iters + 1 past the kernel
+        want = want + ns._mm_split3(want, ns.residual_f64(at, want))
+        fp32 = fp32 + ns._mm_split3(fp32, eye - at @ fp32)
+    assert _rel(x.numpy(), want.numpy()) <= 1e-6
+    assert identity_error_inf(at.numpy(), x.numpy()) < 1e-4
+    assert identity_error_inf(at.numpy(), fp32.numpy()) > 1e-4
 
 
 def test_warm_validation_and_no_launch_on_cpu():

@@ -15,13 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_matrix_inversion_tpu as jax_package
+import cuda_matrix_inversion_tpu_torch as port
 from cuda_matrix_inversion_tpu.bench import reporting as jax_reporting
 from cuda_matrix_inversion_tpu.io import fixtures as jax_fixtures
+from cuda_matrix_inversion_tpu.io import replicate as jax_replicate
 from cuda_matrix_inversion_tpu.ops import host_api as jax_host_api
 from cuda_matrix_inversion_tpu.ops import xla as jax_xla
 from cuda_matrix_inversion_tpu_torch import types as port_types
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
-from cuda_matrix_inversion_tpu_torch.io import fixtures
+from cuda_matrix_inversion_tpu_torch.io import fixtures, replicate
 from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_build,
     cuda_cholesky,
@@ -196,6 +199,10 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, NoJax())
         import numpy as np
         import cuda_matrix_inversion_tpu_torch as port
+        from cuda_matrix_inversion_tpu_torch import (
+            MatrixBatch, default_dtype, read_mats, read_test_folder,
+            replicate_matrices, set_default_dtype, write_mats,
+        )
         from cuda_matrix_inversion_tpu_torch.io.fixtures import make_spd_batch
         a = make_spd_batch(3, 16, np.random.default_rng(0)).astype(np.float32)
         for lane in port.list_inverse_algorithms():
@@ -239,6 +246,24 @@ def test_fixture_copies_match_jax_package(maker, args):
     ref = getattr(jax_fixtures, maker)(*args[:2], np.random.default_rng(11),
                                        *args[2:])
     np.testing.assert_array_equal(got, ref)
+
+
+def test_top_level_exports_cover_the_jax_packages():
+    """Every name the JAX package exports is exported by the port too."""
+    assert set(jax_package.__all__) <= set(port.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+    assert port.replicate_matrices is replicate.replicate_matrices
+
+
+@pytest.mark.parametrize("times", [1, 3])
+def test_replicate_copy_matches_jax_package(times):
+    a = np.random.default_rng(12).standard_normal((4, 5, 6)).astype(np.float32)
+    got = replicate.replicate_matrices(a[:, ::2], times)
+    ref = jax_replicate.replicate_matrices(a[:, ::2], times)
+    np.testing.assert_array_equal(got, ref)
+    assert got.flags.c_contiguous and got.dtype == ref.dtype
+    with pytest.raises(ValueError, match="times"):
+        replicate.replicate_matrices(a, 0)
 
 
 def test_gate_copy_matches_jax_package():
