@@ -10,9 +10,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build: compiles the hand-written kernels (``csrc/*.cu``, sm_90a);
 3. kernels: each kernel (K1–K8, K10, K11) against its plain PyTorch
    version on the card, at n ∈ {8, 20, 64, 128} and batch ∈ {1, 7, 100}
-   (and 1600 at n = 128; K6 also at n = 72, K7 at n = 192); K2–K7 and K10
-   with one
-   singular or indefinite member per batch, K8 and K11 with one member
+   (and 1600 at n = 128; K6 and K11 also at n = 72, K11 at n ∈ {20, 128}
+   with (lo, hi) ∈ {(0, 1), (1, 2), (3, 2)}, K7 at n = 192); K2–K7 and K10
+   with one singular or indefinite member per batch, K8 and K11 with one member
    whose previous inverse holds a NaN, which alone must come out
    non-finite; K9 in the blocked factor and the whole polished blocked LU
    against the same routine on its plain version, n ∈ {160, 256, 512} ×
@@ -51,9 +51,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
-   ``solve`` method on cuSOLVER), K6 also beside its CUDA-core time before
-   its tensor-core redesign; the warm lanes against the cold ones,
-   one fit step of each method, and one engine request NumPy in and out;
+   ``solve`` method on cuSOLVER), K6 and K11 also beside their CUDA-core
+   times before their tensor-core redesign; the warm lanes against the cold
+   ones, one fit step of each method, and one engine request NumPy in and
+   out;
    at 100×512 and 1600×256 K9 alone (its launches in one call, summed),
    the ``lu_bign_pallas`` lane beside its bound, ``torch.linalg.inv``, the
    plain routine, ``lu_hiacc`` and the panel-width ladder.
@@ -98,6 +99,9 @@ K6_ATOL = 1e-4
 # this script on an NVIDIA H100 80GB HBM3 at 700 W): kept beside the new
 # time so the kernel's row keeps its history.
 K6_BEFORE_MS = {"gp_100x128": 0.565, "gp_1600x128": 6.750}
+# K11 with its rounds emulating bf16 on CUDA cores, before it moved onto
+# K6's tensor-core round loop, in ms (the same script and card).
+K11_BEFORE_MS = {"gp_100x128": 0.221, "gp_1600x128": 2.794}
 # GP main path: mean and var against the fp64 closed form (the JAX test's
 # bound, tests/test_gauss_jordan_gp.py).
 GP_ATOL = 1e-4
@@ -190,11 +194,12 @@ def _drift(a, delta: float, seed: int, symmetric: bool, torch):
     return (a64 + delta * scale[:, None, None] * noise).float()
 
 
-def _compare(key, kernel, plain, args, bad, rtol, err, torch):
+def _compare(key, kernel, plain, args, bad, rtol, err, torch, atols=()):
     """Kernel against plain on the same inputs: member ``bad`` alone
     non-finite in both, and every output within ``rtol`` (max-norm
-    relative, over the finite members) of the plain version's.  Records the
-    worst abs and rel error under ``err[key]``."""
+    relative, over the finite members) of the plain version's, output i
+    also within ``atols[i]`` absolute where given.  Records the worst abs
+    and rel error under ``err[key]``."""
     got = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -212,6 +217,9 @@ def _compare(key, kernel, plain, args, bad, rtol, err, torch):
         if not rel <= rtol:
             raise AssertionError(f"{what}: kernel vs plain {rel:.3e} > "
                                  f"{rtol:g}")
+        if i < len(atols) and not diff <= atols[i]:
+            raise AssertionError(f"{what}: kernel vs plain {diff:.3e} abs > "
+                                 f"{atols[i]:g}")
 
 
 def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
@@ -226,9 +234,7 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
     )
     from cuda_matrix_inversion_tpu_torch.ops import (
         cuda_gauss_jordan,
-        cuda_gp,
         cuda_gp_lml,
-        linalg,
         newton_schulz,
     )
 
@@ -266,14 +272,26 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
         _compare(key, cuda_gp_lml.lml_quad_logdet_cuda,
                  cuda_gp_lml.lml_quad_logdet_plain, (b_bad, c, d, emit_w),
                  bad, LML_RTOL, err, torch)
-    x0 = torch.linalg.inv(linalg.add_diagonal(t["b"], t["c"]).double()
+    _k11_vs_plain(t, bad, seed, err, torch)
+
+
+def _k11_vs_plain(g, bad, seed, err, torch, lo=2, hi=1):
+    """K11 against its plain version at `lo` + `hi` rounds on the GP batch
+    ``g`` (float32 tensors a … e on the card, B drifted by WARM_DELTA from
+    the one X0 inverts): WARM_RTOL on every output, K6_ATOL on mean and
+    var; member ``bad``'s X0 holds a NaN and alone must come out
+    non-finite."""
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_gp, linalg
+
+    x0 = torch.linalg.inv(linalg.add_diagonal(g["b"], g["c"]).double()
                           ).float()
     if bad is not None:
         x0[bad, 0, 0] = float("nan")
-    flat = cuda_gp._flat(t["a"], _drift(t["b"], WARM_DELTA, seed, True,
-                                        torch), t["c"], t["d"], t["e"])
+    flat = cuda_gp._flat(g["a"], _drift(g["b"], WARM_DELTA, seed, True,
+                                        torch), g["c"], g["d"], g["e"])
     _compare("k11", cuda_gp.gp_fused_warm_cuda, cuda_gp.gp_fused_warm_plain,
-             (*flat, x0), bad, WARM_RTOL, err, torch)
+             (*flat, x0, lo, hi), bad, WARM_RTOL, err, torch,
+             atols=(K6_ATOL,))
 
 
 def _fit_data(batch, n, seed):
@@ -487,7 +505,9 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
                 ("k8", a0, WARM_DELTA, False, {"init": "spd"}),
                 ("k8_split3", sq, SPLIT3_DELTA, True,
                  {"precision": "split3"})):
-            x0 = torch.linalg.inv(base.double()).float()
+            # contiguous: torch.linalg.inv returns column-major batches,
+            # which the wrapper would copy on every timed call
+            x0 = torch.linalg.inv(base.double()).float().contiguous()
             a = _drift(base, delta, batch, not split3, torch)
             precision = "split3" if split3 else "bf16"
             ms = _median_ms(lambda: newton_schulz.ns_refine_cuda(
@@ -538,7 +558,8 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
              xla_ms=step_ms["xla"], lml_forward_xla_ms=lml_xla_ms)
 
         ga, gb, gc, gd, ge = gp_dev[gp_case]
-        x0 = torch.linalg.inv(linalg.add_diagonal(gb, gc).double()).float()
+        x0 = torch.linalg.inv(linalg.add_diagonal(gb, gc).double()
+                              ).float().contiguous()
         flat = cuda_gp._flat(ga, _drift(gb, WARM_DELTA, batch, True, torch),
                              gc, gd, ge)
         ms = _median_ms(lambda: cuda_gp.gp_fused_warm_cuda(*flat, x0), torch)
@@ -550,7 +571,8 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
         timing[("k11", gp_case)] = (ms, plain_ms)
         library[("k11", gp_case)] = solve_ms
         show("K11", gp_case, kernel_ms=ms, plain_ms=plain_ms,
-             k6_cold_kernel_ms=k6_ms, solve_method_ms=solve_ms)
+             k11_before_ms=K11_BEFORE_MS[gp_case], k6_cold_kernel_ms=k6_ms,
+             solve_method_ms=solve_ms)
 
     # one engine request, NumPy in and out, host clock (ends in the copy
     # back, which waits for the device)
@@ -1076,11 +1098,12 @@ def main() -> int:
                 raise AssertionError(f"{what}: kernel vs plain {diff:.3e} "
                                      f"abs, {rel:.3e} rel")
         _new_kernels_vs_plain(batch, n, rng, dev, new_err, torch)
-    for batch in (1, 7, 100):  # K6 at n = 72: zero padding to 128
+    for batch in (1, 7, 100):  # K6 and K11 at n = 72: zero padding to 128
         g = make_gp_batch(batch, 72, np.random.default_rng(72 + batch))
         g = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
              for k in "abcde"}
         bad = batch // 2 if batch > 1 else None
+        _k11_vs_plain(g, bad, 72000 + batch, new_err, torch)
         if bad is not None:
             g["b"][bad] = -g["b"][bad]
         _compare("k6", cuda_gp.gp_fused_ns_cuda, cuda_gp.gp_fused_ns_plain,
@@ -1089,6 +1112,14 @@ def main() -> int:
     if not gp_err["k6"]["abs"] <= K6_ATOL:
         raise AssertionError(f"K6: kernel vs plain {gp_err['k6']['abs']:.3e}"
                              f" abs > {K6_ATOL:g}")
+    # K11 off its default schedule: the fp32 polish round alone, and split
+    # residual polish rounds before it
+    for lo, hi in ((0, 1), (1, 2), (3, 2)):
+        for n in (20, 128):
+            g = make_gp_batch(7, n, np.random.default_rng(100 * lo + hi + n))
+            _k11_vs_plain({k: torch.tensor(g[k], dtype=torch.float32,
+                                           device=dev) for k in "abcde"},
+                          3, 7000 + n, new_err, torch, lo=lo, hi=hi)
     for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
         _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
                               dev, new_err, torch, k7_only=True)

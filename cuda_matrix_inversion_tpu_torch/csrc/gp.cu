@@ -52,9 +52,14 @@
 // K11 replaces ops/pallas_gp.py::_gp_warm_kernel (pallas_call in
 // gp_mean_variance_fused_warm): K6 with X loaded from the previous
 // timestep's K^-1 instead of seeded, K8's unscaled rounds (2 + 1 by
-// default), the same fp32 epilogue, and the refined X written back so the
-// caller can chain it into the next timestep.  Device memory sees B and X0
-// read and X written once; the chain of products is 6 instead of K6's 16.
+// default: 2c = 2, c^2 = 1), the same fp32 epilogue, and the refined X
+// written back so the caller can chain it into the next timestep.  It runs
+// K6's staging and K6's round loop (ns_mma_rounds: bf16 products on the
+// tensor cores, the last residual in fp32 on CUDA cores) in K6's shared
+// memory, 201.5 KB at n = 128, one block an SM; X0 goes from device memory
+// straight into the accumulator fragments while B's copies are in flight.
+// Device memory sees B and X0 read and X written once; the chain of
+// products is 6 instead of K6's 16.
 //
 // K10 replaces ops/pallas_gp.py::_gp_lml_kernel (pallas_call in
 // _lml_fused_quad_logdet): per system quad = d^T K^-1 d and
@@ -178,86 +183,99 @@ __device__ __forceinline__ void ns_gp_epilogue(const float* sX,
   }
 }
 
-// K6.  Shared memory (NP = 16M, LD = NP + 1, LDB = NP + 8): sK, K in fp32
-// (NP x LD: the fp32 residual and the split's lo part read it); then bf16
-// tiles (NP x LDB): sKh, bf16(K); sXh, bf16(X); sT, T or R; sXl, the split's
-// lo part of X; sXf, X in fp32 (NP x LD) over sT and sXl, written only where
-// neither is live; then sv = [d a].  B is copied in over sXh .. sXl before K
-// is staged from it.  The fp32 master X lives in the warps' accumulator
-// fragments (xm).
+// K6 and K11's shared memory (NP = 16M, LD = NP + 1, LDB = NP + 8): K, K in
+// fp32 (NP x LD: the fp32 residual and the split's lo part read it); then
+// bf16 tiles (NP x LDB): Kh, bf16(K); Xh, bf16(X); T, T or R; Xl, the
+// split's lo part of X; Xf, X in fp32 (NP x LD) over T and Xl, written only
+// where neither is live; then v = [d a].  B is copied in over Xh .. Xl
+// (stage) before K is staged from it.  201.5 KB at n = 128.
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-    gp_ns_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const float* __restrict__ c, const float* __restrict__ d,
-                 const float* __restrict__ e, float* __restrict__ out,
-                 NSParams prm) {
+struct GpNsSmem {
+  static constexpr int NP = 16 * M;
+  static constexpr int LD = NP + 1;
+  static constexpr int LDB = MmaGeometry<NP>::kLd;
+  float* K;
+  bf16* Kh;
+  bf16* Xh;
+  bf16* T;
+  bf16* Xl;
+  float* Xf;
+  float* v;
+  float* stage;
+  __device__ explicit GpNsSmem(unsigned char* base)
+      : K(reinterpret_cast<float*>(base)),
+        Kh(reinterpret_cast<bf16*>(K + NP * LD)),
+        Xh(Kh + NP * LDB),
+        T(Xh + NP * LDB),
+        Xl(T + NP * LDB),
+        Xf(reinterpret_cast<float*>(T)),
+        v(reinterpret_cast<float*>(Xl + NP * LDB)),
+        stage(reinterpret_cast<float*>(Xh)) {}
+};
+
+// Start reading system `sys`: B with asynchronous copies into sm.stage, and
+// v = [d a].  gp_ns_stage_k waits for the copies.
+template <int M>
+__device__ __forceinline__ void gp_ns_load_b(const GpNsSmem<M>& sm,
+                                             const float* a, const float* bs,
+                                             const float* d, size_t sys,
+                                             int n) {
+  const int tid = threadIdx.x;
+  const int nn = n * n;
+  if ((nn & 3) == 0 && (reinterpret_cast<uintptr_t>(bs) & 15) == 0) {
+    for (int x = 4 * tid; x < nn; x += 4 * kThreads)
+      cp_async16(sm.stage + x, bs + x);
+  } else {
+    for (int x = tid; x < nn; x += kThreads) cp_async4(sm.stage + x, bs + x);
+  }
+  for (int i = tid; i < n; i += kThreads) {
+    sm.v[i] = d[sys * n + i];
+    sm.v[n + i] = a[sys * n + i];
+  }
+}
+
+// K = B + diag(c), zero padded to NP, in fp32 (sm.K) and bf16 (sm.Kh), once
+// B has arrived; the block has passed a barrier when it returns.
+template <int M>
+__device__ __forceinline__ void gp_ns_stage_k(const GpNsSmem<M>& sm,
+                                              const float* cs, int n) {
+  constexpr int NP = GpNsSmem<M>::NP;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int x = threadIdx.x; x < NP * NP; x += kThreads) {
+    const int i = x / NP, j = x % NP;
+    const float k = (i < n && j < n) ? stage_k(sm.stage, cs, i, j, n) : 0.f;
+    sm.K[i * GpNsSmem<M>::LD + j] = k;
+    sm.Kh[i * GpNsSmem<M>::LDB + j] = __float2bfloat16_rn(k);
+  }
+  __syncthreads();
+}
+
+// The lo and hi rounds of K6 and K11 on the tensor cores, from the fp32
+// master X in the warps' accumulator fragments xm (zero in the padding).
+// On entry sm.K and sm.Kh hold K and the block has passed a barrier since;
+// on return sm.Xf holds the refined X in fp32 and the block has passed a
+// barrier since it was written.  A lo round is T = 2c I - c^2 (K X),
+// X = X T; a hi round R = I - K X (the 3-pass split, or fp32 on CUDA cores
+// on the last round when prm.polish_highest), X = X + X R.
+template <int M>
+__device__ __forceinline__ void ns_mma_rounds(
+    float (&xm)[MmaGeometry<16 * M>::kMT][MmaGeometry<16 * M>::kNT][4],
+    const GpNsSmem<M>& sm, const NSParams& prm, WarpTile w) {
   constexpr int NP = 16 * M;
   constexpr int LD = NP + 1;
   using G = MmaGeometry<NP>;
   constexpr int LDB = G::kLd;
   constexpr int MT = G::kMT;
   constexpr int NT = G::kNT;
-  extern __shared__ __align__(16) unsigned char gp_ns_smem[];
-  __shared__ float red[kThreads / 32];
-  float* sK = reinterpret_cast<float*>(gp_ns_smem);
-  bf16* sKh = reinterpret_cast<bf16*>(sK + NP * LD);
-  bf16* sXh = sKh + NP * LDB;
-  bf16* sT = sXh + NP * LDB;
-  bf16* sXl = sT + NP * LDB;
-  float* sXf = reinterpret_cast<float*>(sT);
-  float* sv = reinterpret_cast<float*>(sXl + NP * LDB);
-  float* stage = reinterpret_cast<float*>(sXh);
+  const float* sK = sm.K;
+  const bf16* sKh = sm.Kh;
+  bf16* sXh = sm.Xh;
+  bf16* sT = sm.T;
+  bf16* sXl = sm.Xl;
+  float* sXf = sm.Xf;
   const int n = prm.n;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const size_t sys = blockIdx.x;
-  const float* bs = b + sys * n * n;
-  const float* cs = c + sys * n;
-
-  // B, read once, with asynchronous copies; then K = B + diag(c), zero
-  // padded to NP, in fp32 and bf16.
-  const int nn = n * n;
-  if ((nn & 3) == 0 && (reinterpret_cast<uintptr_t>(bs) & 15) == 0) {
-    for (int x = 4 * tid; x < nn; x += 4 * kThreads)
-      cp_async16(stage + x, bs + x);
-  } else {
-    for (int x = tid; x < nn; x += kThreads) cp_async4(stage + x, bs + x);
-  }
-  for (int i = tid; i < n; i += kThreads) {
-    sv[i] = d[sys * n + i];
-    sv[n + i] = a[sys * n + i];
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  for (int x = tid; x < NP * NP; x += kThreads) {
-    const int i = x / NP, j = x % NP;
-    const float k = (i < n && j < n) ? stage_k(stage, cs, i, j, n) : 0.f;
-    sK[i * LD + j] = k;
-    sKh[i * LDB + j] = __float2bfloat16_rn(k);
-  }
-  __syncthreads();
-
-  // The spd seed X1 = 2sI - s^2 K, s = 1/||K||_inf (ns_common.cuh::ns_seed's
-  // arithmetic, the row sums a warp each), straight into the fragments.
-  float rmax = 0.f;
-  for (int i = tid >> 5; i < n; i += kThreads / 32) {
-    float r = 0.f;
-    for (int j = lane; j < n; j += 32) r += fabsf(sK[i * LD + j]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-    rmax = fmaxf(rmax, r);
-  }
-  const float s_inv = 1.f / block_max(rmax, red);
-  const float two_s = 2.f * s_inv;
-  const float s2 = __fmul_rn(s_inv, s_inv);
-  const WarpTile w = warp_tile<NP>();
-  float xm[MT][NT][4];
-  if (w.active)
-    tile_for_each(xm, w, [&](int i, int j, float& v) {
-      v = (i < n && j < n)
-              ? __fsub_rn(i == j ? two_s : 0.f, __fmul_rn(s2, sK[i * LD + j]))
-              : 0.f;
-    });
 
   // Publish X for round `r` (r = lo + hi: the epilogue): bf16(X) for every
   // product, its lo part before a split residual, fp32 before the fp32
@@ -331,10 +349,61 @@ __global__ void __launch_bounds__(kThreads)
     }
     publish(r + 1);
   }
-  ns_gp_epilogue<M>(sXf, sv, n, e[sys], out + 2 * sys, red);
 }
 
-// K11: K6 with X loaded from x0 and the refined X written to kinv.
+// K6.  The fp32 master X lives in the warps' accumulator fragments (xm).
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+    gp_ns_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 const float* __restrict__ c, const float* __restrict__ d,
+                 const float* __restrict__ e, float* __restrict__ out,
+                 NSParams prm) {
+  constexpr int NP = 16 * M;
+  constexpr int LD = NP + 1;
+  using G = MmaGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char gp_ns_smem[];
+  __shared__ float red[kThreads / 32];
+  const GpNsSmem<M> sm(gp_ns_smem);
+  const float* sK = sm.K;
+  const int n = prm.n;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const size_t sys = blockIdx.x;
+
+  // B, read once, with asynchronous copies; then K = B + diag(c), zero
+  // padded to NP, in fp32 and bf16.
+  gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
+  gp_ns_stage_k<M>(sm, c + sys * n, n);
+
+  // The spd seed X1 = 2sI - s^2 K, s = 1/||K||_inf (ns_common.cuh::ns_seed's
+  // arithmetic, the row sums a warp each), straight into the fragments.
+  float rmax = 0.f;
+  for (int i = tid >> 5; i < n; i += kThreads / 32) {
+    float r = 0.f;
+    for (int j = lane; j < n; j += 32) r += fabsf(sK[i * LD + j]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+    rmax = fmaxf(rmax, r);
+  }
+  const float s_inv = 1.f / block_max(rmax, red);
+  const float two_s = 2.f * s_inv;
+  const float s2 = __fmul_rn(s_inv, s_inv);
+  const WarpTile w = warp_tile<NP>();
+  float xm[G::kMT][G::kNT][4];
+  if (w.active)
+    tile_for_each(xm, w, [&](int i, int j, float& v) {
+      v = (i < n && j < n)
+              ? __fsub_rn(i == j ? two_s : 0.f, __fmul_rn(s2, sK[i * LD + j]))
+              : 0.f;
+    });
+
+  ns_mma_rounds<M>(xm, sm, prm, w);
+  ns_gp_epilogue<M>(sm.Xf, sm.v, n, e[sys], out + 2 * sys, red);
+}
+
+// K11: K6 with X loaded from x0 instead of seeded, and the refined X written
+// to kinv.  X0 goes from device memory straight into the fragments while
+// B's asynchronous copies are in flight.
 template <int M>
 __global__ void __launch_bounds__(kThreads)
     gp_warm_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -344,35 +413,28 @@ __global__ void __launch_bounds__(kThreads)
                    NSParams prm) {
   constexpr int NP = 16 * M;
   constexpr int LD = NP + 1;
-  extern __shared__ float smem[];
+  using G = MmaGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char gp_ns_smem[];
   __shared__ float red[kThreads / 32];
-  float* sA = smem;
-  float* sX = sA + NP * LD;
-  float* sT = sX + NP * LD;
-  float* sv = sT + NP * LD;  // sv[0..n) = d, sv[n..2n) = a
+  const GpNsSmem<M> sm(gp_ns_smem);
   const int n = prm.n;
-  const int tid = threadIdx.x;
   const size_t sys = blockIdx.x;
-  const float* bs = b + sys * n * n;
-  const float* cs = c + sys * n;
   const float* xs = x0 + sys * n * n;
-  for (int x = tid; x < NP * NP; x += kThreads) {
-    const int i = x / NP, j = x % NP;
-    const bool in = i < n && j < n;
-    sA[i * LD + j] = in ? stage_k(bs, cs, i, j, n) : 0.f;
-    sX[i * LD + j] = in ? xs[i * n + j] : 0.f;
-    sT[i * LD + j] = 0.f;
-  }
-  for (int i = tid; i < n; i += kThreads) {
-    sv[i] = d[sys * n + i];
-    sv[n + i] = a[sys * n + i];
-  }
-  __syncthreads();
 
-  ns_rounds<M>(sA, sX, sT, prm);
-  ns_gp_epilogue<M>(sX, sv, n, e[sys], out + 2 * sys, red);
+  gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
+  const WarpTile w = warp_tile<NP>();
+  float xm[G::kMT][G::kNT][4];
+  if (w.active)
+    tile_for_each(xm, w, [&](int i, int j, float& v) {
+      v = (i < n && j < n) ? xs[i * n + j] : 0.f;
+    });
+  gp_ns_stage_k<M>(sm, c + sys * n, n);
+
+  ns_mma_rounds<M>(xm, sm, prm, w);
+  ns_gp_epilogue<M>(sm.Xf, sm.v, n, e[sys], out + 2 * sys, red);
   float* ks = kinv + sys * n * n;
-  for (int x = tid; x < n * n; x += kThreads) ks[x] = sX[(x / n) * LD + x % n];
+  for (int x = threadIdx.x; x < n * n; x += kThreads)
+    ks[x] = sm.Xf[(x / n) * LD + x % n];
 }
 
 // K10.  EMIT_W = false: quad and logdet only; true: also W = L^-1 and
@@ -457,6 +519,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Bytes of GpNsSmem for NP = np: K and the fp32 vectors, then Kh, Xh, T,
+// Xl (201.5 KB at n = 128).
+size_t gp_ns_smem_bytes(size_t np, int n) {
+  return (np * (np + 1) + 2ull * n) * sizeof(float) + 4 * mma_tile_bytes(np);
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
                    Args... args) {
@@ -507,9 +575,7 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = ns_tile(n);
   const size_t np = 16ull * m;
-  // sK and the fp32 vectors, then sKh, sXh, sT, sXl (201.5 KB at n = 128)
-  const size_t smem = (np * (np + 1) + 2ull * n) * sizeof(float) +
-                      4 * mma_tile_bytes(np);
+  const size_t smem = gp_ns_smem_bytes(np, n);
   switch (m) {
     case 1: err = launch(gp_ns_kernel<1>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 2: err = launch(gp_ns_kernel<2>, smem, batch, s, a, b, c, d, e, out, prm); break;
@@ -536,7 +602,7 @@ extern "C" int cmi_gp_fused_warm(const float* a, const float* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = ns_tile(n);
   const size_t np = 16ull * m;
-  const size_t smem = (3 * np * (np + 1) + 2ull * n) * sizeof(float);
+  const size_t smem = gp_ns_smem_bytes(np, n);
   switch (m) {
     case 1: err = launch(gp_warm_kernel<1>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
     case 2: err = launch(gp_warm_kernel<2>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;

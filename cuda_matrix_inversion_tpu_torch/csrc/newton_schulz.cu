@@ -33,8 +33,9 @@
 // Products into an operand (X = X T, X = X + X R) finish all reads before a
 // barrier and only then write.  Tensor cores (mma.sync / wgmma) and
 // splitting a matrix across blocks are later work.  The product routine,
-// the seed and the round loop live in ns_common.cuh, which K6 and K11
-// (gp.cu) share.
+// the seed and the round loop live in ns_common.cuh; its round loop now
+// serves K1 and K8 only, since K6 and K11 (gp.cu) run theirs on the tensor
+// cores (ns_mma.cuh), which K8's rounds can move onto next.
 //
 // K8 replaces cuda_matrix_inversion_tpu/ops/newton_schulz.py::
 // _ns_warm_kernel (pallas_call in inverse_newton_schulz_warm): X is loaded

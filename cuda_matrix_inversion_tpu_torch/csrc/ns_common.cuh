@@ -1,9 +1,13 @@
-// Device code shared by K1, K8 (newton_schulz.cu) and K6, K11 (gp.cu): the
-// shared-memory product routine, the block maximum, the cold-start seed and
-// the fixed-schedule Newton-Schulz round loop on shared-memory operands.
+// Device code of the Newton-Schulz kernels: the shared-memory product
+// routine and the block maximum (K1, K8 in newton_schulz.cu; K6, K11 in
+// gp.cu, for their fp32 residual), and the cold-start seed and the
+// fixed-schedule round loop on shared-memory operands, which emulate bf16
+// on CUDA cores and now serve K1 and K8 only (K6 and K11 run their rounds
+// on the tensor cores, gp.cu::ns_mma_rounds).
 // The seed (ns_seed) and the rounds (ns_rounds) are separate, as the JAX
-// package's ns_vmem_iterate and ns_vmem_rounds are: the warm kernels K8 and
-// K11 load X from a previous inverse and run the rounds alone, with the
+// package's ns_vmem_iterate and ns_vmem_rounds are: the warm kernel K8
+// loads X from a previous inverse and runs the rounds alone (as K11 does on
+// the tensor cores), with the
 // per-round scalars 2c = 2 and c^2 = 1 (no recentering: a scalar calibrated
 // for a cold start would blow a converged start apart).
 //

@@ -1,8 +1,9 @@
 // Tensor-core tile routines for the Newton-Schulz kernels on sm_90a: bf16
 // operands in shared memory, fp32 accumulators in registers, through
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 and ldmatrix.  K6
-// (gp.cu) runs its bf16 products on them; they take no kernel-specific
-// state, so K1, K8 and K11 can move onto them as they are.
+// and K11 (gp.cu, through their shared round loop ns_mma_rounds) run their
+// bf16 products on them; they take no kernel-specific state, so K1 and K8
+// can move onto them as they are.
 //
 // Geometry.  An NP x NP product (NP = 16M, zero padded past n) is cut over
 // the block's 8 warps into warp tiles of MT x NT m16n8 tiles: warp w owns

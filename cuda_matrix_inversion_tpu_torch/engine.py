@@ -16,7 +16,7 @@ PyTorch runs eagerly, so there is nothing to compile ahead of a request:
 ``_lower`` binds the bucket's callable and ``warmup`` runs it once on
 identity / zero inputs, which builds the kernel library and initialises the
 device libraries before the first request.  Every engine takes ``device``
-(``None`` is the card when PyTorch sees one, never a silent CPU fallback).
+(``None`` is the card, and raises without one; CPU callers pass ``"cpu"``).
 Safe for concurrent callers: the bucket caches sit behind a lock, and each
 request works on its own tensors.
 """

@@ -110,7 +110,8 @@ def gp_log_marginal_likelihood(b, c, d):
     return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
 
 
-# ---- host-facing flavor: NumPy in, NumPy out, on an explicit device ----
+# ---- host-facing flavor: NumPy in, NumPy out, on ``device`` (None: the
+# card, which raises without one) ----
 
 def _tensors(arrays, device):
     dev = resolve_device(device)

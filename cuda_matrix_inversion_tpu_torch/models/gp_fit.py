@@ -107,8 +107,8 @@ def fit_gp_scales(b, c, d, steps: int = 150, lr: float = 0.05,
 def fit_gp_scales_host(b, c, d, steps: int = 150, lr: float = 0.05,
                        theta0=None, method: str = "xla", weights=None,
                        device=None) -> GPFitResult:
-    """NumPy in, NumPy out on ``device`` (the card by default, when PyTorch
-    sees one; ``device="cpu"`` runs the plain kernel versions)."""
+    """NumPy in, NumPy out on ``device`` (the card by default, which raises
+    without one; ``device="cpu"`` runs the plain kernel versions)."""
     dev = resolve_device(device)
     res = fit_gp_scales(*(torch.tensor(np.asarray(x), device=dev)
                           for x in (b, c, d)),

@@ -37,8 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Largest matrix dimension the shared-memory-resident kernels take.  Each
 # kernel holds its matrices in one block's shared memory, of which a block
-# may opt into 227 KB: K1, K8 and K11 keep A, X and T (3·n² fp32,
-# 198 KB at n = 128); K6 keeps K in fp32 and four bf16 n×n tiles (201.5 KB);
+# may opt into 227 KB: K1 and K8 keep A, X and T (3·n² fp32,
+# 198 KB at n = 128); K6 and K11 keep K in fp32 and four bf16 n×n tiles
+# (201.5 KB);
 # K2, K3 and K10 with ``emit_w`` keep two n×n buffers (2·n²); K4, K5 and
 # K10 one (n²).  K7 keeps one n×n buffer too and states
 # its own larger ceiling, GAUSS_JORDAN_MAX_N = 192 (148 KB), the JAX

@@ -29,12 +29,10 @@ class SingularBatchError(np.linalg.LinAlgError):
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` is the default device: CUDA when PyTorch sees a card,
-    else the CPU.  An explicit CUDA device on a host without one raises;
-    the work is never moved to the CPU instead."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    """``None`` means the card, as ``"cuda"`` does: on a host without one
+    both raise, and the work is never moved to the CPU instead.  CPU
+    callers pass ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} requested but CUDA is not available")

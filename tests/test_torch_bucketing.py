@@ -74,15 +74,15 @@ def test_bucketed_inverse_matches_jax(algorithm, jax_algorithm, kind):
 
 
 def test_bucketed_inverse_default_lane_and_buckets():
-    """The default lane is ``cholesky_pallas`` and the default device the
-    resolved one (the CPU here); custom buckets pad to the next one."""
+    """The default lane is ``cholesky_pallas``; custom buckets pad to the
+    next one."""
     rng = np.random.default_rng(5)
     ms = [make_spd_batch(1, n, rng)[0].astype(np.float32) for n in (3, 20)]
-    got = bucketing.bucketed_inverse(ms, buckets=(16, 64))
+    got = bucketing.bucketed_inverse(ms, buckets=(16, 64), device="cpu")
     for m, x in zip(ms, got):
         assert identity_error_inf(m[None], x[None]) < 1e-4
     with pytest.raises(ValueError, match="exceeds"):
-        bucketing.bucketed_inverse(ms, buckets=(8,))
+        bucketing.bucketed_inverse(ms, buckets=(8,), device="cpu")
 
 
 @pytest.mark.parametrize("method,jax_method", [("solve", "solve"),

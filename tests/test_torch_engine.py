@@ -91,11 +91,15 @@ def test_engine_warmup_runs_each_bucket():
 
 
 def test_engine_defaults_to_the_resolved_device():
-    assert InversionEngine().device == torch.device(
-        "cuda" if torch.cuda.is_available() else "cpu")
+    """``device=None`` means the card: without one the engines raise, as
+    ``device="cuda"`` does; CPU callers say ``device="cpu"``."""
     assert GPEngine(**CPU).device == torch.device("cpu")
+    assert InversionEngine(**CPU).device == torch.device("cpu")
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
+    for make in (InversionEngine, GPEngine):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InversionEngine(device="cuda")
 

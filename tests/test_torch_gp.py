@@ -330,21 +330,27 @@ def _warm_chain(n, seed):
     return step1, np.asarray(kinv1), means, variances
 
 
-@pytest.mark.parametrize("n", [12, 16, 64])
-def test_k11_plain_matches_jax(n):
+@pytest.mark.parametrize("n,lo,hi", [
+    pytest.param(12, 2, 1, id="12"), pytest.param(16, 2, 1, id="16"),
+    pytest.param(64, 2, 1, id="64"), pytest.param(16, 0, 1, id="16-lo0-hi1"),
+    pytest.param(16, 1, 2, id="16-lo1-hi2")])
+def test_k11_plain_matches_jax(n, lo, hi):
     """From JAX's own previous K⁻¹: the fp32 plain version (the JAX
     kernel's interpret-mode arithmetic) within 1e-5 of JAX on mean and var
     and 1e-5 relative on the refined K⁻¹; the port's bf16 path within
     K1's 2e-4 relative of it; both within 1e-4 of fp64 and the refined K⁻¹
-    under the gate."""
+    under the gate.  (lo, hi) = (2, 1) is the default schedule; (0, 1) is
+    one fp32 polish round alone, and (1, 2) puts a split-residual polish
+    round before it."""
     data, kinv0, means, variances = _warm_chain(n, 40 + n)
     args = [data[k] for k in "abcde"]
-    ref = _np(pallas_gp.gp_mean_variance_fused_warm(*args, kinv0, block=1))
+    ref = _np(pallas_gp.gp_mean_variance_fused_warm(
+        *args, kinv0, lo_iters=lo, hi_iters=hi, block=1))
     flat = cuda_gp._flat(*_t(data, "abcde"))
     out32, kinv32 = cuda_gp.gp_fused_warm_plain(*flat, torch.tensor(kinv0),
-                                                bf16_products=False)
-    got = _np(cuda_gp.gp_mean_variance_fused_warm(*_t(data, "abcde"),
-                                                  torch.tensor(kinv0)))
+                                                lo, hi, bf16_products=False)
+    got = _np(cuda_gp.gp_mean_variance_fused_warm(
+        *_t(data, "abcde"), torch.tensor(kinv0), lo_iters=lo, hi_iters=hi))
     for col, exact in enumerate((means, variances)):
         assert np.abs(out32[:, col].numpy() - ref[col][:, 0, 0]).max() <= 1e-5
         rel = (np.abs(got[col][:, 0, 0] - out32[:, col].numpy()).max()
@@ -379,3 +385,20 @@ def test_k11_route_past_128_and_validation():
     with pytest.raises(ValueError, match="float32 CUDA"):
         cuda_gp.gp_fused_warm_cuda(*cuda_gp._flat(*_t(small, "abcde")),
                                    torch.tensor(k0))
+
+
+def test_gp_ns_probe_patches_match_the_kernel_source():
+    """The card probe of K6 and K11 (``bench/gp_ns_probe.py``) builds its
+    variants by patching ``csrc/gp.cu``: every anchor must still occur as
+    often as the probe expects, and the probe refuses to run without a
+    card."""
+    from cuda_matrix_inversion_tpu_torch.bench import gp_ns_probe
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "gp.cu").read_text()
+    assert src.count(gp_ns_probe.DIRECT) == 1
+    for anchor, _, count in gp_ns_probe.STAMPS:
+        assert src.count(anchor) == count, anchor
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            gp_ns_probe.main()

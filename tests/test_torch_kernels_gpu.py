@@ -286,36 +286,63 @@ def test_k10_matches_plain(cuda, emit_w, n):
         assert _rel(x[ok], r[ok]) <= LML_RTOL
 
 
-@pytest.mark.parametrize("n", [8, 20, 64, 128])
-def test_k11_matches_plain(cuda, n):
+def _check_k11(cuda, batch, n, lo, hi, seed, nan_member=None):
     """K11 from the previous timestep's K⁻¹ on a drifted system: mean, var
     and the refined K⁻¹ against the plain version and the fp64 closed
-    form."""
-    rng = np.random.default_rng(800 + n)
-    g = make_gp_batch(7, n, rng)
+    form.  A NaN in ``nan_member``'s X0 makes that member alone
+    non-finite."""
+    rng = np.random.default_rng(seed)
+    g = make_gp_batch(batch, n, rng)
     k0 = g["b"] + np.eye(n) * g["c"][:, :, 0][:, None, :]
     x0 = np.linalg.inv(k0).astype(np.float32)
+    ok = np.ones(batch, bool)
+    if nan_member is not None:
+        x0[nan_member, n // 2, n - 1] = np.nan
+        ok[nan_member] = False
     g["b"] = _drifted(g["b"], 1e-3, rng, True)
     t = {k: torch.tensor(g[k], dtype=torch.float32, device=cuda)
          for k in "abcde"}
     flat = cuda_gp._flat(*(t[k] for k in "abcde"))
     x0t = torch.tensor(x0, device=cuda)
     before = cuda_gp.gp_fused_warm_cuda.launches
-    out, kinv = cuda_gp.gp_fused_warm_cuda(*flat, x0t)
+    out, kinv = cuda_gp.gp_fused_warm_cuda(*flat, x0t, lo, hi)
     torch.cuda.synchronize()
     assert cuda_gp.gp_fused_warm_cuda.launches == before + 1
-    ref, ref_kinv = cuda_gp.gp_fused_warm_plain(*flat, x0t)
-    assert np.abs(out.cpu().numpy() - ref.cpu().numpy()).max() <= K6_ATOL
-    assert _rel(kinv.cpu(), ref_kinv.cpu()) <= WARM_RTOL
+    ref, ref_kinv = cuda_gp.gp_fused_warm_plain(*flat, x0t, lo, hi)
+    out, kinv = out.cpu().numpy(), kinv.cpu().numpy()
+    ref, ref_kinv = ref.cpu().numpy(), ref_kinv.cpu().numpy()
+    for x, r in ((out, ref), (kinv.reshape(batch, -1),
+                              ref_kinv.reshape(batch, -1))):
+        assert (np.isfinite(x).all(axis=1) == ok).all()
+        assert (np.isfinite(r).all(axis=1) == ok).all()
+    assert np.abs(out[ok] - ref[ok]).max() <= K6_ATOL
+    assert _rel(kinv[ok], ref_kinv[ok]) <= WARM_RTOL
     k = g["b"].astype(np.float32).astype(np.float64) + np.eye(n) * g["c"][
         :, :, 0].astype(np.float32)[:, None, :]
     kinv64 = np.linalg.inv(k)
     a64 = g["a"].astype(np.float32).astype(np.float64)
     d64 = g["d"].astype(np.float32).astype(np.float64)
     mean = (np.transpose(a64, (0, 2, 1)) @ kinv64 @ d64)[:, 0, 0]
-    assert np.abs(out.cpu().numpy()[:, 0] - mean).max() < 1e-4
-    assert identity_error_inf(k.astype(np.float32),
-                              kinv.cpu().numpy()) < 1e-4
+    assert np.abs(out[ok, 0] - mean[ok]).max() < 1e-4
+    assert identity_error_inf(k[ok].astype(np.float32), kinv[ok]) < 1e-4
+
+
+@pytest.mark.parametrize("n,lo,hi", [
+    *(pytest.param(n, 2, 1, id=str(n)) for n in (8, 20, 64, 72, 128)),
+    *(pytest.param(n, lo, hi, id=f"{n}-lo{lo}-hi{hi}")
+      for n in (20, 128) for lo, hi in ((0, 1), (1, 2), (3, 2)))])
+def test_k11_matches_plain(cuda, n, lo, hi):
+    """K11 against its plain version at the default schedule (2, 1), with
+    zero padding in the 16-multiple tiles at n = 20 and 72, and at other
+    (lo, hi): (0, 1) is the fp32 polish round alone, (1, 2) and (3, 2) put
+    a split-residual polish round before it.  Member 3's X0 holds a NaN."""
+    _check_k11(cuda, 7, n, lo, hi, 800 + n, nan_member=3)
+
+
+def test_k11_matches_plain_at_1600x128(cuda):
+    """K11 at the main path's largest batch (13 waves of one block an SM)
+    in one launch."""
+    _check_k11(cuda, 1600, 128, 2, 1, 1600)
 
 
 def test_new_kernels_reject_past_their_ceiling(cuda):

@@ -125,7 +125,10 @@ def test_explicit_cuda_device_raises_without_cuda():
         host_api.inverse_batched(a, "lu_pallas", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         host_api.solve_batched(a, a[:, :, 0], device="cuda:0")
-    assert host_api.resolve_device(None) == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        host_api.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        host_api.inverse_batched(a, "lu_pallas")
 
 
 def test_kernel_shape_check_rejects_n129():
