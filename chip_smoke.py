@@ -52,9 +52,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
    ``solve`` method on cuSOLVER), K6 and K11 also beside their CUDA-core
-   times before their tensor-core redesign; the warm lanes against the cold
-   ones, one fit step of each method, and one engine request NumPy in and
-   out;
+   times before their tensor-core redesign, K3, K4, K5 and K10 beside
+   theirs before the panel-blocked factor and L⁻¹; the warm lanes against
+   the cold ones, one fit step of each method, and one engine request NumPy
+   in and out;
    at 100×512 and 1600×256 K9 alone (its launches in one call, summed),
    the ``lu_bign_pallas`` lane beside its bound, ``torch.linalg.inv``, the
    plain routine, ``lu_hiacc`` and the panel-width ladder.
@@ -102,6 +103,14 @@ K6_BEFORE_MS = {"gp_100x128": 0.565, "gp_1600x128": 6.750}
 # K11 with its rounds emulating bf16 on CUDA cores, before it moved onto
 # K6's tensor-core round loop, in ms (the same script and card).
 K11_BEFORE_MS = {"gp_100x128": 0.221, "gp_1600x128": 2.794}
+# K3, K4, K5 and K10 on the column-walk Cholesky factor and the
+# column-owned L^-1, before both moved to panels (cholesky_common.cuh), in
+# ms (the same script and card).
+K3_BEFORE_MS = {"spd_100x128": 0.402, "spd_1600x128": 5.018}
+K4_BEFORE_MS = {"spd_100x128": 0.174, "spd_1600x128": 0.968}
+K5_BEFORE_MS = {"gp_100x128": 0.213, "gp_1600x128": 1.040}
+K10_BEFORE_MS = {"k10": {"fit_100x128": 0.187, "fit_1600x128": 1.018},
+                 "k10_emit_w": {"fit_100x128": 0.385, "fit_1600x128": 4.664}}
 # GP main path: mean and var against the fp64 closed form (the JAX test's
 # bound, tests/test_gauss_jordan_gp.py).
 GP_ATOL = 1e-4
@@ -538,7 +547,8 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
                 b, c2, d2, emit_w), torch)
             timing[(key, case)], library[(key, case)] = (ms, plain_ms), None
             show(key.upper(), f"fit_{batch}x128", kernel_ms=ms,
-                 plain_ms=plain_ms)
+                 plain_ms=plain_ms,
+                 before_ms=K10_BEFORE_MS[key][f"fit_{batch}x128"])
         step_ms = {}
         for method in ("pallas", "xla"):
             theta = torch.zeros((batch, 2), device=dev, requires_grad=True)
@@ -1340,8 +1350,10 @@ def main() -> int:
             timing[(key, case)] = (ms, plain_ms)
             library[(key, case)] = (lane_ms["cholesky"] if key == "k3"
                                     else chol_ms)
+            before = (K3_BEFORE_MS if key == "k3" else K4_BEFORE_MS)[case]
             print(json.dumps({"timing": key.upper(), "lane": lane,
                               "case": case, "kernel_ms": ms,
+                              f"{key}_before_ms": before,
                               "plain_ms": plain_ms, "lane_ms": lane_t,
                               "library_ms": {
                                   "cholesky (linalg.inverse_cholesky)":
@@ -1367,7 +1379,7 @@ def main() -> int:
             timing[(key, case)] = (ms, plain_ms)
             library[(key, case)] = method_ms["solve"]
             before = ({"k6_before_ms": K6_BEFORE_MS[case]} if key == "k6"
-                      else {})
+                      else {"k5_before_ms": K5_BEFORE_MS[case]})
             print(json.dumps({"timing": key.upper(), "method": method,
                               "case": case, "kernel_ms": ms,
                               "plain_ms": plain_ms,

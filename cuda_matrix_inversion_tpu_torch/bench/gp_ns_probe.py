@@ -123,30 +123,41 @@ PHASES = ("load B, stage K (X0 loads issued)", "X0 arrives, publish X",
           "update X + X R, publish fp32 X", "epilogue", "kinv write")
 
 
-def _variant_library(name: str, patches=(), tail: str = "",
-                     src: Path = cuda_build.CSRC_DIR) -> ctypes.CDLL:
-    """Build ``gp.cu`` alone into a library, from a copy of ``src`` with
-    gp.cu patched (each (anchor, replacement, count) must match ``count``
-    times) and ``tail`` appended."""
-    variant = cuda_build.BUILD_DIR / f"gp_ns_probe_{name}" / "csrc"
+def variant_library(name: str, edits=None, src: Path = cuda_build.CSRC_DIR,
+                    units=("gp.cu",), flags=()) -> ctypes.CDLL:
+    """Build ``units`` into one library from a copy of ``src`` under
+    ``build/``.  ``edits`` maps a unit's file name to ``(patches, tail)``:
+    each patch (anchor, replacement, count) must match ``count`` times, and
+    ``tail`` is appended.  Every entry point of ``cuda_build._SIGNATURES``
+    that the library holds gets its C signature; with extra ``flags`` (say
+    ``-Xptxas -v``) the compiler's output is kept as ``.compiler_log``."""
+    variant = cuda_build.BUILD_DIR / f"probe_{name}" / "csrc"
     shutil.rmtree(variant.parent, ignore_errors=True)
     shutil.copytree(src, variant)
-    gp = variant / "gp.cu"
-    text = gp.read_text()
-    for anchor, new, count in patches:
-        if text.count(anchor) != count:
-            raise RuntimeError(f"gp.cu no longer holds {anchor!r} {count} "
-                               f"time(s): update this probe's patches")
-        text = text.replace(anchor, new)
-    gp.write_text(text + tail)
-    lib = variant.parent / f"libgp_ns_probe_{name}.so"
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
-                    "-shared", "-o", str(lib), str(gp)], check=True)
+    for unit, (patches, tail) in (edits or {}).items():
+        path = variant / unit
+        text = path.read_text()
+        for anchor, new, count in patches:
+            if text.count(anchor) != count:
+                raise RuntimeError(f"{unit} no longer holds {anchor!r} "
+                                   f"{count} time(s): update this probe's "
+                                   f"patches")
+            text = text.replace(anchor, new)
+        path.write_text(text + tail)
+    lib = variant.parent / f"libprobe_{name}.so"
+    cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-shared",
+           "-o", str(lib), *(str(variant / u) for u in units)]
+    log = subprocess.run(cmd, capture_output=True, text=True)
+    if log.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({log.returncode}): {' '.join(cmd)}"
+                           f"\n{log.stdout}{log.stderr}")
     cdll = ctypes.CDLL(str(lib))
-    for fn_name in ("cmi_gp_fused_warm", "cmi_gp_fused_ns"):
-        fn = getattr(cdll, fn_name)
-        fn.argtypes = cuda_build._SIGNATURES[fn_name]
-        fn.restype = ctypes.c_int
+    for fn_name, argtypes in cuda_build._SIGNATURES.items():
+        if hasattr(cdll, fn_name):
+            fn = getattr(cdll, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    cdll.compiler_log = log.stdout + log.stderr
     return cdll
 
 
@@ -191,7 +202,7 @@ def _k6_launcher(cdll, flat):
     return run
 
 
-def _median_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, calls: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -235,12 +246,13 @@ def main() -> int:
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
     libs = {"direct": cuda_build.library(),
-            "staged": _variant_library("staged", [(DIRECT, STAGED, 1)])}
-    stamped = _variant_library("stamped", STAMPS, tail=STAMP_READER)
+            "staged": variant_library(
+                "staged", {"gp.cu": ([(DIRECT, STAGED, 1)], "")})}
+    stamped = variant_library("stamped", {"gp.cu": (STAMPS, STAMP_READER)})
     k6_libs = None
     if len(sys.argv) > 1:
-        k6_libs = {"baseline": _variant_library("baseline",
-                                                src=Path(sys.argv[1])),
+        k6_libs = {"baseline": variant_library("baseline",
+                                               src=Path(sys.argv[1])),
                    "this": libs["direct"]}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -265,10 +277,10 @@ def main() -> int:
         failed |= not same
         ms = {k: [] for k in runs}
         for k in ("direct", "staged", "staged", "direct"):
-            ms[k].append(_median_ms(runs[k]))
-        fresh_ms = _median_ms(_launcher(libs["direct"], flat, x0, fresh=True))
-        empty_ms = _median_ms(lambda: torch.empty_like(x0))
-        wrapper_ms = _median_ms(lambda: cuda_gp.gp_fused_warm_cuda(*flat, x0))
+            ms[k].append(median_ms(runs[k]))
+        fresh_ms = median_ms(_launcher(libs["direct"], flat, x0, fresh=True))
+        empty_ms = median_ms(lambda: torch.empty_like(x0))
+        wrapper_ms = median_ms(lambda: cuda_gp.gp_fused_warm_cuda(*flat, x0))
         print(json.dumps({"probe": "x0_load", "case": case,
                           "direct_ms": ms["direct"],
                           "staged_ms": ms["staged"], "bitwise_equal": same,
@@ -288,7 +300,7 @@ def main() -> int:
             failed |= not k6_same
             k6_ms = {k: [] for k in k6}
             for k in ("baseline", "this", "this", "baseline"):
-                k6_ms[k].append(_median_ms(k6[k]))
+                k6_ms[k].append(median_ms(k6[k]))
             print(json.dumps({"probe": "k6_baseline", "case": case,
                               "baseline_ms": k6_ms["baseline"],
                               "this_ms": k6_ms["this"],

@@ -15,20 +15,24 @@
 // the others are unaffected.
 //
 // What bounds it on the card: not bytes.  At 100 x 128 x 128 the kernel reads
-// 6.55 MB and writes 6.55 MB (~4 us of HBM time).  The limit is the serial
-// chain inside one block: n factor columns of two barriers each, then the
-// substitution, whose longest column (j = 0) is ~n^2/2 dependent-free
-// updates on one thread, then the n^3 FMAs of W^T W on CUDA cores.
+// 6.55 MB and writes 6.55 MB (~4 us of HBM time).  The limit is the chain
+// inside one block (cholesky_common.cuh): the factor's n pivots, each an
+// IEEE sqrt and reciprocal on one warp, then W = L^-1's n dependent
+// divisions down its first column, then the n^3 FMAs of W^T W on CUDA
+// cores.
 // What the design does about it: the matrix and W stay in shared memory for
-// the whole chain (2 n (n+1) fp32, 132 KB at n = 128, so one block per SM;
-// K4 needs half and fits three), with odd row strides so the column reads of
-// the factor hit distinct banks.  The substitution needs no barrier at all:
-// each thread owns one column of W, reads L by broadcast and writes its own
-// column.  Each of the 256 threads keeps an M x M register tile of W^T W, so
-// one shared-memory load feeds M FMAs.  None of the TPU kernel's workarounds
-// (transposed factor, one-hot lane selects, panel blocking for the MXU) is
-// needed.  Blocked panels on tensor cores, and more than one matrix per
-// block, are later work.
+// the whole chain (2 n ld fp32 with ld = chol_ld(n) = 132 at n = 128: 135
+// KB, so one block per SM; K4 needs half and fits three), rows on 16 bytes
+// so every hot read is a float4 free of bank conflicts, and the matrix is
+// loaded with several float4 reads in flight a thread.  The factor and W go
+// by panels (cholesky_common.cuh): the chains run on one warp (the factor's
+// diagonal blocks) or one thread a column (W's panel rows) while the other
+// warps apply the previous panel from register tiles, so the barriers fall
+// to two a panel for the factor and one for W.  Each of the 256 threads
+// keeps an M x M register tile of W^T W, so one shared-memory load feeds M
+// FMAs.  None of the TPU kernel's workarounds (transposed factor, one-hot
+// lane selects) is needed.  W^T W on tensor cores in an fp32-exact form,
+// and more than one matrix per block, are later work.
 
 #include <cuda_runtime.h>
 
@@ -41,17 +45,16 @@ constexpr int kMaxN = 128;
 
 __device__ __forceinline__ void load_matrix(const float* __restrict__ a,
                                             float* K, int n, int ld) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    K[i * ld + j] = a[base + e];
-  }
+  chol_load(a + static_cast<size_t>(blockIdx.x) * n * n, K, n, ld,
+            [](int, int, float v) { return v; });
 }
 
-__global__ void __launch_bounds__(kThreads)
+// At most 80 registers a thread, so three blocks (~67 KB each at n = 128)
+// share an SM.
+__global__ void __launch_bounds__(kThreads, 3)
     chol_factor_kernel(const float* __restrict__ a, float* __restrict__ l,
                        int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
   load_matrix(a, smem, n, ld);
   __syncthreads();
@@ -67,7 +70,7 @@ template <int M>
 __global__ void __launch_bounds__(kThreads)
     chol_inverse_kernel(const float* __restrict__ a, float* __restrict__ inv,
                         int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
   float* L = smem;
   float* W = smem + n * ld;
@@ -75,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
   load_matrix(a, L, n, ld);
   __syncthreads();
   chol_factor(L, n, ld);
-  chol_tri_inverse(L, W, n, ld);  // W = L^-1, thread j owns column j
+  chol_tri_inverse(L, W, n, ld);  // W = L^-1 by row panels
   __syncthreads();
 
   // A^-1 = W^T W: acc[r][c] = sum_m W[m][i] W[m][j] with i = ty + 16r,

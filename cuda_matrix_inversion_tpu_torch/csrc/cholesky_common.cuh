@@ -1,73 +1,432 @@
 // Device code shared by K3, K4 (cholesky.cu) and K5, K10 (gp.cu): one
-// right-looking Cholesky factorization of a matrix held in shared memory,
+// panel-blocked Cholesky factorization of a matrix held in shared memory,
 // and the inverse W = L^-1 of the factor (K3 and K10's emit_w variant).
 //
-// Arithmetic, column k (the JAX kernel's _cholesky_factor_body):
-//   inv = 1 / sqrtf(K[k][k])      IEEE sqrt and a true division, never
-//                                 rsqrtf (the TPU kernel avoids its
-//                                 approximate rsqrt for the same reason)
-//   L[i][k] = K[i][k] * inv       (i > k),  L[k][k] = K[k][k] * inv
-//   K[i][j] -= L[i][k] * L[j][k]  (k < j <= i), the rank-1 trailing update
-// Every update is spelled __fmul_rn / __fsub_rn (no FMA contraction), so
-// the factor repeats the plain PyTorch version in ops/cuda_cholesky.py
-// operation for operation.  A member that is not positive definite gives
-// NaN (or inf) from its failing column on; other blocks are untouched.
+// Arithmetic, per element, in this order (the JAX kernel's
+// _cholesky_factor_body and the plain versions in ops/cuda_cholesky.py):
+//   A[i][j] -= L[i][k] * L[j][k]   k = 0, 1, ..., j-1      (i >= j)
+//   inv_j = 1 / sqrtf(A[j][j])     IEEE sqrt and reciprocal, never rsqrtf
+//                                  (the TPU kernel avoids its approximate
+//                                  rsqrt for the same reason)
+//   L[i][j] = A[i][j] * inv_j      (i > j),  L[j][j] = A[j][j] * inv_j
+// and for W, from W = I:
+//   W[i][j] -= L[i][k] * W[k][j]   k = 0, 1, ..., i-1 (zero for k < j)
+//   W[i][j] /= L[i][i]             a true division
+// Every update is spelled __fmul_rn / __fsub_rn (no FMA contraction).  A
+// schedule that gives each element exactly this sequence gives the same
+// bits whatever its tiling, panel width or thread mapping, so both
+// functions repeat the plain versions bit for bit (the unit test
+// tests/test_torch_cholesky.py::test_panel_schedule_is_bitwise_the_plain_order
+// replays both schedules in plain PyTorch).  A member that is not positive
+// definite gives NaN (or inf) from its failing column on; other blocks are
+// untouched, and no barrier depends on the data.
+//
+// What bounds them: the two chains inside one block, n pivots (an IEEE
+// sqrt and reciprocal each) for the factor and n divisions for W's first
+// column, and the shared-memory traffic of the trailing updates around
+// them.  The design: panels of kCholPanel columns (rows for W).  One warp
+// factors each diagonal block in registers while the other warps apply the
+// previous panel to the trailing triangle from 64 x 8 register tiles, and
+// one thread a column solves W's panel rows while the warps that own no
+// column apply the previous panel below them; two barriers a panel for the
+// factor and one for W, against two a column before.  Every element goes
+// through shared memory once a panel, and every hot read is a float4 on a
+// row stride (chol_ld) that keeps it free of bank conflicts.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-// Row stride of an n x n matrix in shared memory: odd, so the column reads
-// (lanes on consecutive rows, one column) hit distinct banks.
+// Columns a panel (factor) and rows a panel (L^-1), a multiple of 8.  Any
+// value gives the same bits; at 16 warp 0's register copy of the diagonal
+// block spills.
+constexpr int kCholPanel = 8;
+// A trailing-update tile: 64 rows (two per lane) by 8 columns.
+constexpr int kTileRows = 64;
+constexpr int kTileCols = 8;
+
+// Row stride of an n x n matrix in shared memory: a multiple of 4 floats
+// whose quarter is odd, at least n rounded up to 8.  Every row then starts
+// on 16 bytes, so a lane reads 4 consecutive elements of a row as one
+// float4, and 8 lanes reading float4s at one column of 8 consecutive rows
+// hit 8 distinct groups of 4 banks (no conflict).  A lane reading single
+// floats down a column would conflict 4 ways: no hot loop does.
 __host__ __device__ __forceinline__ int chol_ld(int n) {
-  return (n % 2 == 0) ? n + 1 : n;
+  return (n + 7) / 8 * 8 + 4;
+}
+
+__device__ __forceinline__ void chol_st4(float* p, float x, float y, float z,
+                                         float w) {
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+}
+
+// v[0..4) = p[0..4), p 16-byte aligned.
+__device__ __forceinline__ void chol_get4(float* v, const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+// One warp's tile of a trailing update: for the rows i = i0 + lane + 32a
+// (a < A, i < n) and the columns j = j0 + c (c < 8, j0 % 8 == 0),
+//   C[i][j] -= X[i][k] * Y(k, j)   for k = k0, ..., k0 + NB - 1 in order,
+// stored where keep(i, j) (keep(i, j + 3) must imply keep(i, j)).
+// Y(k, j) = Y[j][k] when YT (the factor: both operands are rows of the
+// strip) and Y[k][j] otherwise (W).  Every load is a float4: C's and X's
+// rows along the lanes, Y's by broadcast.  Row indices past n are clamped
+// to n - 1, so they compute garbage that is not stored.
+template <int NB, int A, bool YT, typename Keep>
+__device__ __forceinline__ void chol_tile(float* C, const float* X,
+                                          const float* Y, Keep keep, int i0,
+                                          int j0, int k0, int n, int ld) {
+  const int lane = threadIdx.x & 31;
+  int ri[A];
+  float acc[A][kTileCols];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    ri[a] = min(i0 + lane + 32 * a, n - 1);
+#pragma unroll
+    for (int h = 0; h < kTileCols; h += 4)
+      chol_get4(&acc[a][h], C + ri[a] * ld + j0 + h);
+  }
+#pragma unroll
+  for (int kh = 0; kh < NB; kh += 4) {
+    float xv[A][4], yv[kTileCols][4];  // yv[c][q] = Y(k0 + kh + q, j0 + c)
+#pragma unroll
+    for (int a = 0; a < A; ++a) chol_get4(xv[a], X + ri[a] * ld + k0 + kh);
+    if (YT) {
+#pragma unroll
+      for (int c = 0; c < kTileCols; ++c)
+        chol_get4(yv[c], Y + min(j0 + c, n - 1) * ld + k0 + kh);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int h = 0; h < kTileCols; h += 4) {
+          float t[4];
+          chol_get4(t, Y + (k0 + kh + q) * ld + j0 + h);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) yv[h + u][q] = t[u];
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c)
+          acc[a][c] = __fsub_rn(acc[a][c], __fmul_rn(xv[a][q], yv[c][q]));
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const int i = i0 + lane + 32 * a;
+#pragma unroll
+    for (int h = 0; h < kTileCols; h += 4) {
+      float* d = C + ri[a] * ld + j0 + h;
+      if (keep(i, j0 + h + 3)) {
+        chol_st4(d, acc[a][h], acc[a][h + 1], acc[a][h + 2], acc[a][h + 3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (keep(i, j0 + h + u)) d[u] = acc[a][h + u];
+      }
+    }
+  }
+}
+
+// chol_tile with two row slices where the second holds a row below n, else
+// one.
+template <int NB, bool YT, typename Keep>
+__device__ __forceinline__ void chol_tile_rows(float* C, const float* X,
+                                               const float* Y, Keep keep,
+                                               int i0, int j0, int k0, int n,
+                                               int ld) {
+  if (i0 + 32 < n)
+    chol_tile<NB, 2, YT>(C, X, Y, keep, i0, j0, k0, n, ld);
+  else
+    chol_tile<NB, 1, YT>(C, X, Y, keep, i0, j0, k0, n, ld);
+}
+
+// Copy the n x n matrix at src (device memory, rows of n) into dst (shared
+// memory, row stride ld) as dst[i][j] = f(i, j, src[i][j]).  Each thread
+// keeps kLoadDepth float4 loads (or 4 kLoadDepth float loads) in flight,
+// so the copy waits on the latency of device memory a few times instead of
+// once per element.  The caller adds the barrier.
+constexpr int kLoadDepth = 4;
+
+template <typename F>
+__device__ __forceinline__ void chol_load(const float* __restrict__ src,
+                                          float* dst, int n, int ld, F f) {
+  const int nn = n * n;
+  const int step = kLoadDepth * blockDim.x;
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int q0 = threadIdx.x; q0 < nn / 4; q0 += step) {
+      float v[kLoadDepth][4];
+#pragma unroll
+      for (int u = 0; u < kLoadDepth; ++u) {
+        const int q = q0 + u * blockDim.x;
+        if (q < nn / 4) chol_get4(v[u], src + 4 * q);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadDepth; ++u) {
+        const int q = q0 + u * blockDim.x;
+        if (q < nn / 4) {
+          const int i = 4 * q / n, j = 4 * q - i * n;
+          chol_st4(dst + i * ld + j, f(i, j, v[u][0]), f(i, j + 1, v[u][1]),
+                   f(i, j + 2, v[u][2]), f(i, j + 3, v[u][3]));
+        }
+      }
+    }
+    return;
+  }
+  for (int e0 = threadIdx.x; e0 < nn; e0 += 4 * step) {
+    float v[4 * kLoadDepth];
+#pragma unroll
+    for (int u = 0; u < 4 * kLoadDepth; ++u) {
+      const int e = e0 + u * blockDim.x;
+      v[u] = e < nn ? src[e] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4 * kLoadDepth; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < nn) {
+        const int i = e / n, j = e - i * n;
+        dst[i * ld + j] = f(i, j, v[u]);
+      }
+    }
+  }
+}
+
+// Warp 0's part of the factor: the diagonal block of rows and columns
+// [k0, k0 + w), first updated by the previous panel's columns [kp, k0)
+// when kp < k0 (their L is final in K): lane e takes element e of the
+// block's lower triangle.  Then every lane holds and factors the whole
+// block in registers, so the chain of pivots waits on no shuffle.  Lane 0
+// stores the block's L below the diagonal and, on the diagonal, L[k][k]
+// when `last` (no strip follows) or else inv_k, where the strip reads it.
+// Returns L[k0+lane][k0+lane] to lane < w.
+template <int NB>
+__device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
+                                                 int kp, bool last, int ld) {
+  const int lane = threadIdx.x & 31;
+  if (kp < k0) {
+    for (int e = lane; e < NB * (NB + 1) / 2; e += 32) {
+      int i = 0;
+#pragma unroll
+      for (int r = 1; r < NB; ++r)
+        if (e >= r * (r + 1) / 2) i = r;
+      const int j = e - i * (i + 1) / 2;
+      if (i < w) {
+        float x[NB], y[NB];
+#pragma unroll
+        for (int h = 0; h < NB; h += 4) {
+          chol_get4(x + h, K + (k0 + i) * ld + kp + h);
+          chol_get4(y + h, K + (k0 + j) * ld + kp + h);
+        }
+        float acc = K[(k0 + i) * ld + k0 + j];
+#pragma unroll
+        for (int kk = 0; kk < NB; ++kk)
+          acc = __fsub_rn(acc, __fmul_rn(x[kk], y[kk]));
+        K[(k0 + i) * ld + k0 + j] = acc;
+      }
+    }
+    __syncwarp();
+  }
+  // b[i][j] (j <= i) holds the block's row k0 + i; rows past w are zeros
+  // whose results are not stored.
+  float b[NB][NB], inv[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j)
+      b[i][j] = i < w ? K[(k0 + i) * ld + k0 + j] : 0.f;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    inv[c] = __frcp_rn(__fsqrt_rn(b[c][c]));  // 1 / sqrtf, both IEEE
+#pragma unroll
+    for (int i = c; i < NB; ++i) b[i][c] = __fmul_rn(b[i][c], inv[c]);
+#pragma unroll
+    for (int j = c + 1; j < NB; ++j)
+#pragma unroll
+      for (int i = j; i < NB; ++i)
+        b[i][j] = __fsub_rn(b[i][j], __fmul_rn(b[i][c], b[j][c]));
+  }
+  __syncwarp();  // every lane has read the block before lane 0 stores
+  float lrr = 0.f;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    if (lane == 0 && i < w) {
+      float* row = K + (k0 + i) * ld + k0;
+#pragma unroll
+      for (int j = 0; j < i; ++j) row[j] = b[i][j];
+      row[i] = last ? b[i][i] : inv[i];
+    }
+    if (lane == i) lrr = b[i][i];
+  }
+  return lrr;
 }
 
 // Factor the symmetric matrix in K (row stride ld; only the lower triangle
 // is read) in place: on return the lower triangle holds L, the strict upper
 // triangle is untouched.  The caller has passed a barrier since K was
-// written; the function ends with one.  Two barriers per column.
+// written; the function ends with one.  Panels of kCholPanel columns; with
+// panel [k0, k1) factored on its diagonal block, two barriers a panel:
+//   1. the strip: thread t solves row k1 + t of columns [k0, k1) from the
+//      block's L and its inv_k (in element order: each L[i][k] after its
+//      updates from the panel's earlier columns).
+//   2. warp 0 puts the block's diagonal L[k][k] in place, then updates the
+//      next diagonal block [k1, k2) with the panel and factors it
+//      (chol_diag_block); meanwhile the other warps apply the panel to
+//      their 64 x 8 tiles of the rest of the trailing triangle, rows
+//      [k2, n), columns [k1, n).  So the chain of pivots runs beside the
+//      trailing update instead of between its barriers.
+// Every element of the trailing triangle takes the panel's columns in
+// increasing order, after the earlier panels', whichever warp applies them.
 __device__ __forceinline__ void chol_factor(float* K, int n, int ld) {
+  constexpr int NB = kCholPanel;
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  for (int k = 0; k < n; ++k) {
-    const float akk = K[k * ld + k];
-    const float inv = 1.0f / sqrtf(akk);
-    for (int i = k + 1 + tid; i < n; i += nthreads)
-      K[i * ld + k] = __fmul_rn(K[i * ld + k], inv);
+  const int nwarps = blockDim.x >> 5;
+  float lrr = 0.f;  // warp 0, lane r: L[k0+r][k0+r] of the current panel
+  if (warp == 0) lrr = chol_diag_block<NB>(K, 0, min(NB, n), 0, n <= NB, ld);
+  __syncthreads();
+  for (int k0 = 0; k0 + NB < n; k0 += NB) {
+    const int k1 = k0 + NB;
+    const int k2 = min(k1 + NB, n);
+
+    // 1. The strip below the panel's diagonal block.
+    for (int i = k1 + tid; i < n; i += blockDim.x) {
+      float* row = K + i * ld + k0;
+      float a[NB];
+#pragma unroll
+      for (int h = 0; h < NB; h += 4) chol_get4(a + h, row + h);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        const float* lc = K + (k0 + c) * ld + k0;  // row k0+c of the block
+        a[c] = __fmul_rn(a[c], lc[c]);              // * inv_{k0+c}
+#pragma unroll
+        for (int r = c + 1; r < NB; ++r)
+          a[r] = __fsub_rn(a[r], __fmul_rn(a[c], K[(k0 + r) * ld + k0 + c]));
+      }
+#pragma unroll
+      for (int h = 0; h < NB; h += 4)
+        chol_st4(row + h, a[h], a[h + 1], a[h + 2], a[h + 3]);
+    }
     __syncthreads();
-    // K[k][k] is read by no thread below, so it is written here.
-    if (tid == 0) K[k * ld + k] = __fmul_rn(akk, inv);
-    for (int i = k + 1 + warp; i < n; i += nwarps) {
-      const float lik = K[i * ld + k];
-      for (int j = k + 1 + lane; j <= i; j += 32)
-        K[i * ld + j] = __fsub_rn(K[i * ld + j], __fmul_rn(lik, K[j * ld + k]));
+
+    // 2. The next diagonal block on warp 0, the rest of the trailing
+    // update on the others.
+    if (warp == 0) {
+      if (lane < NB) K[(k0 + lane) * ld + k0 + lane] = lrr;
+      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, ld);
+    } else {
+      const int m = n - k2;  // rows of the trailing tiles
+      // column tiles from k1 up to each row tile's last row
+      const int last0 = k2 + min(kTileRows, m) - 1;  // row tile 0's last
+      const int tiles0 = m > 0 ? (last0 - k1) / kTileCols + 1 : 0;
+      const int tiles =
+          tiles0 + (m > kTileRows ? (n - 1 - k1) / kTileCols + 1 : 0);
+      for (int t = warp - 1; t < tiles; t += nwarps - 1) {
+        const bool second = t >= tiles0;  // the second row tile (m > 64)
+        const int i0 = k2 + (second ? kTileRows : 0);
+        const int j0 = k1 + kTileCols * (second ? t - tiles0 : t);
+        chol_tile_rows<NB, true>(
+            K, K, K, [=](int i, int j) { return i < n && j <= i; }, i0, j0,
+            k0, n, ld);
+      }
     }
     __syncthreads();
   }
 }
 
 // W = L^-1 for the factor in the lower triangle of L (row stride ld), into
-// W (row stride ld), zeros above the diagonal.  Thread j owns column j: the
-// forward substitution of L w = e_j, in the order of the plain version
-// (row k divided by L[k][k], then eliminated from the rows below), with no
-// barrier inside.  The caller has passed a barrier since L was written and
-// adds one before W is read by other threads.
-__device__ __forceinline__ void chol_tri_inverse(const float* L, float* W,
+// W (row stride ld), zeros above the diagonal; L and W are distinct
+// buffers, and the block has more threads than n.  By row panels of
+// kCholPanel rows, one barrier a panel: thread j < n owns column j of the
+// panel's rows.  Row by row it applies the previous panel's rows (still in
+// its registers), then the panel's rows above, then divides by L[k][k] (the
+// plain version's order), with no barrier inside.  Meanwhile the warps that
+// own no column apply the previous panel's rows to their 64 x 8 tiles of
+// the rows below this panel.  So each W[i][j] takes the rows k in
+// increasing order, and the chain of divisions runs beside the trailing
+// update.  The owners skip the updates with the known zeros above W's
+// diagonal, which change no bit of a positive definite member.  The caller
+// has passed a barrier since L was written and adds one before W is read by
+// other threads.
+__device__ __forceinline__ void chol_tri_inverse(const float* __restrict__ L,
+                                                 float* __restrict__ W,
                                                  int n, int ld) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  constexpr int NB = kCholPanel;
+  const int j = threadIdx.x;
+  const int warp = j >> 5;
+  const int owner_warps = (n + 31) / 32;
+  const int tile_warps = (blockDim.x >> 5) - owner_warps;
+  // thread j fills column j, which it alone reads in the first panel
+  if (j < n)
     for (int i = 0; i < n; ++i) W[i * ld + j] = i == j ? 1.f : 0.f;
-    for (int k = j; k < n; ++k) {
-      const float wk = W[k * ld + j] / L[k * ld + k];
-      W[k * ld + j] = wk;
-      for (int i = k + 1; i < n; ++i)
-        W[i * ld + j] = __fsub_rn(W[i * ld + j], __fmul_rn(L[i * ld + k], wk));
+  float prev[NB];  // the owner's rows of the previous panel, column j
+#pragma unroll
+  for (int c = 0; c < NB; ++c) prev[c] = 0.f;
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    const int k1 = min(k0 + NB, n);
+    const int kp = k0 - NB;  // the previous panel [kp, k0), when k0 > 0
+    if (j < k1) {
+      // the panel's rows of column j, the previous panel's applied first
+      // (independent rows), then the chain of the panel's own rows
+      float w[NB];
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        const int k = min(k0 + r, n - 1);  // rows past n: garbage, unstored
+        w[r] = W[k * ld + j];
+        if (j < k0) {
+          float lp[NB];
+#pragma unroll
+          for (int h = 0; h < NB; h += 4)
+            chol_get4(lp + h, L + k * ld + kp + h);
+#pragma unroll
+          for (int kk = 0; kk < NB; ++kk)
+            if (kp + kk >= j)
+              w[r] = __fsub_rn(w[r], __fmul_rn(lp[kk], prev[kk]));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        const int k = min(k0 + r, n - 1);
+        float lc[NB];
+#pragma unroll
+        for (int h = 0; h < NB; h += 4) chol_get4(lc + h, L + k * ld + k0 + h);
+#pragma unroll
+        for (int c = 0; c < r; ++c)
+          if (k0 + c >= j) w[r] = __fsub_rn(w[r], __fmul_rn(lc[c], w[c]));
+        if (k0 + r >= j) w[r] = w[r] / lc[r];
+      }
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        if (k0 + r < k1 && k0 + r >= j) W[(k0 + r) * ld + j] = w[r];
+        prev[r] = w[r];
+      }
     }
+    // the previous panel applied to rows [k1, n), columns [0, k0)
+    const int m = n - k1;
+    if (k0 > 0 && m > 0 && warp >= owner_warps) {
+      const int row_tiles = (m - 1) / kTileRows + 1;
+      const int col_tiles = k0 / kTileCols;
+      for (int t = warp - owner_warps; t < row_tiles * col_tiles;
+           t += tile_warps) {
+        const int i0 = k1 + kTileRows * (t / col_tiles);
+        const int j0 = kTileCols * (t % col_tiles);
+        chol_tile_rows<NB, false>(W, L, W, [=](int i, int) { return i < n; },
+                                  i0, j0, kp, n, ld);
+      }
+    }
+    if (k1 < n) __syncthreads();
   }
 }
 

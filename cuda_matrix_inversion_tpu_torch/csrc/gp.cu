@@ -28,10 +28,12 @@
 // Never TF32: the schedule's scalars were calibrated for bf16 rounding.
 //
 // What bounds K5 and K6 on the card: not bytes (one read of B, 6.55 MB at
-// 100 x 128 x 128).  K5 is the factor's serial chain of n columns with two
-// barriers each, then n warp-synchronous substitution steps; its
-// n (n+1) + 2n fp32 of shared memory (67 KB at n = 128) lets three blocks
-// share an SM.  K6's bound is its operations: 17 bf16 passes at the tensor
+// 100 x 128 x 128).  K5 is the factor's chain (cholesky_common.cuh: one
+// warp's n pivots of an IEEE sqrt and reciprocal, beside the other warps'
+// register-tiled panel updates, two barriers a panel), then n
+// warp-synchronous substitution steps; its n ld + 2n fp32 of shared memory
+// (68.6 KB at n = 128, ld = chol_ld(n) = 132) and at most 80 registers a
+// thread let three blocks share an SM.  K6's bound is its operations: 17 bf16 passes at the tensor
 // cores' rate and the one fp32 product at the CUDA cores', which is half of
 // it.  Inside the block it is a chain of dependent products, 3 barriers a
 // round.
@@ -65,12 +67,14 @@
 // _lml_fused_quad_logdet): per system quad = d^T K^-1 d and
 // logdet = 2 sum_k log L[k][k].  Without emit_w it factors K (the shared
 // chol_factor) and one warp forward-solves y = L^-1 d as K5 does,
-// quad = y . y; n (n+1) + 2n fp32 of shared memory.  With emit_w (the
-// autograd forward) it also forms W = L^-1 by K3's column-owned
-// substitution (chol_tri_inverse), t = W d (thread i owns row i),
-// alpha = W^T t = K^-1 d (thread j owns column j), quad = t . t, and writes
-// W and alpha for the backward; 2 n (n+1) + 2n fp32.  Bound as K5 and K3:
-// the factor's serial chain, then the substitution's longest column.
+// quad = y . y; n ld + 2n fp32 of shared memory (ld = chol_ld(n), 132 at
+// n = 128).  With emit_w (the autograd forward) it also forms W = L^-1 by
+// K3's row-panel substitution (chol_tri_inverse), t = W d (thread i owns
+// row i), alpha = W^T t = K^-1 d (thread j owns column j), quad = t . t,
+// and writes W and alpha for the backward; 2 n ld + 2n fp32.  Bound as K5
+// and K3: the panel factor's chain of pivots, then (with emit_w) W's chain
+// of divisions.  Without emit_w three blocks share an SM (at most 80
+// registers a thread), with it one.
 
 #include <cuda_runtime.h>
 
@@ -101,12 +105,12 @@ __device__ __forceinline__ float stage_k(const float* b, const float* c,
   return i == j ? __fadd_rn(v, c[i]) : v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
     gp_chol_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ c, const float* __restrict__ d,
                    const float* __restrict__ e, float* __restrict__ out,
                    int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
   float* K = smem;
   float* Y = smem + n * ld;  // Y[0..n) = y_d, Y[n..2n) = y_a
@@ -116,10 +120,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t sys = blockIdx.x;
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
-  for (int x = tid; x < n * n; x += kThreads) {
-    const int i = x / n, j = x % n;
-    K[i * ld + j] = stage_k(bs, cs, i, j, n);
-  }
+  chol_load(bs, K, n, ld, [=](int i, int j, float v) {
+    return i == j ? __fadd_rn(v, cs[i]) : v;  // as stage_k rounds it
+  });
   for (int i = tid; i < n; i += kThreads) {
     Y[i] = d[sys * n + i];
     Y[n + i] = a[sys * n + i];
@@ -440,12 +443,12 @@ __global__ void __launch_bounds__(kThreads)
 // K10.  EMIT_W = false: quad and logdet only; true: also W = L^-1 and
 // alpha = K^-1 d.
 template <bool EMIT_W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
     gp_lml_kernel(const float* __restrict__ b, const float* __restrict__ c,
                   const float* __restrict__ d, float* __restrict__ out,
                   float* __restrict__ w_out, float* __restrict__ alpha_out,
                   int n) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
   float* K = smem;
   float* W = smem + n * ld;                     // EMIT_W only
@@ -456,10 +459,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t sys = blockIdx.x;
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
-  for (int x = tid; x < n * n; x += kThreads) {
-    const int i = x / n, j = x % n;
-    K[i * ld + j] = stage_k(bs, cs, i, j, n);
-  }
+  chol_load(bs, K, n, ld, [=](int i, int j, float v) {
+    return i == j ? __fadd_rn(v, cs[i]) : v;  // as stage_k rounds it
+  });
   for (int i = tid; i < n; i += kThreads) v[i] = d[sys * n + i];
   __syncthreads();
   chol_factor(K, n, ld);
@@ -483,7 +485,13 @@ __global__ void __launch_bounds__(kThreads)
     // t = W d, thread i owns row i (W is zero above the diagonal)
     for (int i = tid; i < n; i += kThreads) {
       float t = 0.f;
-      for (int k = 0; k <= i; ++k) t = fmaf(W[i * ld + k], v[k], t);
+      for (int k4 = 0; k4 <= i; k4 += 4) {  // float4 reads of row i
+        float w4[4];
+        chol_get4(w4, W + i * ld + k4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (k4 + u <= i) t = fmaf(w4[u], v[k4 + u], t);
+      }
       v[n + i] = t;
     }
     __syncthreads();

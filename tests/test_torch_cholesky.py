@@ -90,6 +90,135 @@ def test_hand_fixtures_through_port(chain):
     np.testing.assert_allclose(inv, ainv, atol=1e-5)
 
 
+# The register tile of the kernels' trailing updates
+# (csrc/cholesky_common.cuh: kTileRows x kTileCols).
+TILE_ROWS, TILE_COLS = 64, 8
+
+
+def _sub_mul(x, y, z):
+    """x − y·z as the kernels spell it: a rounded product, then a rounded
+    difference (``__fsub_rn(x, __fmul_rn(y, z))``), never fused."""
+    return torch.sub(x, torch.mul(y, z))
+
+
+def _panel_cholesky(a, nb):
+    """The panel schedule of ``cholesky_common.cuh::chol_factor`` in plain
+    PyTorch.  Each diagonal block is first updated by the previous panel's
+    columns, then factored column by column; each panel's strip is solved
+    right-looking; the panel's update of the rest of the trailing triangle
+    (rows below the next diagonal block) goes in the kernel's 64 × 8
+    tiles, the panel's columns in increasing order."""
+    w = a.clone()
+    n = a.shape[-1]
+
+    def diag_block(k0, kp):
+        k1 = min(k0 + nb, n)
+        for k in range(kp, k0):
+            s = w[:, k0:k1, k]
+            w[:, k0:k1, k0:k1] = _sub_mul(w[:, k0:k1, k0:k1],
+                                          s[:, :, None], s[:, None, :])
+        inv = {}
+        for c in range(k0, k1):
+            akk = w[:, c, c].clone()
+            inv[c] = torch.reciprocal(torch.sqrt(akk))
+            w[:, c:k1, c] = torch.mul(w[:, c:k1, c], inv[c][:, None])
+            col = w[:, c + 1:k1, c]
+            w[:, c + 1:k1, c + 1:k1] = _sub_mul(
+                w[:, c + 1:k1, c + 1:k1], col[:, :, None], col[:, None, :])
+        return inv
+
+    inv = diag_block(0, 0)
+    for k0 in range(0, n - nb, nb):
+        k1, k2 = k0 + nb, min(k0 + 2 * nb, n)
+        for c in range(k0, k1):
+            w[:, k1:, c] = torch.mul(w[:, k1:, c], inv[c][:, None])
+            w[:, k1:, c + 1:k1] = _sub_mul(w[:, k1:, c + 1:k1],
+                                           w[:, k1:, c:c + 1],
+                                           w[:, c + 1:k1, c][:, None, :])
+        inv = diag_block(k1, k0)
+        for i0 in range(k2, n, TILE_ROWS):
+            i1 = min(i0 + TILE_ROWS, n)
+            for j0 in range(k1, i1, TILE_COLS):
+                j1 = min(j0 + TILE_COLS, n)
+                t = w[:, i0:i1, j0:j1].clone()
+                for k in range(k0, k1):
+                    t = _sub_mul(t, w[:, i0:i1, k:k + 1],
+                                 w[:, j0:j1, k][:, None, :])
+                w[:, i0:i1, j0:j1] = t
+    return torch.tril(w)
+
+
+def _panel_tri_inverse(l, nb):
+    """The row-panel schedule of ``cholesky_common.cuh::chol_tri_inverse``
+    in plain PyTorch: each of a panel's rows k, in turn, takes the previous
+    panel's rows, then the panel's rows above it, then is divided by Lₖₖ
+    (columns j ≤ the row applied only, as the kernel's owners skip the
+    zeros above W's diagonal); then the rows below the panel take the
+    previous panel's rows in the kernel's 64 × 8 tiles, k in increasing
+    order."""
+    n = l.shape[-1]
+    w = torch.eye(n, dtype=l.dtype).expand_as(l).clone()
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        for k in range(k0, k1):
+            for c in range(max(k0 - nb, 0), k):
+                w[:, k, :c + 1] = _sub_mul(w[:, k, :c + 1], l[:, k, c:c + 1],
+                                           w[:, c, :c + 1])
+            w[:, k, :k + 1] = torch.div(w[:, k, :k + 1], l[:, k, k:k + 1])
+        for i0 in range(k1, n, TILE_ROWS) if k0 > 0 else ():
+            i1 = min(i0 + TILE_ROWS, n)
+            for j0 in range(0, k0, TILE_COLS):
+                t = w[:, i0:i1, j0:j0 + TILE_COLS].clone()
+                for k in range(k0 - nb, k0):
+                    t = _sub_mul(t, l[:, i0:i1, k:k + 1],
+                                 w[:, k:k + 1, j0:j0 + TILE_COLS])
+                w[:, i0:i1, j0:j0 + TILE_COLS] = t
+    return w
+
+
+def test_panel_tiles_are_the_kernels():
+    """The emulated tiles and the default panel width are the header's."""
+    src = (cuda_build.CSRC_DIR / "cholesky_common.cuh").read_text()
+    assert f"constexpr int kTileRows = {TILE_ROWS};" in src
+    assert f"constexpr int kTileCols = {TILE_COLS};" in src
+    assert "constexpr int kCholPanel = 8;" in src
+
+
+@pytest.mark.parametrize("nb", [8, 16])
+@pytest.mark.parametrize("n", [1, 11, 20, 72, 128])
+def test_panel_schedule_is_bitwise_the_plain_order(n, nb):
+    """The kernels' panel schedules give every element the plain versions'
+    operations in the same order, so L and W = L⁻¹ come out bit for bit
+    the plain versions' (ragged last panels at n = 11, 20, 72; one partial
+    panel at n = 1)."""
+    a = torch.tensor(_spd(3, n, 900 + n))
+    l = _panel_cholesky(a, nb)
+    l_ref = cuda_cholesky.cholesky_plain(a)
+    assert torch.equal(l, l_ref)
+    eye = torch.eye(n).expand_as(a)
+    assert torch.equal(_panel_tri_inverse(l_ref, nb),
+                       cuda_cholesky.forward_substitution_plain(l_ref, eye))
+
+
+def test_chol_probe_patches_match_the_kernel_source():
+    """The card probe of K3, K4, K5 and K10 (``bench/chol_probe.py``)
+    builds its variants by patching ``csrc/``: every anchor must still
+    occur as often as the probe expects, and the probe refuses to run
+    without a card."""
+    from cuda_matrix_inversion_tpu_torch.bench import chol_probe
+
+    src = (cuda_build.CSRC_DIR / "cholesky.cu").read_text()
+    for anchor, _, count in chol_probe.STAMPS:
+        assert src.count(anchor) == count, anchor
+    header = (cuda_build.CSRC_DIR / "cholesky_common.cuh").read_text()
+    assert header.count(chol_probe.PANEL) == 1
+    for anchor, _, count in chol_probe.STEPS:
+        assert header.count(anchor) == count, anchor
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            chol_probe.main()
+
+
 def test_indefinite_member_is_confined():
     """A negated member comes out non-finite in both entry points; the
     others equal the same batch without it."""

@@ -120,18 +120,23 @@ def test_k2_matches_plain(cuda, kind, n):
     assert identity_error_inf(a[finite], polished[finite]) < 1e-4
 
 
-@pytest.mark.parametrize("n", [8, 20, 64, 128])
-def test_cholesky_kernels_match_plain(cuda, n):
+def _check_cholesky_kernels(cuda, batch, n, seed):
     """K4 and K3 against their plain versions; member 3 is indefinite and
-    is the only non-finite one."""
-    a = make_spd_batch(7, n, np.random.default_rng(200 + n)).astype(np.float32)
+    is the only non-finite one.  K4's L is bitwise the plain version's on
+    every positive definite member: the panel schedule gives each element
+    the plain version's operations in the same order."""
+    a = make_spd_batch(batch, n, np.random.default_rng(seed)
+                       ).astype(np.float32)
     a[3] = -a[3]
     at = torch.tensor(a, device=cuda)
     l = cuda_cholesky.cholesky_cuda(at)
     x = cuda_cholesky.inverse_cholesky_cuda(at)
     torch.cuda.synchronize()
-    ok = np.arange(7) != 3
-    for out, ref in ((l, cuda_cholesky.cholesky_plain(at)),
+    ok = np.arange(batch) != 3
+    l_ref = cuda_cholesky.cholesky_plain(at)
+    keep = torch.from_numpy(ok).to(cuda)
+    assert torch.equal(l[keep], l_ref[keep])
+    for out, ref in ((l, l_ref),
                      (x, cuda_cholesky.inverse_cholesky_plain(at))):
         out, ref = out.cpu().numpy(), ref.cpu().numpy()
         assert (np.isfinite(out).all(axis=(1, 2)) == ok).all()
@@ -141,6 +146,19 @@ def test_cholesky_kernels_match_plain(cuda, n):
     assert np.array_equal(x[ok], np.swapaxes(x[ok], 1, 2))
     assert identity_error_inf(a[ok], x[ok]) < 1e-4
     assert (np.triu(l.cpu().numpy()[ok], 1) == 0).all()
+
+
+@pytest.mark.parametrize("n", [8, 20, 64, 128, 1, 11, 72, 127])
+def test_cholesky_kernels_match_plain(cuda, n):
+    """K4 and K3 at 7 members; n = 1, 11, 72 and 127 leave a partial last
+    panel."""
+    _check_cholesky_kernels(cuda, 7, n, 200 + n)
+
+
+def test_cholesky_kernels_match_plain_at_1600x128(cuda):
+    """K4 and K3 at the main path's large batch: three K4 blocks an SM and
+    many waves."""
+    _check_cholesky_kernels(cuda, 1600, 128, 1600)
 
 
 @pytest.mark.parametrize("n", [8, 20, 64, 72, 128])
@@ -263,10 +281,12 @@ def test_k8_matches_plain(cuda, precision, n):
 
 
 @pytest.mark.parametrize("emit_w", [False, True])
-@pytest.mark.parametrize("n", [8, 11, 64, 128])
+@pytest.mark.parametrize("n", [8, 11, 64, 128, 1, 20, 72, 127])
 def test_k10_matches_plain(cuda, emit_w, n):
     """K10 against its plain version; system 3 is negative definite and is
-    the only non-finite one."""
+    the only non-finite one.  With emit_w, W is bitwise the plain
+    version's, forward_substitution_plain(cholesky_plain(K), I), on every
+    positive definite member."""
     g = make_gp_batch(7, n, np.random.default_rng(700 + n))
     b, c, d = (torch.tensor(g[k], dtype=torch.float32, device=cuda)
                for k in "bcd")
@@ -279,6 +299,9 @@ def test_k10_matches_plain(cuda, emit_w, n):
     ref = cuda_gp_lml.lml_quad_logdet_plain(b, c, d, emit_w)
     ok = np.arange(7) != 3
     assert len(got) == (4 if emit_w else 2)
+    if emit_w:
+        keep = torch.from_numpy(ok).to(cuda)
+        assert torch.equal(got[2][keep], ref[2][keep])
     for x, r in zip(got, ref):
         x, r = x.cpu().numpy(), r.cpu().numpy()
         flat = x.reshape(7, -1)
