@@ -16,7 +16,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    whose previous inverse holds a NaN, which alone must come out
    non-finite; K9 in the blocked factor and the whole polished blocked LU
    against the same routine on its plain version, n ∈ {160, 256, 512} ×
-   batch ∈ {1, 7, 100} and 1600×256, one member with a zero column;
+   batch ∈ {1, 7, 100}, 1600×256, 7×160 at pw = 8 and 24 (the generic
+   instance) and draws of small integers (exact ties decide the pivots),
+   one member with a zero column; the factor, pivots,
+   perm and triangle inverses bitwise;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -56,9 +59,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    theirs before the panel-blocked factor and L⁻¹; the warm lanes against
    the cold ones, one fit step of each method, and one engine request NumPy
    in and out;
-   at 100×512 and 1600×256 K9 alone (its launches in one call, summed),
-   the ``lu_bign_pallas`` lane beside its bound, ``torch.linalg.inv``, the
-   plain routine, ``lu_hiacc`` and the panel-width ladder.
+   at 100×512 and 1600×256 K9 alone (its launches in one call, summed)
+   beside its time before the Hopper redesign, the port's blocked factor
+   ``lu_factor_big`` and ``torch.linalg.lu_factor_ex`` (the library
+   factor, a yardstick the port never calls), the ``lu_bign_pallas`` lane
+   beside its bound, ``torch.linalg.inv``, the plain routine, ``lu_hiacc``
+   and the panel-width ladder.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 bound (the larger of its bytes over the HBM rate and its operations over
@@ -135,11 +141,16 @@ WARM_DELTA, SPLIT3_DELTA = 1e-3, 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): fp32
 # outside the tensor cores, dense bf16 tensor cores, HBM3.
 PEAK_FP32, PEAK_BF16, PEAK_HBM = 67e12, 989e12, 3.35e12
-# K9 and its blocked LU vs the plain version, max-norm relative: the kernel
-# repeats the plain version's operations in order (IEEE division, no FMA
-# contraction) and was bitwise equal on the card; 1e-6 leaves room for
-# cuBLAS picking another algorithm for one of the two routines' products.
+# K9 repeats the plain version's operations in order (IEEE division, no FMA
+# contraction): its factor, pivots, perm and triangle inverses are compared
+# bitwise.  The two whole polished blocked LUs run the same cuBLAS products,
+# max-norm relative: 1e-6 leaves room for cuBLAS picking another algorithm
+# for one of the two routines' products.
 K9_RTOL = 1e-6
+# K9 before its Hopper redesign (three barriers a column, laswp one thread
+# a column, barriered triangles), all panel launches of one call summed, in
+# ms (phase 5 of this script on an NVIDIA H100 80GB HBM3 at 700 W).
+K9_BEFORE_MS = {"nonsym500_100x512": 2.499, "square_1600x256": 6.324}
 # The fp64-class lane (lu_hiacc): JAX's contracts (bench/chip_tests.py),
 # max |I − AX| in fp64: κ = 500 at n = 128, and a batch with one singular
 # member; κ = 2e4 adaptive; the κ ≈ 4n class at n = 512.
@@ -608,53 +619,66 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
 def _k9_vs_plain(dev, err, torch):
     """Phase 3 for K9 at n ∈ {160, 256, 512} × batch ∈ {1, 7, 100} and
     1600×256, each at its default panel width (n = 160 pads to 192 at
-    pw = 64: a ragged last panel) and 512 also at pw = 32: the blocked
-    factor with K9 against the same routine with the plain version, then
-    the whole polished output of both.  For batch > 1 member batch // 2
-    has a zero column and alone must come out non-finite."""
+    pw = 64: a ragged last panel) and 512 also at pw = 32, 7×160 at pw = 8
+    and 24 (the kernel's generic instance), and on draws of small integers
+    in [-2, 2] (exact ties decide the pivots) at 100×256 and 7×512: the
+    blocked factor with K9 against the same routine with the
+    plain version (factor, perm, pivots and triangle inverses bitwise),
+    then the whole polished output of both.  For batch > 1 member
+    batch // 2 has a zero column and alone must come out non-finite."""
     from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
     from cuda_matrix_inversion_tpu_torch.ops import lu_bign
 
-    cases = [(b, n, None) for n in (160, 256, 512) for b in (1, 7, 100)]
-    cases += [(100, 512, 32), (1600, 256, None)]
+    cases = [(b, n, None, False) for n in (160, 256, 512) for b in (1, 7, 100)]
+    cases += [(100, 512, 32, False), (1600, 256, None, False),
+              (100, 256, None, True), (7, 512, None, True),
+              (7, 160, 8, False), (7, 160, 24, False)]
     entry = err.setdefault("k9", {"abs": 0.0, "rel": 0.0})
-    for batch, n, pw in cases:
+    for batch, n, pw, ties in cases:
         pw = pw or lu_bign.pick_pw(n)
         bad = batch // 2 if batch > 1 else None
-        a = torch.tensor(make_square_batch(batch, n, np.random.default_rng(
-            9000 + n + batch)), dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(9000 + n + batch)
+        a_np = (rng.integers(-2, 3, (batch, n, n)) if ties
+                else make_square_batch(batch, n, rng))
+        a = torch.tensor(a_np, dtype=torch.float32, device=dev)
         if bad is not None:
             a[bad, :, n // 3] = 0.0
         n_pad = -(-n // pw) * pw
         work = torch.eye(n_pad, device=dev).repeat(batch, 1, 1)
         work[:, :n, :n] = a
-        what = f"K9 {batch}x{n} pw={pw}"
+        what = f"K9 {batch}x{n} pw={pw}{' ties' if ties else ''}"
         got = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_cuda)
         torch.cuda.synchronize()
         ref = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_plain)
         ok = _confined(got[0], bad, what, torch)
         _confined(ref[0], bad, f"{what} plain", torch)
-        for part in (1, 2):  # perm, pivots: integers, equal
-            gp = got[part] if part == 1 else torch.stack(got[part], 1)
-            rp = ref[part] if part == 1 else torch.stack(ref[part], 1)
-            if not torch.equal(gp[ok], rp[ok]):
-                raise AssertionError(f"{what}: pivots differ from the plain "
-                                     f"version")
-        # the factor and the polished inverse: member bad alone
-        # non-finite; the per-panel triangle inverses: compared on the others
-        whole = [(got[0], ref[0]), (lu_bign.inverse_lu_big(a, pw=pw),
-                                    lu_bign.inverse_lu_big_plain(a, pw=pw))]
-        for x, r in whole:
-            _confined(x, bad, what, torch)
-            _confined(r, bad, f"{what} plain", torch)
-        for x, r in whole + list(zip(got[3] + got[4], ref[3] + ref[4])):
-            diff = float((x[ok] - r[ok]).abs().max())
-            rel = diff / float(r[ok].abs().max())
-            entry["abs"] = max(entry["abs"], diff)
-            entry["rel"] = max(entry["rel"], rel)
-            if not rel <= K9_RTOL:
-                raise AssertionError(f"{what}: kernel vs plain {rel:.3e} > "
-                                     f"{K9_RTOL:g}")
+        # the factor, perm, every panel's pivots and triangle inverses:
+        # bitwise on the finite members
+        parts = [(got[0], ref[0], "factor"), (got[1], ref[1], "perm")]
+        parts += [(x, r, "pivots") for x, r in zip(got[2], ref[2])]
+        parts += [(x, r, "L11^-1 / U11^-1")
+                  for x, r in zip(got[3] + got[4], ref[3] + ref[4])]
+        for x, r, name in parts:
+            if x.is_floating_point():
+                diff = float((x[ok] - r[ok]).abs().max())
+                entry["abs"] = max(entry["abs"], diff)
+                entry["rel"] = max(entry["rel"],
+                                   diff / float(r[ok].abs().max()))
+            if not torch.equal(x[ok], r[ok]):
+                raise AssertionError(f"{what}: {name} differs from the "
+                                     f"plain version")
+        # the polished inverse: member bad alone non-finite
+        whole = (lu_bign.inverse_lu_big(a, pw=pw),
+                 lu_bign.inverse_lu_big_plain(a, pw=pw))
+        _confined(whole[0], bad, what, torch)
+        _confined(whole[1], bad, f"{what} plain", torch)
+        diff = float((whole[0][ok] - whole[1][ok]).abs().max())
+        rel = diff / float(whole[1][ok].abs().max())
+        entry["abs"] = max(entry["abs"], diff)
+        entry["rel"] = max(entry["rel"], rel)
+        if not rel <= K9_RTOL:
+            raise AssertionError(f"{what}: polished inverse, kernel vs plain "
+                                 f"{rel:.3e} > {K9_RTOL:g}")
 
 
 def _max_resid64(a, x, torch) -> float:
@@ -850,9 +874,12 @@ def _k9_work(batch: int, n: int, pw: int, ipivs):
     panel over m = n − k0 rows, getf2 (the multipliers and the rank-1
     updates, ~Σ_j 2(m−j−1)(pw−j−1) + (m−j−1)) and the two pw×pw triangle
     inverses (pw³/3 each); bytes the panel read and written, the two
-    triangles and the pivots written, and each row swap this run's pivots
-    made outside the panel (two rows of n − pw read and written)."""
+    triangles and the pivots written, and outside the panel each row that
+    this run's pivots displace, read once and written once (n − pw words):
+    the panel's swaps replayed on an index map give the composed
+    permutation σ, and the rows are those with σ(r) ≠ r."""
     flops = nbytes = 0.0
+    members = np.arange(batch)
     for p, ipiv in enumerate(ipivs):
         k0 = p * pw
         m = n - k0
@@ -860,9 +887,13 @@ def _k9_work(batch: int, n: int, pw: int, ipivs):
                              for j in range(pw))
         flops += batch * 2 * pw ** 3 / 3
         nbytes += batch * (8.0 * m * pw + 8.0 * pw * pw + 4.0 * pw)
-        rows = np.arange(k0, k0 + pw)[None, :]
-        swaps = int((ipiv.cpu().numpy() != rows).sum())
-        nbytes += swaps * 16.0 * (n - pw)
+        piv = ipiv.cpu().numpy().astype(np.int64) - k0
+        sigma = np.tile(np.arange(m), (batch, 1))
+        for j in range(pw):
+            src, dst = sigma[members, piv[:, j]], sigma[members, j]
+            sigma[members, j], sigma[members, piv[:, j]] = src, dst
+        moved = int((sigma != np.arange(m)).sum())
+        nbytes += moved * 8.0 * (n - pw)
     return flops, nbytes
 
 
@@ -899,8 +930,11 @@ def _median_k9(a, pw, panel, calls, torch) -> float:
 
 def _time_big_n(dev, cases, timing, library, card, torch):
     """Phase 5 for the big-n path at 100×512 and 1600×256: K9 alone (all
-    panel launches of one call, summed) beside its plain version, the
-    ``lu_bign_pallas`` lane beside its bound (LAPACK's 2n³ for getrf +
+    panel launches of one call, summed) beside its plain version and its
+    time before the Hopper redesign (:data:`K9_BEFORE_MS`), the port's
+    blocked factor ``lu_factor_big`` (K9 and the getrf products) beside
+    ``torch.linalg.lu_factor_ex`` (a yardstick: the port never calls it),
+    the ``lu_bign_pallas`` lane beside its bound (LAPACK's 2n³ for getrf +
     getri and 4n³ for the polish at the fp32 peak), ``torch.linalg.inv``,
     the plain routine, ``lu_hiacc`` against ``lu_pallas``, and the panel
     width ladder."""
@@ -920,6 +954,9 @@ def _time_big_n(dev, cases, timing, library, card, torch):
         ipivs = lu_bign.lu_factor_big(a, pw)[2]
         flops, nbytes = _k9_work(batch, n, pw, ipivs)
         bound = _bound(flops, 0.0, nbytes)
+        factor_ms = _median_ms(lambda: lu_bign.lu_factor_big(a, pw), torch)
+        lu_factor_ex_ms = _median_ms(lambda: torch.linalg.lu_factor_ex(a),
+                                     torch)
         inv_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
         lane_ms = _median_ms(lambda: host_api.inverse_batched_device(
             a, "lu_bign_pallas"), torch)
@@ -932,11 +969,14 @@ def _time_big_n(dev, cases, timing, library, card, torch):
             a64, "lu_hiacc"), torch)
         lane_bound_ms = 1e3 * batch * 6.0 * n ** 3 / PEAK_FP32
         timing[("k9", case)] = (k9_ms, k9_plain_ms)
-        library[("k9", case)] = inv_ms
+        library[("k9", case)] = lu_factor_ex_ms
         timing[("k9_bound", case)] = bound
         show("K9", case, pw=pw, kernel_ms_sum_of_launches=k9_ms,
+             k9_before_ms=K9_BEFORE_MS[case],
              plain_ms_sum_of_panels=k9_plain_ms, bound_ms=bound[0],
              bound_by=bound[1], launches_per_call=len(ipivs),
+             lu_factor_big_ms=factor_ms,
+             torch_linalg_lu_factor_ex_ms=lu_factor_ex_ms,
              lane_lu_bign_pallas_ms=lane_ms, lane_lu_pallas_ms=lu_pallas_ms,
              lane_bound_ms=lane_bound_ms, plain_lane_ms=plain_lane_ms,
              torch_linalg_inv_ms=inv_ms, lu_hiacc_f64_ms=hiacc_ms)
@@ -1445,7 +1485,8 @@ def main() -> int:
     kernels.insert(8, {
         "name": f"K9 lu_bign panel (getf2 + laswp + the two triangle "
                 f"inverses; all {512 // lu_bign.pick_pw(512)} panel launches "
-                f"of one 100x512 call, summed)",
+                f"of one 100x512 call, summed; library: "
+                f"torch.linalg.lu_factor_ex, the whole factor)",
         "route": "cuda",
         "source": "cuda_matrix_inversion_tpu_torch/csrc/lu_bign.cu",
         "replaces": "cuda_matrix_inversion_tpu/ops/lu_bign.py:195",

@@ -43,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -76,27 +78,6 @@ __device__ __forceinline__ WarpTile warp_tile() {
   const int w = threadIdx.x >> 5;
   return {16 * G::kMT * (w / G::kColBlocks),
           8 * G::kNT * (w % G::kColBlocks), w < G::kWarps};
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Asynchronous global -> shared copies (16 bytes: both addresses 16-byte
-// aligned; 4 bytes: any float), then wait for all of the thread's copies.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 // (x0, x1) rounded to bf16 (nearest even), x0 in the lower half.

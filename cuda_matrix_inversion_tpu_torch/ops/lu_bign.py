@@ -32,20 +32,32 @@ import torch
 
 from cuda_matrix_inversion_tpu_torch.ops import cuda_build, linalg
 
-# Shared memory one thread block may use on Hopper, and K9's launch shape.
+# Shared memory one thread block may use on Hopper.
 MAX_SMEM = 232448
-_WARPS = 8
 # The panel width :func:`pick_pw` tries first: the fastest of 16, 32 and 64
 # at 100×512 on the card (PERF.md, the pw ladder of chip_smoke.py).
 DEFAULT_PW = 64
 
 
-def panel_smem_bytes(n: int, pw: int) -> int:
-    """K9's shared memory for the first panel of an (n, n) matrix: the
-    n × pw panel and the two pw × pw triangles at an odd row stride, the
-    pivot rows and the reduction slots (``panel_smem`` in the source)."""
-    ld = pw + 1 if pw % 2 == 0 else pw
-    return (n * ld + 2 * pw * ld + _WARPS) * 4 + (_WARPS + pw) * 4
+def panel_ld(pw: int) -> int:
+    """K9's row stride in shared memory (``panel_ld`` in the source): 4·odd
+    floats for the kernel's templated widths 16, 32 and 64 (68, 36, 20:
+    16-byte rows, float4 reads down 8 rows on distinct banks), an odd
+    stride for any other width; always past pw (the spare column holds the
+    row's position)."""
+    if pw in (16, 32, 64):
+        q = (pw + 3) // 4
+        return 4 * (q if q % 2 else q + 1)
+    return pw + 2 if pw % 2 else pw + 1
+
+
+def panel_smem_bytes(m: int, pw: int) -> int:
+    """K9's shared memory for a panel over m rows (the first panel of an
+    (n, n) matrix has m = n): max(m, 3·pw) rows at :func:`panel_ld` (the
+    free rows stage the gather and hold the triangles' columns), three
+    64-bit pivot candidates, the pivots, the row map and the gather's rows
+    (``panel_smem`` in the source)."""
+    return (max(m, 3 * pw) * panel_ld(pw) + 8 + 7 * pw + 4) * 4
 
 
 def pick_pw(n: int) -> int:
@@ -53,7 +65,8 @@ def pick_pw(n: int) -> int:
     down to 8 that keeps at least two panels (the JAX rule: a single panel
     has no trailing update) and whose first panel, at n padded to a
     multiple of it, fits one block's shared memory; 8 when none does
-    (then :func:`inverse_lu_big` raises)."""
+    (then :func:`inverse_lu_big` raises).  The ceilings at n padded to pw:
+    832 at pw 64, 1600 at 32, 2896 at 16, 6448 at 8."""
     pw = DEFAULT_PW
     while pw > 8:
         n_pad = -(-n // pw) * pw
@@ -64,6 +77,8 @@ def pick_pw(n: int) -> int:
 
 
 def _check_panel(n: int, pw: int) -> None:
+    """Raise ``ValueError`` when a panel over n rows at width pw needs more
+    shared memory than one block may use (:func:`panel_smem_bytes`)."""
     if panel_smem_bytes(n, pw) > MAX_SMEM:
         raise ValueError(
             f"lu_bign: the (n={n}, pw={pw}) panel needs "

@@ -59,8 +59,9 @@ WARM_RTOL = 2e-4
 # quad, logdet and α differ only in summation order
 LML_RTOL = 1e-5
 # K9 repeats its plain version's operations in order (IEEE division, no FMA
-# contraction): the factors, pivots and triangle inverses come out equal,
-# and so do the two blocked LUs' outputs, which run the same cuBLAS products
+# contraction): the factors, pivots and triangle inverses come out equal
+# (compared with torch.equal), and so do the two blocked LUs' outputs,
+# which run the same cuBLAS products
 K9_RTOL = 0.0
 
 _K1_LANES = ("newton_schulz_spd10_pallas", "newton_schulz_spd_pallas",
@@ -381,30 +382,28 @@ def test_new_kernels_reject_past_their_ceiling(cuda):
         cuda_gauss_jordan.gauss_jordan_cuda(torch.eye(193, device=cuda)[None])
 
 
-@pytest.mark.parametrize("n,pw", [(160, 64), (256, 32), (300, 16),
-                                  (512, 64)])
-def test_k9_matches_plain(cuda, n, pw):
-    """The blocked factor with K9 against the same routine with K9's plain
-    version (n = 160 at pw = 64 and 300 at 16 pad a ragged last panel);
-    member 3 has a zero column and alone comes out non-finite; the lanes
-    pass the gate on the κ = 500 class."""
-    a = make_nonsym_cond(7, n, 500.0, np.random.default_rng(900 + n))
-    a[3, :, 5] = 0.0
+def _check_k9(cuda, a, pw, bad, gate=True):
+    """The blocked factor with K9 against the same routine with K9's
+    plain version: the factor, perm, every panel's pivots, L11⁻¹ and U11⁻¹
+    bitwise equal on the finite members; member ``bad`` (a zero column)
+    alone non-finite; then the whole polished inverse of both, and the
+    gate on the finite members."""
+    batch, n = a.shape[0], a.shape[-1]
+    ok = np.arange(batch) != bad
     at = torch.tensor(a, device=cuda)
     n_pad = -(-n // pw) * pw
-    work = torch.eye(n_pad, device=cuda).repeat(7, 1, 1)
+    work = torch.eye(n_pad, device=cuda).repeat(batch, 1, 1)
     work[:, :n, :n] = at
     before = lu_bign.lu_panel_cuda.launches
     got = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_cuda)
     torch.cuda.synchronize()
     assert lu_bign.lu_panel_cuda.launches == before + n_pad // pw
     ref = lu_bign.lu_factor_big(work, pw, panel=lu_bign.lu_panel_plain)
-    ok = np.arange(7) != 3
     keep = torch.from_numpy(ok).to(cuda)
     lu, ref_lu = got[0].cpu().numpy(), ref[0].cpu().numpy()
     assert (np.isfinite(lu).all(axis=(1, 2)) == ok).all()
     assert (np.isfinite(ref_lu).all(axis=(1, 2)) == ok).all()
-    assert _rel(lu[ok], ref_lu[ok]) <= K9_RTOL
+    assert torch.equal(got[0][keep], ref[0][keep])
     assert torch.equal(got[1][keep], ref[1][keep])
     for part in (2, 3, 4):
         for x, r in zip(got[part], ref[part]):
@@ -413,7 +412,75 @@ def test_k9_matches_plain(cuda, n, pw):
     ref_x = lu_bign.inverse_lu_big_plain(at, pw=pw).cpu().numpy()
     assert (np.isfinite(x).all(axis=(1, 2)) == ok).all()
     assert _rel(x[ok], ref_x[ok]) <= K9_RTOL
-    assert identity_error_inf(a[ok], x[ok]) < 1e-4
+    if gate:
+        assert identity_error_inf(a[ok], x[ok]) < 1e-4
+
+
+@pytest.mark.parametrize("n,pw", [(160, 64), (256, 32), (300, 16),
+                                  (512, 64), (160, 8), (160, 24)])
+def test_k9_matches_plain(cuda, n, pw):
+    """K9 against its plain version (n = 160 at pw = 64 and 24, and 300 at
+    16, pad a ragged last panel; pw = 8, the width pick_pw takes from
+    n = 2897 on, and 24 run the kernel's generic instance); member 3 has a
+    zero column and alone comes out non-finite; the lanes pass the gate on
+    the κ = 500 class."""
+    a = make_nonsym_cond(7, n, 500.0, np.random.default_rng(900 + n))
+    a[3, :, 5] = 0.0
+    _check_k9(cuda, a, pw, 3)
+
+
+@pytest.mark.parametrize("n,pw", [(256, 64), (512, 32), (160, 16)])
+def test_k9_matches_plain_on_ties(cuda, n, pw):
+    """Small integers in [-2, 2], so exact ties between magnitudes decide
+    the pivots (the first maximum by position after the earlier swaps);
+    such draws are badly conditioned, so no gate."""
+    rng = np.random.default_rng(910 + n)
+    a = rng.integers(-2, 3, (7, n, n)).astype(np.float32)
+    a[3, :, 5] = 0.0
+    _check_k9(cuda, a, pw, 3, gate=False)
+
+
+def test_k9_matches_plain_at_1600x256(cuda):
+    """The big-n path's largest batch at its default panel width."""
+    a = make_square_batch(1600, 256, np.random.default_rng(920)
+                          ).astype(np.float32)
+    a[800, :, 100] = 0.0
+    _check_k9(cuda, a, lu_bign.pick_pw(256), 800, gate=False)
+
+
+def test_k9_matches_plain_at_its_ceiling(cuda):
+    """The largest n pw = 64 takes in the blocked factor (832) and one
+    first panel at the row ceiling of the source note (847)."""
+    a = make_nonsym_cond(3, 832, 500.0, np.random.default_rng(930))
+    a[1, :, 7] = 0.0
+    assert lu_bign.pick_pw(832) == 64
+    _check_k9(cuda, a, 64, 1)
+    work = torch.tensor(make_square_batch(2, 847, np.random.default_rng(931)),
+                        dtype=torch.float32, device=cuda)
+    perm = torch.arange(847, dtype=torch.int32, device=cuda).repeat(2, 1)
+    ref_work, ref_perm = work.clone(), perm.clone()
+    got = lu_bign.lu_panel_cuda(work, perm, 0, 64)
+    ref = lu_bign.lu_panel_plain(ref_work, ref_perm, 0, 64)
+    for x, r in zip((work, perm, *got), (ref_work, ref_perm, *ref)):
+        assert torch.equal(x, r)
+
+
+@pytest.mark.parametrize("pw", [16, 32, 64, 24])
+def test_k9_matches_plain_off_16_byte_rows(cuda, pw):
+    """Panels of a matrix whose rows are not 16-byte aligned (n = 203):
+    the templated widths take 4-byte loads, write-back and gather there,
+    as the generic instance (pw = 24) always does; each panel in turn, on
+    the same input as the plain version's, every output bitwise equal."""
+    n = 203
+    work = torch.tensor(make_square_batch(5, n, np.random.default_rng(940)),
+                        dtype=torch.float32, device=cuda)
+    perm = torch.arange(n, dtype=torch.int32, device=cuda).repeat(5, 1)
+    ref_work, ref_perm = work.clone(), perm.clone()
+    for k0 in range(0, n - pw + 1, pw):
+        got = lu_bign.lu_panel_cuda(work, perm, k0, pw)
+        ref = lu_bign.lu_panel_plain(ref_work, ref_perm, k0, pw)
+        for x, r in zip((work, perm, *got), (ref_work, ref_perm, *ref)):
+            assert torch.equal(x, r), k0
 
 
 @pytest.mark.parametrize("lane", ["lu_pallas", "lu_bign_pallas"])
@@ -430,10 +497,10 @@ def test_big_n_lanes_run_k9(cuda, lane):
 
 
 def test_k9_rejects_past_its_ceiling(cuda):
-    """The first panel must fit one block's shared memory (n = 1696 at
+    """The first panel must fit one block's shared memory (n = 1608 at
     pw = 32 does not); the wrapper also checks perm's type and layout."""
-    work = torch.zeros(1, 1696, 1696, device=cuda)
-    perm = torch.arange(1696, dtype=torch.int32, device=cuda)[None]
+    work = torch.zeros(1, 1608, 1608, device=cuda)
+    perm = torch.arange(1608, dtype=torch.int32, device=cuda)[None]
     with pytest.raises(ValueError, match="shared memory"):
         lu_bign.lu_panel_cuda(work, perm, 0, 32)
     with pytest.raises(ValueError, match="shared memory"):

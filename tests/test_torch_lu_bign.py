@@ -137,8 +137,32 @@ def test_pick_pw_rules():
                 assert (2 * wider > n or lu_bign.panel_smem_bytes(
                     w_pad, wider) > lu_bign.MAX_SMEM)
     assert lu_bign.pick_pw(16) == 8 and lu_bign.pick_pw(40) == 16
-    assert lu_bign.panel_smem_bytes(1695, 32) <= lu_bign.MAX_SMEM
-    assert lu_bign.panel_smem_bytes(1696, 32) > lu_bign.MAX_SMEM
+    # the ceilings of the kernel's source note, one row past each fails
+    for pw, ceiling in ((64, 847), (32, 1607), (16, 2899), (8, 6449)):
+        assert lu_bign.panel_smem_bytes(ceiling, pw) <= lu_bign.MAX_SMEM
+        assert lu_bign.panel_smem_bytes(ceiling + 1, pw) > lu_bign.MAX_SMEM
+    assert [lu_bign.panel_ld(pw) for pw in (64, 32, 16, 8)] == [68, 36, 20, 9]
+
+
+def _old_panel_smem_bytes(n, pw):
+    """K9's shared memory before the row-map design: the panel and the
+    two pw × pw triangles at an odd stride."""
+    ld = pw + 1 if pw % 2 == 0 else pw
+    return (n * ld + 2 * pw * ld + 8) * 4 + (8 + pw) * 4
+
+
+def test_every_n_the_old_ceilings_served_still_runs():
+    """The 4·odd stride moved the row ceilings (pw 32 from 1695 to 1607,
+    pw 16 from 3384 to 2899); pick_pw must still serve every n that the
+    old shared-memory rule served, at a narrower panel where needed."""
+    for n in range(16, 6500):
+        old = any(2 * pw <= n and _old_panel_smem_bytes(
+            -(-n // pw) * pw, pw) <= lu_bign.MAX_SMEM for pw in (64, 32, 16))
+        old |= _old_panel_smem_bytes(-(-n // 8) * 8, 8) <= lu_bign.MAX_SMEM
+        if old:
+            pw = lu_bign.pick_pw(n)
+            assert lu_bign.panel_smem_bytes(-(-n // pw) * pw,
+                                            pw) <= lu_bign.MAX_SMEM, n
 
 
 def test_past_the_ceiling_raises():
@@ -203,3 +227,162 @@ def test_nonsym_cond_copy_matches_chip_tests(args):
     ref = jax_chip_tests._make_nonsym_cond(*args, np.random.default_rng(61))
     assert got.dtype == ref.dtype == np.float32
     np.testing.assert_array_equal(got, ref)
+
+
+def _schedule_replay(work, perm, k0, pw):
+    """K9's schedule in plain PyTorch, updating ``work`` and ``perm`` in
+    place as :func:`lu_bign.lu_panel_plain` does: rows stay in their slots
+    and carry their positions (a pivot swap moves two positions); the
+    first maximum by position, NaN never winning; each column's step on
+    the rows past it, unfused mul then sub, blocked by 4 columns at the
+    templated widths 16, 32 and 64 (the block's columns at once, the
+    columns past it at the block's end: its pivot rows first, then the
+    other rows), on the whole row at once at any other width (the generic
+    instance); the swaps composed into one row
+    map (from the pivot slots and the slots that left the block) and
+    applied as one gather; the triangles by column, each element's terms
+    in the plain order from its warp's first column (the zero terms before
+    its own column change nothing).  Returns ``(ipiv, ldi, udi)``."""
+    batch, n = work.shape[0], work.shape[-1]
+    m = n - k0
+    templated = pw in (16, 32, 64)
+    b = torch.arange(batch)
+    pan = work[:, k0:, k0:k0 + pw].clone()  # slot s = local row s
+    pos = torch.arange(m).repeat(batch, 1)
+    piv_slot = torch.empty((batch, pw), dtype=torch.long)
+    slot_at = torch.arange(pw).repeat(batch, 1)  # the kernel's, j < pw
+    ipiv = torch.empty((batch, pw), dtype=torch.int32)
+    for j in range(pw):
+        mag = torch.nan_to_num(pan[:, :, j].abs(), nan=-1.0)
+        mag = torch.where(pos >= j, mag, torch.full_like(mag, -1.0))
+        best = mag.max(1).values
+        found = best >= 0
+        key = torch.where(mag == best[:, None], pos, m)
+        sj = (pos == j).int().argmax(1)
+        assert torch.equal(slot_at[:, j], sj)
+        sp = torch.where(found, key.argmin(1), sj)
+        p = torch.where(found, pos[b, sp], j)
+        inside = (p != j) & (p < pw)
+        slot_at[b[inside], p[inside]] = sj[inside]
+        piv_slot[:, j] = sp
+        ipiv[:, j] = (k0 + p).int()
+        pos[b, sj] = p
+        pos[b, sp] = j
+        # column j's step on the rest of its block of 4 columns (on the
+        # rest of the row at the generic instance's widths)
+        b4 = j - j % 4
+        prow = pan[b, sp]
+        l = pan[:, :, j] / prow[:, j:j + 1]
+        blk = slice(j + 1, b4 + 4 if templated else pw)
+        new = pan[:, :, blk] - l[:, :, None] * prow[:, None, blk]
+        past = pos > j
+        pan[:, :, blk] = torch.where(past[:, :, None], new, pan[:, :, blk])
+        pan[:, :, j] = torch.where(past, l, pan[:, :, j])
+        if templated and j % 4 == 3 and j + 1 < pw:
+            # the block's pivot rows past it, each taking the steps of the
+            # block's earlier columns in order; then the other rows past the
+            # block take its 4 steps in order
+            rest = slice(j + 1, pw)
+            sps = piv_slot[:, b4:j + 1]
+            for i in range(1, 4):
+                for h in range(i):
+                    pan[b, sps[:, i], rest] = (
+                        pan[b, sps[:, i], rest]
+                        - pan[b, sps[:, i], b4 + h][:, None]
+                        * pan[b, sps[:, h], rest])
+            for h in range(4):
+                new = (pan[:, :, rest] - pan[:, :, b4 + h, None]
+                       * pan[b, sps[:, h], rest][:, None, :])
+                pan[:, :, rest] = torch.where(past[:, :, None], new,
+                                              pan[:, :, rest])
+    # the row map: position i < pw from the pivot slots, a slot s < pw
+    # whose position ended at pw or past holds row s there
+    sigma = torch.arange(m).repeat(batch, 1)
+    sigma[:, :pw] = piv_slot
+    for s in range(pw):
+        left = pos[:, s] >= pw
+        sigma[b[left], pos[left, s]] = s
+    assert torch.equal(sigma, torch.argsort(pos, dim=1))
+    rows = k0 + sigma
+    outside = torch.cat([torch.arange(k0), torch.arange(k0 + pw, n)])
+    moved = work[b[:, None, None], rows[:, :, None], outside[None, None, :]]
+    work[:, k0:, :k0] = moved[:, :, :k0]
+    work[:, k0:, k0 + pw:] = moved[:, :, k0:]
+    perm[:, k0:] = perm[b[:, None], rows]
+    work[b[:, None], k0 + pos, k0:k0 + pw] = pan  # slot s to its position
+    d = work[:, k0:k0 + pw, k0:k0 + pw]
+    # the triangles by column: a warp runs its columns' terms from its
+    # smallest column down (L11^-1) or its largest up (U11^-1), 32 columns
+    # to a warp; each element takes them in the plain order
+    c = torch.arange(pw)
+    kmin, kmax = c & ~31, torch.clamp(c | 31, max=pw - 1)
+    rows = torch.arange(pw)[:, None]
+    y = torch.eye(pw).repeat(batch, 1, 1)
+    for k in range(pw):  # k ascending: y_i -= d[i][k] y_k for i > k
+        take = (rows > k) & (k >= kmin)
+        y = torch.where(take, y - d[:, :, k:k + 1] * y[:, k:k + 1, :], y)
+    z = torch.eye(pw).repeat(batch, 1, 1)
+    for kk in range(pw - 1, -1, -1):  # kk descending: divide, then the rest
+        z[:, kk, :] = z[:, kk, :] / d[:, kk, kk:kk + 1]
+        take = (rows < kk) & (kk <= kmax)
+        z = torch.where(take, z - d[:, :, kk:kk + 1] * z[:, kk:kk + 1, :], z)
+    return ipiv, y, z
+
+
+@pytest.mark.parametrize("pw", [16, 32, 64, 8, 24])
+@pytest.mark.parametrize("n", [None, 160, 320])
+def test_panel_schedule_is_bitwise_the_plain_order(pw, n):
+    """K9's schedule against :func:`lu_bign.lu_panel_plain`, every output
+    bitwise, at each panel of the blocked factor (n = 2·pw, 160 padded to
+    192 at pw = 64 and to 168 at 24, 320 padded to 336 at 24), at the
+    templated widths and at two of the generic instance's (8, the width
+    pick_pw takes from n = 2897 on, and 24): a general draw, a draw of
+    small integers
+    (exact ties decide the pivots), and one member with a zero column in
+    the first panel, which alone comes out non-finite."""
+    n = n or 2 * pw
+    n_pad = -(-n // pw) * pw
+    rng = np.random.default_rng(1000 * pw + n)
+    draws = [rng.standard_normal((3, n, n)),
+             rng.integers(-2, 3, (3, n, n)).astype(np.float64)]
+    single = rng.standard_normal((3, n, n))
+    single[1, :, 5] = 0.0
+    draws.append(single)
+    for a in draws:
+        work = torch.eye(n_pad).repeat(3, 1, 1)
+        work[:, :n, :n] = torch.tensor(a, dtype=torch.float32)
+        perm = torch.arange(n_pad, dtype=torch.int32).repeat(3, 1)
+        ref_work, ref_perm = work.clone(), perm.clone()
+        for k0 in range(0, n_pad, pw):
+            got = _schedule_replay(work, perm, k0, pw)
+            ref = lu_bign.lu_panel_plain(ref_work, ref_perm, k0, pw)
+            good = torch.isfinite(ref_work).all(dim=2).all(dim=1)
+            assert torch.equal(good, torch.isfinite(work).all(2).all(1))
+            for x, r in zip((work, perm, *got), (ref_work, ref_perm, *ref)):
+                assert torch.equal(x[good], r[good])
+            if good.all():
+                continue
+            # the zero column's member: replay and plain both diverge, on
+            # their own inputs from here on; keep the finite members' path
+            work[~good], perm[~good] = ref_work[~good], ref_perm[~good]
+        assert good.tolist() == [True, a is not single, True]
+
+
+def test_lu_probe_patches_match_the_kernel_source():
+    """The card probe of K9 (``bench/lu_probe.py``) builds its stamped
+    variant by patching ``csrc/lu_bign.cu``: every anchor of its patches
+    occurs as often as the probe expects, the occupancy reader's names are
+    the source's, and the probe refuses to run without a card."""
+    from cuda_matrix_inversion_tpu_torch.bench import lu_probe
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "lu_bign.cu").read_text()
+    for anchor, _, count in lu_probe.STAMPS:
+        assert src.count(anchor) == count, anchor
+    for name in ("panel_kernel_for(int pw)", "size_t panel_smem(int m",
+                 "constexpr int kThreads"):
+        assert src.count(name) == 1, name
+    assert len(lu_probe.STEPS) <= 15  # slot 15: the slowest thread's gather
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            lu_probe.main()
