@@ -10,11 +10,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 2. build: compiles the hand-written kernels (``csrc/*.cu``, sm_90a);
 3. kernels: each kernel (K1–K8, K10, K11) against its plain PyTorch
    version on the card, at n ∈ {8, 20, 64, 128} and batch ∈ {1, 7, 100}
-   (and 1600 at n = 128; K6 and K11 also at n = 72, K11 at n ∈ {20, 128}
-   with (lo, hi) ∈ {(0, 1), (1, 2), (3, 2)}, K7 at n = 192); K2–K7 and K10
-   with one singular or indefinite member per batch, K8 and K11 with one member
-   whose previous inverse holds a NaN, which alone must come out
-   non-finite; K9 in the blocked factor and the whole polished blocked LU
+   (and 1600 at n = 128; K1 and K8 also at n ∈ {1, 40, 72, 127}, K1 with
+   ``polish_highest=False`` at n ∈ {20, 72, 128}; K6 and K11 also at n =
+   72; K8 and K11 at n ∈ {20, 128} with (lo, hi) ∈ {(0, 1), (1, 2), (3,
+   2)}; K7 at n = 192); K2–K7 and K10 with one singular or indefinite
+   member per batch, K8 and K11 with one member whose previous inverse
+   holds a NaN, which alone must come out non-finite; K9 in the blocked factor and the whole polished blocked LU
    against the same routine on its plain version, n ∈ {160, 256, 512} ×
    batch ∈ {1, 7, 100}, 1600×256, 7×160 at pw = 8 and 24 (the generic
    instance) and draws of small integers (exact ties decide the pivots),
@@ -54,8 +55,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
-   ``solve`` method on cuSOLVER), K6 and K11 also beside their CUDA-core
-   times before their tensor-core redesign, K3, K4, K5 and K10 beside
+   ``solve`` method on cuSOLVER), K1, K8, K6 and K11 also beside their
+   CUDA-core times before their tensor-core redesign, K3, K4, K5 and K10 beside
    theirs before the panel-blocked factor and L⁻¹; the warm lanes against
    the cold ones, one fit step of each method, and one engine request NumPy
    in and out;
@@ -106,6 +107,20 @@ K6_ATOL = 1e-4
 # this script on an NVIDIA H100 80GB HBM3 at 700 W): kept beside the new
 # time so the kernel's row keeps its history.
 K6_BEFORE_MS = {"gp_100x128": 0.565, "gp_1600x128": 6.750}
+# K1 (each lane) and K8 (each precision) with every round on CUDA cores,
+# before they moved onto the tensor-core round loop they now share with K6
+# and K11, in ms (through their wrappers, bench/ns_probe.py, on an NVIDIA
+# H100 80GB HBM3 at 700 W).
+K1_BEFORE_MS = {
+    "newton_schulz_spd10_pallas": {"spd_100x128": 0.403,
+                                   "spd_1600x128": 4.893},
+    "newton_schulz_spd_pallas": {"spd_100x128": 0.528,
+                                 "spd_1600x128": 6.365},
+    "newton_schulz_pallas": {"spd_100x128": 0.851, "spd_1600x128": 10.691},
+    "newton_schulz_pan500_pallas": {"spd_100x128": 1.820,
+                                    "spd_1600x128": 23.007}}
+K8_BEFORE_MS = {"k8": {"spd_100x128": 0.195, "spd_1600x128": 2.298},
+                "k8_split3": {"spd_100x128": 0.349, "spd_1600x128": 4.207}}
 # K11 with its rounds emulating bf16 on CUDA cores, before it moved onto
 # K6's tensor-core round loop, in ms (the same script and card).
 K11_BEFORE_MS = {"gp_100x128": 0.221, "gp_1600x128": 2.794}
@@ -255,7 +270,6 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
     from cuda_matrix_inversion_tpu_torch.ops import (
         cuda_gauss_jordan,
         cuda_gp_lml,
-        newton_schulz,
     )
 
     bad = batch // 2 if batch > 1 else None
@@ -272,15 +286,7 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
         return
     spd = torch.tensor(make_spd_batch(batch, n, rng), dtype=torch.float32,
                        device=dev)
-    for key, a0, delta, split3 in (("k8", spd, WARM_DELTA, False),
-                                   ("k8_split3", gen, SPLIT3_DELTA, True)):
-        x0 = torch.linalg.inv(a0.double()).float()
-        if bad is not None:
-            x0[bad, 0, 0] = float("nan")
-        a = _drift(a0, delta, seed, not split3, torch)
-        _compare(key, newton_schulz.ns_refine_cuda,
-                 newton_schulz.ns_refine_plain, (a, x0, 2, 1, split3), bad,
-                 WARM_RTOL, err, torch)
+    _k8_vs_plain(spd, gen, bad, seed, err, torch)
     g = make_gp_batch(batch, n, rng)
     t = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
          for k in "abcde"}
@@ -293,6 +299,52 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
                  cuda_gp_lml.lml_quad_logdet_plain, (b_bad, c, d, emit_w),
                  bad, LML_RTOL, err, torch)
     _k11_vs_plain(t, bad, seed, err, torch)
+
+
+def _k1_vs_plain(a, sched, what, err, torch):
+    """K1 against its plain version on ``a``: the same members non-finite
+    in both (a schedule can diverge on a member outside its domain: the pan
+    lane on a 1×1 member whose bf16-rounded A·X₀ exceeds 2/c), and the
+    others max-norm relative within K1_RTOL; records the worst abs and rel
+    error and the count of non-finite members in ``err``."""
+    from cuda_matrix_inversion_tpu_torch.ops import newton_schulz
+
+    x = newton_schulz.ns_iterate_cuda(a, sched)
+    torch.cuda.synchronize()
+    ref = newton_schulz.ns_iterate_plain(a, sched, bf16_products=True)
+    ok = torch.isfinite(ref).flatten(1).all(dim=1)
+    if not torch.equal(torch.isfinite(x).flatten(1).all(dim=1), ok):
+        raise AssertionError(f"K1 {what}: non-finite members differ from "
+                             f"the plain version's")
+    err["nonfinite_members"] = err.get("nonfinite_members", 0) + int(
+        (~ok).sum())
+    if not bool(ok.any()):
+        return
+    x, ref = x[ok], ref[ok]
+    rel = _rel(x, ref)
+    err["abs"] = max(err["abs"], float((x - ref).abs().max()))
+    err["rel"] = max(err["rel"], rel)
+    if not rel <= K1_RTOL:
+        raise AssertionError(f"K1 {what}: kernel vs plain {rel:.3e} > "
+                             f"{K1_RTOL:g}")
+
+
+def _k8_vs_plain(spd, gen, bad, seed, err, torch, lo=2, hi=1):
+    """K8 at ``lo`` + ``hi`` rounds against its plain version: bf16 on the
+    SPD batch drifted by WARM_DELTA, split3 on the general batch drifted by
+    SPLIT3_DELTA, each from its exact inverse; member ``bad`` (if any)
+    starts from an X0 holding a NaN and alone must come out non-finite."""
+    from cuda_matrix_inversion_tpu_torch.ops import newton_schulz
+
+    for key, a0, delta, split3 in (("k8", spd, WARM_DELTA, False),
+                                   ("k8_split3", gen, SPLIT3_DELTA, True)):
+        x0 = torch.linalg.inv(a0.double()).float()
+        if bad is not None:
+            x0[bad, 0, 0] = float("nan")
+        a = _drift(a0, delta, seed, not split3, torch)
+        _compare(key, newton_schulz.ns_refine_cuda,
+                 newton_schulz.ns_refine_plain, (a, x0, lo, hi, split3), bad,
+                 WARM_RTOL, err, torch)
 
 
 def _k11_vs_plain(g, bad, seed, err, torch, lo=2, hi=1):
@@ -544,8 +596,8 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
             timing[(key, case)], library[(key, case)] = (ms, plain_ms), inv_ms
             show(key.upper(), case if not split3 else
                  case.replace("spd", "square"), kernel_ms=ms,
-                 plain_ms=plain_ms, warm_lane_ms=warm_ms,
-                 cold_lane_ms=cold_ms, cold_lane=cold_kw,
+                 plain_ms=plain_ms, k8_before_ms=K8_BEFORE_MS[key][case],
+                 warm_lane_ms=warm_ms, cold_lane_ms=cold_ms, cold_lane=cold_kw,
                  torch_linalg_inv_ms=inv_ms)
 
         b, c, d = (torch.tensor(x, device=dev)
@@ -1059,17 +1111,8 @@ def main() -> int:
                            dtype=torch.float32, device=dev)
         for lane in k1_lanes:
             sched = LANES[lane]["schedule"]
-            a = gen if sched.split3 else spd
-            x = newton_schulz.ns_iterate_cuda(a, sched)
-            torch.cuda.synchronize()
-            ref = newton_schulz.ns_iterate_plain(a, sched, bf16_products=True)
-            rel = _rel(x, ref)
-            k1_err["abs"] = max(k1_err["abs"], float((x - ref).abs().max()))
-            k1_err["rel"] = max(k1_err["rel"], rel)
-            if not rel <= K1_RTOL:
-                raise AssertionError(
-                    f"K1 {lane} {batch}x{n}: kernel vs plain {rel:.3e} > "
-                    f"{K1_RTOL:g}")
+            _k1_vs_plain(gen if sched.split3 else spd, sched,
+                         f"{lane} {batch}x{n}", k1_err, torch)
         permuted = gen + n * torch.eye(n, device=dev)[
             torch.tensor(rng.permutation(n), device=dev)]
         singular = gen.clone()
@@ -1170,6 +1213,39 @@ def main() -> int:
             _k11_vs_plain({k: torch.tensor(g[k], dtype=torch.float32,
                                            device=dev) for k in "abcde"},
                           3, 7000 + n, new_err, torch, lo=lo, hi=hi)
+    # K1 and K8 where n is no multiple of 16 (zero padding in the tiles; n
+    # = 1 in NP = 16, where two warps own tiles), K1 with every polish
+    # residual the split (polish_highest=False), K8 off its default
+    # schedule with a NaN member
+    for n in (1, 40, 72, 127):
+        for batch in (1, 7, 100):
+            rng = np.random.default_rng(2000 * n + batch)
+            spd = torch.tensor(make_spd_batch(batch, n, rng),
+                               dtype=torch.float32, device=dev)
+            gen = torch.tensor(make_square_batch(batch, n, rng),
+                               dtype=torch.float32, device=dev)
+            for lane in k1_lanes:
+                sched = LANES[lane]["schedule"]
+                _k1_vs_plain(gen if sched.split3 else spd, sched,
+                             f"{lane} {batch}x{n}", k1_err, torch)
+            _k8_vs_plain(spd, gen, batch // 2 if batch > 1 else None,
+                         2000 * n + batch, new_err, torch)
+    for n in (20, 72, 128):
+        spd = torch.tensor(make_spd_batch(7, n, np.random.default_rng(n)),
+                           dtype=torch.float32, device=dev)
+        for init in ("spd", "pan"):
+            _k1_vs_plain(spd, newton_schulz.resolve_schedule(
+                init=init, polish_highest=False),
+                f"{init} polish_highest=False 7x{n}", k1_err, torch)
+    for lo, hi in ((0, 1), (1, 2), (3, 2)):
+        for n in (20, 128):
+            rng = np.random.default_rng(300 * lo + hi + n)
+            spd = torch.tensor(make_spd_batch(7, n, rng),
+                               dtype=torch.float32, device=dev)
+            gen = torch.tensor(make_square_batch(7, n, rng),
+                               dtype=torch.float32, device=dev)
+            _k8_vs_plain(spd, gen, 3, 8000 + n, new_err, torch, lo=lo,
+                         hi=hi)
     for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
         _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
                               dev, new_err, torch, k7_only=True)
@@ -1367,6 +1443,7 @@ def main() -> int:
             library[("k1", lane, case)] = linalg_ms
             print(json.dumps({"timing": "K1", "lane": lane, "case": case,
                               "kernel_ms": ms, "plain_ms": plain_ms,
+                              "k1_before_ms": K1_BEFORE_MS[lane][case],
                               "torch_linalg_inv_ms": linalg_ms, **card}),
                   flush=True)
         ms = _median_ms(lambda: cuda_lu.lu_inverse_cuda(a), torch)

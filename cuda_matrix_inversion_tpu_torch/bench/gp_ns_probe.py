@@ -20,7 +20,9 @@ and 1600×128, K11 at its default 2 + 1 rounds):
 - ``clock_split``: the shipped kernel with thread 0 of block 0 stamping
   ``clock64`` and ``%globaltimer`` after each phase (each stamp follows a
   block barrier); the phases in µs, median of 5 launches, at the SM clock
-  the two timers give over the block.
+  the two timers give over the block.  The round loop's stamps
+  (:data:`LOOP_STAMPS`, in ``ns_mma_rounds.cuh``) serve
+  ``bench/ns_probe.py`` too; :data:`PHASES` names them.
 - ``k6_baseline`` (when ``BASELINE_CSRC``, another checkout's ``csrc/``, is
   given): K6 of that checkout against K6 of this one on the same inputs,
   whether they give the same bits, and each timed in the order baseline,
@@ -73,54 +75,87 @@ STAGED = """  gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
 """
 
 
-# The clock split's patches of gp.cu: (anchor, replacement, occurrences).
-_STAMP_DEFS = """#include "ns_mma.cuh"
+# The clock split's bookkeeping, patched into ns_common.cuh (which every
+# Newton-Schulz kernel includes first): thread 0 of block 0 records
+# (clock64, globaltimer, id) at each ns_stamp(id); id 0 restarts the
+# record.  PHASES names the interval that ends at stamp id k.
+STAMP_DEFS = """#pragma once
 
-__device__ unsigned long long k11_stamps[2][16];
-__device__ int k11_next;
-__device__ __forceinline__ void k11_stamp() {
-  if (blockIdx.x == 0 && threadIdx.x == 0 && k11_next < 16) {
-    unsigned long long g;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
-    k11_stamps[0][k11_next] = clock64();
-    k11_stamps[1][k11_next++] = g;
+static __device__ unsigned long long ns_probe_t[3][48];
+static __device__ int ns_probe_next;
+__device__ __forceinline__ void ns_stamp(int id) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (id == 0) ns_probe_next = 0;
+    const int k = ns_probe_next;
+    if (k < 48) {
+      unsigned long long g;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+      ns_probe_t[0][k] = clock64();
+      ns_probe_t[1][k] = g;
+      ns_probe_t[2][k] = id;
+      ns_probe_next = k + 1;
+    }
   }
 }
 """
-STAMPS = [
-    ('#include "ns_mma.cuh"\n', _STAMP_DEFS, 1),
-    ("  publish(0);\n", "  publish(0);\n  k11_stamp();\n", 1),
-    ("    publish(r + 1);\n  }\n",
-     "    publish(r + 1);\n    k11_stamp();\n  }\n", 2),
-    ("      store_tile_bf16(acc, sT, LDB, w);\n    }\n    __syncthreads();\n"
-     "    if (w.active) {\n",
-     "      store_tile_bf16(acc, sT, LDB, w);\n    }\n    __syncthreads();\n"
-     "    k11_stamp();\n    if (w.active) {\n", 1),
-    ("  const float* xs = x0 + sys * n * n;\n",
-     "  const float* xs = x0 + sys * n * n;\n"
-     "  if (blockIdx.x == 0 && threadIdx.x == 0) k11_next = 0;\n"
-     "  k11_stamp();\n", 1),
-    ("  gp_ns_stage_k<M>(sm, c + sys * n, n);\n\n  ns_mma_rounds",
-     "  gp_ns_stage_k<M>(sm, c + sys * n, n);\n  k11_stamp();\n\n"
-     "  ns_mma_rounds", 1),
-    ("  ns_gp_epilogue<M>(sm.Xf, sm.v, n, e[sys], out + 2 * sys, red);\n"
-     "  float* ks",
-     "  ns_gp_epilogue<M>(sm.Xf, sm.v, n, e[sys], out + 2 * sys, red);\n"
-     "  k11_stamp();\n  float* ks", 1),
-    ("    ks[x] = sm.Xf[(x / n) * LD + x % n];\n}\n",
-     "    ks[x] = sm.Xf[(x / n) * LD + x % n];\n  __syncthreads();\n"
-     "  k11_stamp();\n}\n", 1),
-]
 STAMP_READER = """
-extern "C" int cmi_k11_stamps(unsigned long long* host) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(host, k11_stamps, sizeof(k11_stamps)));
+extern "C" int cmi_ns_stamps(unsigned long long* host, int* count) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, ns_probe_t, sizeof(ns_probe_t));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(count, ns_probe_next, sizeof(int));
+  return static_cast<int>(err);
 }
 """
-# Phases between consecutive stamps at lo = 2, hi = 1.
-PHASES = ("load B, stage K (X0 loads issued)", "X0 arrives, publish X",
-          "lo round 1", "lo round 2", "fp32 residual R = I - K X",
-          "update X + X R, publish fp32 X", "epilogue", "kinv write")
+PHASES = {1: "load and stage A (K8, K11: X0's loads issued)",
+          2: "seed or X0 into X, publish X",
+          3: "lo round: T = 2cI - c^2 AX", 4: "lo round: X = XT, publish X",
+          5: "hi round: R = I - AX", 6: "hi round: X = X + XR, publish X",
+          7: "write X", 8: "epilogue (mean, var)", 9: "write K^-1"}
+# The stamps of the shared tensor-core round loop, (anchor, replacement,
+# count) a file.
+LOOP_STAMPS = {
+    "ns_common.cuh": [("#pragma once\n", STAMP_DEFS, 1)],
+    "ns_mma_rounds.cuh": [
+        ("  publish(0);\n", "  publish(0);\n  ns_stamp(2);\n", 1),
+        ("    __syncthreads();\n    if (w.active) {\n      if constexpr (SPLIT3)\n"
+         "        mma_split3<NP>(xm,",
+         "    __syncthreads();\n    ns_stamp(3);\n    if (w.active) {\n"
+         "      if constexpr (SPLIT3)\n        mma_split3<NP>(xm,", 1),
+        ("        mma_tiles<NP>(xm, sXh, sT, w);\n    }\n    publish(r + 1);\n",
+         "        mma_tiles<NP>(xm, sXh, sT, w);\n    }\n    publish(r + 1);\n"
+         "    ns_stamp(4);\n", 1),
+        ("      store_tile_bf16(acc, sT, LDB, w);\n    }\n    __syncthreads();\n"
+         "    if (w.active) {\n",
+         "      store_tile_bf16(acc, sT, LDB, w);\n    }\n    __syncthreads();\n"
+         "    ns_stamp(5);\n    if (w.active) {\n", 1),
+        ("            xm[m][j][q] = __fadd_rn(xm[m][j][q], acc[m][j][q]);\n    }\n"
+         "    publish(r + 1);\n",
+         "            xm[m][j][q] = __fadd_rn(xm[m][j][q], acc[m][j][q]);\n    }\n"
+         "    publish(r + 1);\n    ns_stamp(6);\n", 1),
+    ],
+}
+# K11's clock split: the loop's stamps and K11's own in gp.cu.
+STAMPS = {**LOOP_STAMPS, "gp.cu": [
+    ("  const float* xs = x0 + sys * n * n;\n",
+     "  const float* xs = x0 + sys * n * n;\n  ns_stamp(0);\n", 1),
+    ("  gp_ns_stage_k<M>(sm, c + sys * n, n);\n\n  ns_mma_rounds",
+     "  gp_ns_stage_k<M>(sm, c + sys * n, n);\n  ns_stamp(1);\n\n"
+     "  ns_mma_rounds", 1),
+    ("  ns_gp_epilogue<M>(sm.Xf, sm.rest, n, e[sys], out + 2 * sys, red);\n"
+     "  float* ks",
+     "  ns_gp_epilogue<M>(sm.Xf, sm.rest, n, e[sys], out + 2 * sys, red);\n"
+     "  ns_stamp(8);\n  float* ks", 1),
+    ("    ks[x] = sm.Xf[(x / n) * LD + x % n];\n}\n",
+     "    ks[x] = sm.Xf[(x / n) * LD + x % n];\n  __syncthreads();\n"
+     "  ns_stamp(9);\n}\n", 1),
+]}
+
+
+def stamped_edits(stamps: dict, reader_unit: str) -> dict:
+    """``variant_library`` edits for a clock split: ``stamps``' patches,
+    with the stamp reader appended to ``reader_unit``."""
+    return {f: (p, STAMP_READER if f == reader_unit else "")
+            for f, p in stamps.items()}
 
 
 def variant_library(name: str, edits=None, src: Path = cuda_build.CSRC_DIR,
@@ -218,27 +253,38 @@ def median_ms(fn, calls: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _clock_split(cdll, run) -> dict:
-    """Median over 5 launches of each phase of block 0, in µs."""
-    fn = cdll.cmi_k11_stamps
-    fn.argtypes = [ctypes.c_void_p]
+def clock_split(cdll, run) -> dict:
+    """Block 0's intervals between stamps, median over 5 launches of
+    ``run``, in µs at the SM clock the two timers give: in order, and
+    summed by phase."""
+    fn = cdll.cmi_ns_stamps
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stamps = (ctypes.c_ulonglong * 32)()
-    phases, ghz = [], []
+    stamps = (ctypes.c_ulonglong * (3 * 48))()
+    count = ctypes.c_int()
+    seqs, ghz = [], []
     for _ in range(5):
         run()
         torch.cuda.synchronize()
-        cuda_build.check(fn(ctypes.cast(stamps, ctypes.c_void_p)),
-                         "k11 stamps")
-        clk = np.array(stamps[:len(PHASES) + 1], dtype=np.float64)
-        ns = np.array(stamps[16:17 + len(PHASES)], dtype=np.float64)
+        cuda_build.check(fn(ctypes.cast(stamps, ctypes.c_void_p),
+                            ctypes.byref(count)), "ns stamps")
+        c = min(count.value, 48)
+        clk = np.array(stamps[:c], dtype=np.float64)
+        ns = np.array(stamps[48:48 + c], dtype=np.float64)
         rate = (clk[-1] - clk[0]) / (ns[-1] - ns[0])  # clocks per ns
         ghz.append(rate)
-        phases.append(np.diff(clk) / rate / 1e3)
-    med = np.median(np.array(phases), axis=0)
+        seqs.append((list(stamps[96:96 + c]), np.diff(clk) / rate / 1e3))
+    ids = seqs[0][0]
+    if any(s[0] != ids for s in seqs):
+        raise RuntimeError("the stamps differ between launches")
+    med = np.median(np.array([s[1] for s in seqs]), axis=0)
+    by_phase = {}
+    for k, us in zip(ids[1:], med):
+        by_phase[PHASES[k]] = by_phase.get(PHASES[k], 0.0) + float(us)
     return {"sm_clock_ghz": float(np.median(ghz)),
-            "block_us": float(med.sum()),
-            "phases_us": dict(zip(PHASES, map(float, med)))}
+            "block_us": float(med.sum()), "by_phase_us": by_phase,
+            "sequence_us": [[PHASES[k], float(us)]
+                            for k, us in zip(ids[1:], med)]}
 
 
 def main() -> int:
@@ -248,7 +294,7 @@ def main() -> int:
     libs = {"direct": cuda_build.library(),
             "staged": variant_library(
                 "staged", {"gp.cu": ([(DIRECT, STAGED, 1)], "")})}
-    stamped = variant_library("stamped", {"gp.cu": (STAMPS, STAMP_READER)})
+    stamped = variant_library("stamped", stamped_edits(STAMPS, "gp.cu"))
     k6_libs = None
     if len(sys.argv) > 1:
         k6_libs = {"baseline": variant_library("baseline",
@@ -289,8 +335,8 @@ def main() -> int:
                           "direct_through_wrapper_ms": wrapper_ms,
                           "card": card}), flush=True)
         print(json.dumps({"probe": "clock_split", "case": case,
-                          **_clock_split(stamped, _launcher(stamped, flat,
-                                                            x0)),
+                          **clock_split(stamped, _launcher(stamped, flat,
+                                                           x0)),
                           "card": card}), flush=True)
         if k6_libs:
             k6 = {k: _k6_launcher(v, flat) for k, v in k6_libs.items()}

@@ -1,6 +1,6 @@
 // Asynchronous global -> shared copies on sm_90a (cp.async), shared by the
-// kernels that stage device memory in shared memory (gp.cu through
-// ns_mma.cuh, lu_bign.cu).
+// kernels that stage device memory in shared memory (newton_schulz.cu and
+// gp.cu through ns_mma.cuh, lu_bign.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -14,18 +14,20 @@
 //
 // K6 replaces ops/pallas_gp.py::_gp_ns_kernel (pallas_call in
 // gp_mean_variance_fused_ns).  It loads B with asynchronous copies, stages K,
-// seeds X1 = 2sI - s^2 K (ns_common.cuh::ns_seed's arithmetic) and runs the
+// seeds X1 = 2sI - s^2 K (K1's spd seed, s = 1/||K||_inf) and runs the
 // spd schedule the host resolves (resolve_schedule(init="spd"): 6 lo rounds
 // at mu_min 0.01, then 2 polish rounds), then x = [d a] X in fp32,
 // mean = x_d . a and var = e - x_a . a.  Its 16 dependent products are 18
 // n^3 passes: 17 in bf16 (the 12 of the lo rounds, the 3 of the split
 // residual of the first polish round, and both polish updates X + X R) and
-// one in fp32.  The bf16 passes run on the tensor cores (ns_mma.cuh:
+// one in fp32.  The rounds are the loop K1 and K8 share
+// (ns_mma_rounds.cuh): the bf16 passes on the tensor cores (ns_mma.cuh:
 // mma.sync m16n8k16 bf16 -> fp32 from ldmatrix fragments), where a
-// bf16 x bf16 product is exact in fp32, so they compute what K1's CUDA-core
-// emulation computes up to the order of the sums.  The last residual
-// R = I - K X is true fp32 on CUDA cores (ns_common.cuh::product<M, kF32>).
-// Never TF32: the schedule's scalars were calibrated for bf16 rounding.
+// bf16 x bf16 product is exact in fp32, so they compute what the plain
+// version's one-pass products compute up to the order of the sums; the
+// last residual R = I - K X true fp32 on CUDA cores
+// (ns_common.cuh::product).  Never TF32: the schedule's scalars
+// were calibrated for bf16 rounding.
 //
 // What bounds K5 and K6 on the card: not bytes (one read of B, 6.55 MB at
 // 100 x 128 x 128).  K5 is the factor's chain (cholesky_common.cuh: one
@@ -41,23 +43,21 @@
 // registers from the load of B to the two scalars.  K5's two substitutions
 // run on two warps with no block barrier, and its dot products are warp
 // reductions.  K6 keeps the fp32 master X in the warps' accumulator
-// fragments (each warp owns a 32 x 64 tile of every product at n = 128)
-// and publishes bf16(X) to shared memory once a round, where it feeds both
-// K X and X T; T and R go to shared memory as bf16, since their next
-// product rounds them anyway.  K stays in shared memory in fp32 for the
-// fp32 residual and the split's lo part, and as a bf16 copy for the
-// one-pass products.  Shared memory at n = 128: K 66 KB, four bf16 tiles
-// (K, X, T or R, X's lo part) 34 KB each, with X in fp32 over the last two
-// where needed: 201.5 KB, one block an SM.  Several systems per block and
-// wgmma are later work.
+// fragments and publishes bf16(X) to shared memory once a round
+// (ns_mma_rounds.cuh); K stays in shared memory in fp32 for the fp32
+// residual and the split's lo part, and as a bf16 copy for the one-pass
+// products.  Shared memory at n = 128: K 66 KB, four bf16 tiles (K, X,
+// T or R, X's lo part) 34 KB each, with X in fp32 over the last two where
+// needed, then [d a]: 201.5 KB, one block an SM.  Several systems per
+// block and wgmma are later work.
 //
 // K11 replaces ops/pallas_gp.py::_gp_warm_kernel (pallas_call in
 // gp_mean_variance_fused_warm): K6 with X loaded from the previous
 // timestep's K^-1 instead of seeded, K8's unscaled rounds (2 + 1 by
 // default: 2c = 2, c^2 = 1), the same fp32 epilogue, and the refined X
 // written back so the caller can chain it into the next timestep.  It runs
-// K6's staging and K6's round loop (ns_mma_rounds: bf16 products on the
-// tensor cores, the last residual in fp32 on CUDA cores) in K6's shared
+// K6's staging and the shared round loop (ns_mma_rounds.cuh: bf16 products
+// on the tensor cores, the last residual in fp32 on CUDA cores) in K6's shared
 // memory, 201.5 KB at n = 128, one block an SM; X0 goes from device memory
 // straight into the accumulator fragments while B's copies are in flight.
 // Device memory sees B and X0 read and X written once; the chain of
@@ -80,7 +80,7 @@
 
 #include "cholesky_common.cuh"
 #include "ns_common.cuh"
-#include "ns_mma.cuh"
+#include "ns_mma_rounds.cuh"
 
 namespace {
 
@@ -95,14 +95,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int w = 1; w < kThreads / 32; ++w) r += red[w];
   __syncthreads();
   return r;
-}
-
-// K[i][j] = B[i][j] + (i == j ? c[i] : 0), as the plain version's
-// b + eye * c rounds it.
-__device__ __forceinline__ float stage_k(const float* b, const float* c,
-                                         int i, int j, int n) {
-  const float v = b[i * n + j];
-  return i == j ? __fadd_rn(v, c[i]) : v;
 }
 
 __global__ void __launch_bounds__(kThreads, 3)
@@ -121,7 +113,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
   chol_load(bs, K, n, ld, [=](int i, int j, float v) {
-    return i == j ? __fadd_rn(v, cs[i]) : v;  // as stage_k rounds it
+    return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
   });
   for (int i = tid; i < n; i += kThreads) {
     Y[i] = d[sys * n + i];
@@ -186,172 +178,29 @@ __device__ __forceinline__ void ns_gp_epilogue(const float* sX,
   }
 }
 
-// K6 and K11's shared memory (NP = 16M, LD = NP + 1, LDB = NP + 8): K, K in
-// fp32 (NP x LD: the fp32 residual and the split's lo part read it); then
-// bf16 tiles (NP x LDB): Kh, bf16(K); Xh, bf16(X); T, T or R; Xl, the
-// split's lo part of X; Xf, X in fp32 (NP x LD) over T and Xl, written only
-// where neither is live; then v = [d a].  B is copied in over Xh .. Xl
-// (stage) before K is staged from it.  201.5 KB at n = 128.
-template <int M>
-struct GpNsSmem {
-  static constexpr int NP = 16 * M;
-  static constexpr int LD = NP + 1;
-  static constexpr int LDB = MmaGeometry<NP>::kLd;
-  float* K;
-  bf16* Kh;
-  bf16* Xh;
-  bf16* T;
-  bf16* Xl;
-  float* Xf;
-  float* v;
-  float* stage;
-  __device__ explicit GpNsSmem(unsigned char* base)
-      : K(reinterpret_cast<float*>(base)),
-        Kh(reinterpret_cast<bf16*>(K + NP * LD)),
-        Xh(Kh + NP * LDB),
-        T(Xh + NP * LDB),
-        Xl(T + NP * LDB),
-        Xf(reinterpret_cast<float*>(T)),
-        v(reinterpret_cast<float*>(Xl + NP * LDB)),
-        stage(reinterpret_cast<float*>(Xh)) {}
-};
-
 // Start reading system `sys`: B with asynchronous copies into sm.stage, and
-// v = [d a].  gp_ns_stage_k waits for the copies.
+// [d a] into sm.rest.  gp_ns_stage_k waits for the copies.
 template <int M>
-__device__ __forceinline__ void gp_ns_load_b(const GpNsSmem<M>& sm,
+__device__ __forceinline__ void gp_ns_load_b(const NsSmem<M>& sm,
                                              const float* a, const float* bs,
                                              const float* d, size_t sys,
                                              int n) {
-  const int tid = threadIdx.x;
-  const int nn = n * n;
-  if ((nn & 3) == 0 && (reinterpret_cast<uintptr_t>(bs) & 15) == 0) {
-    for (int x = 4 * tid; x < nn; x += 4 * kThreads)
-      cp_async16(sm.stage + x, bs + x);
-  } else {
-    for (int x = tid; x < nn; x += kThreads) cp_async4(sm.stage + x, bs + x);
-  }
-  for (int i = tid; i < n; i += kThreads) {
-    sm.v[i] = d[sys * n + i];
-    sm.v[n + i] = a[sys * n + i];
+  ns_load(sm, bs, n);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    sm.rest[i] = d[sys * n + i];
+    sm.rest[n + i] = a[sys * n + i];
   }
 }
 
-// K = B + diag(c), zero padded to NP, in fp32 (sm.K) and bf16 (sm.Kh), once
-// B has arrived; the block has passed a barrier when it returns.
+// K = B + diag(c), zero padded to NP, in fp32 (sm.A) and bf16 (sm.Ah), once
+// B has arrived, with K[i][i] = B[i][i] + c[i] as the plain version's
+// b + eye * c rounds it; the block has passed a barrier when it returns.
 template <int M>
-__device__ __forceinline__ void gp_ns_stage_k(const GpNsSmem<M>& sm,
+__device__ __forceinline__ void gp_ns_stage_k(const NsSmem<M>& sm,
                                               const float* cs, int n) {
-  constexpr int NP = GpNsSmem<M>::NP;
-  cp_async_wait_all();
-  __syncthreads();
-  for (int x = threadIdx.x; x < NP * NP; x += kThreads) {
-    const int i = x / NP, j = x % NP;
-    const float k = (i < n && j < n) ? stage_k(sm.stage, cs, i, j, n) : 0.f;
-    sm.K[i * GpNsSmem<M>::LD + j] = k;
-    sm.Kh[i * GpNsSmem<M>::LDB + j] = __float2bfloat16_rn(k);
-  }
-  __syncthreads();
-}
-
-// The lo and hi rounds of K6 and K11 on the tensor cores, from the fp32
-// master X in the warps' accumulator fragments xm (zero in the padding).
-// On entry sm.K and sm.Kh hold K and the block has passed a barrier since;
-// on return sm.Xf holds the refined X in fp32 and the block has passed a
-// barrier since it was written.  A lo round is T = 2c I - c^2 (K X),
-// X = X T; a hi round R = I - K X (the 3-pass split, or fp32 on CUDA cores
-// on the last round when prm.polish_highest), X = X + X R.
-template <int M>
-__device__ __forceinline__ void ns_mma_rounds(
-    float (&xm)[MmaGeometry<16 * M>::kMT][MmaGeometry<16 * M>::kNT][4],
-    const GpNsSmem<M>& sm, const NSParams& prm, WarpTile w) {
-  constexpr int NP = 16 * M;
-  constexpr int LD = NP + 1;
-  using G = MmaGeometry<NP>;
-  constexpr int LDB = G::kLd;
-  constexpr int MT = G::kMT;
-  constexpr int NT = G::kNT;
-  const float* sK = sm.K;
-  const bf16* sKh = sm.Kh;
-  bf16* sXh = sm.Xh;
-  bf16* sT = sm.T;
-  bf16* sXl = sm.Xl;
-  float* sXf = sm.Xf;
-  const int n = prm.n;
-  const int tid = threadIdx.x;
-
-  // Publish X for round `r` (r = lo + hi: the epilogue): bf16(X) for every
-  // product, its lo part before a split residual, fp32 before the fp32
-  // residual and the epilogue.  The first barrier ends every read of the
-  // buffers written here.
-  const int rounds = prm.lo + prm.hi;
-  auto f32_round = [&](int r) {
-    return r == rounds || (r == rounds - 1 && prm.polish_highest);
-  };
-  auto publish = [&](int r) {
-    __syncthreads();
-    if (w.active) {
-      if (r < rounds) store_tile_bf16(xm, sXh, LDB, w);
-      if (r >= prm.lo && !f32_round(r))
-        store_tile_bf16<MT, NT, true>(xm, sXl, LDB, w);
-      if (f32_round(r)) store_tile_f32(xm, sXf, LD, w);
-    }
-    __syncthreads();
-  };
-  publish(0);
-
-  float acc[MT][NT][4];
-  for (int r = 0; r < prm.lo; ++r) {
-    // T = 2c I - c^2 (K X), then X = X T (the fp32 master is replaced)
-    const float tc = prm.two_c[r], c2 = prm.c_sq[r];
-    if (w.active) {
-      mma_tiles<NP>(acc, sKh, sXh, w);
-      tile_for_each(acc, w, [&](int i, int j, float& v) {
-        v = (i < n && j < n) ? __fsub_rn(i == j ? tc : 0.f, __fmul_rn(c2, v))
-                             : 0.f;
-      });
-      store_tile_bf16(acc, sT, LDB, w);
-    }
-    __syncthreads();
-    if (w.active) mma_tiles<NP>(xm, sXh, sT, w);
-    publish(r + 1);
-  }
-  for (int r = prm.lo; r < rounds; ++r) {
-    // R = I - K X (the 3-pass split, or fp32 on CUDA cores), X = X + X R
-    if (f32_round(r)) {
-      float accf[M][M];
-      const int tx = tid % 16, ty = tid / 16;
-      product<M, kF32>(sK, sXf, n, ty, tx, accf);
-      __syncthreads();  // sXf lies under sT
-#pragma unroll
-      for (int p = 0; p < M; ++p)
-#pragma unroll
-        for (int q = 0; q < M; ++q) {
-          const int i = ty + 16 * p, j = tx + 16 * q;
-          sT[i * LDB + j] = __float2bfloat16_rn(
-              (i < n && j < n) ? __fsub_rn(i == j ? 1.f : 0.f, accf[p][q])
-                               : 0.f);
-        }
-    } else if (w.active) {
-      mma_split3<NP>(acc, sKh, sK, LD, sXh, sXl, w);
-      tile_for_each(acc, w, [&](int i, int j, float& v) {
-        v = (i < n && j < n) ? __fsub_rn(i == j ? 1.f : 0.f, v) : 0.f;
-      });
-      store_tile_bf16(acc, sT, LDB, w);
-    }
-    __syncthreads();
-    if (w.active) {
-      mma_tiles<NP>(acc, sXh, sT, w);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            xm[m][j][q] = __fadd_rn(xm[m][j][q], acc[m][j][q]);
-    }
-    publish(r + 1);
-  }
+  ns_stage(sm, n, [=](int i, int j, float v) {
+    return i == j ? __fadd_rn(v, cs[i]) : v;
+  });
 }
 
 // K6.  The fp32 master X lives in the warps' accumulator fragments (xm).
@@ -366,8 +215,8 @@ __global__ void __launch_bounds__(kThreads)
   using G = MmaGeometry<NP>;
   extern __shared__ __align__(16) unsigned char gp_ns_smem[];
   __shared__ float red[kThreads / 32];
-  const GpNsSmem<M> sm(gp_ns_smem);
-  const float* sK = sm.K;
+  const NsSmem<M> sm(gp_ns_smem);
+  const float* sK = sm.A;
   const int n = prm.n;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -378,8 +227,8 @@ __global__ void __launch_bounds__(kThreads)
   gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
   gp_ns_stage_k<M>(sm, c + sys * n, n);
 
-  // The spd seed X1 = 2sI - s^2 K, s = 1/||K||_inf (ns_common.cuh::ns_seed's
-  // arithmetic, the row sums a warp each), straight into the fragments.
+  // The spd seed X1 = 2sI - s^2 K, s = 1/||K||_inf (K1's seed, the row
+  // sums a warp each), straight into the fragments.
   float rmax = 0.f;
   for (int i = tid >> 5; i < n; i += kThreads / 32) {
     float r = 0.f;
@@ -401,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
     });
 
   ns_mma_rounds<M>(xm, sm, prm, w);
-  ns_gp_epilogue<M>(sm.Xf, sm.v, n, e[sys], out + 2 * sys, red);
+  ns_gp_epilogue<M>(sm.Xf, sm.rest, n, e[sys], out + 2 * sys, red);
 }
 
 // K11: K6 with X loaded from x0 instead of seeded, and the refined X written
@@ -419,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
   using G = MmaGeometry<NP>;
   extern __shared__ __align__(16) unsigned char gp_ns_smem[];
   __shared__ float red[kThreads / 32];
-  const GpNsSmem<M> sm(gp_ns_smem);
+  const NsSmem<M> sm(gp_ns_smem);
   const int n = prm.n;
   const size_t sys = blockIdx.x;
   const float* xs = x0 + sys * n * n;
@@ -434,7 +283,7 @@ __global__ void __launch_bounds__(kThreads)
   gp_ns_stage_k<M>(sm, c + sys * n, n);
 
   ns_mma_rounds<M>(xm, sm, prm, w);
-  ns_gp_epilogue<M>(sm.Xf, sm.v, n, e[sys], out + 2 * sys, red);
+  ns_gp_epilogue<M>(sm.Xf, sm.rest, n, e[sys], out + 2 * sys, red);
   float* ks = kinv + sys * n * n;
   for (int x = threadIdx.x; x < n * n; x += kThreads)
     ks[x] = sm.Xf[(x / n) * LD + x % n];
@@ -460,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
   chol_load(bs, K, n, ld, [=](int i, int j, float v) {
-    return i == j ? __fadd_rn(v, cs[i]) : v;  // as stage_k rounds it
+    return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
   });
   for (int i = tid; i < n; i += kThreads) v[i] = d[sys * n + i];
   __syncthreads();
@@ -527,10 +376,10 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
   }
 }
 
-// Bytes of GpNsSmem for NP = np: K and the fp32 vectors, then Kh, Xh, T,
-// Xl (201.5 KB at n = 128).
+// Bytes of K6's and K11's shared memory for NP = np: NsSmem, then [d a]
+// (201.5 KB at n = 128).
 size_t gp_ns_smem_bytes(size_t np, int n) {
-  return (np * (np + 1) + 2ull * n) * sizeof(float) + 4 * mma_tile_bytes(np);
+  return ns_smem_bytes(np) + 2ull * n * sizeof(float);
 }
 
 template <typename Kernel, typename... Args>

@@ -20,22 +20,31 @@
 //
 // What bounds it on the card: not bytes.  At 100 x 128 x 128 the kernel reads
 // A once (6.55 MB) and writes X once (6.55 MB), about 4 us of HBM time,
-// while each matrix needs ~18 dependent 128^3 products (the spd lane).  The
-// limit is that serial chain of products inside one block, at one block per
-// SM (198 KB of shared memory each), on CUDA-core FMAs.
+// while each matrix needs a chain of dependent 128^3 products (14 passes
+// of the spd10 lane: 13 in bf16, one in fp32; 90 of the pan500 lane, 88 in
+// bf16 and 2 in fp32).  Its bound is those operations, the bf16 passes at
+// the tensor cores' rate and the fp32 ones at the CUDA cores'; inside one
+// block they are a serial chain, 3 barriers a round, at one block an SM.
 //
-// What the design does about it: A, X and T stay in shared memory for the
-// whole schedule, so device memory sees one read and one write per matrix
-// (the point of the TPU kernel's VMEM residency).  Each of the 256 threads
-// keeps an M x M register tile of the product (rows ty + 16r, columns
-// tx + 16c), so one shared-memory load feeds M FMAs; the row stride is odd
-// (16M + 1) so the column reads of the left operand hit distinct banks.
-// Products into an operand (X = X T, X = X + X R) finish all reads before a
-// barrier and only then write.  Tensor cores (mma.sync / wgmma) and
-// splitting a matrix across blocks are later work.  The product routine,
-// the seed and the round loop live in ns_common.cuh; its round loop now
-// serves K1 and K8 only, since K6 and K11 (gp.cu) run theirs on the tensor
-// cores (ns_mma.cuh), which K8's rounds can move onto next.
+// What the design does about it: every schedule runs the round loop K1
+// and K8 share with K6 and K11 (ns_mma_rounds.cuh): bf16 products on the
+// tensor cores through mma.sync m16n8k16 from ldmatrix fragments
+// (ns_mma.cuh), where a bf16 x bf16 product is exact in fp32, so they
+// compute what the plain version's products compute up to the order of
+// the sums; the 3-pass split as three MMAs into one accumulator; the fp32
+// master X in the warps' accumulator fragments, published to shared memory
+// as bf16 (and its lo part) once a round for both products; the fp32
+// residuals on CUDA cores.  A goes in with 16-byte cp.async copies and is
+// staged in fp32 (the fp32 residual, the split's parts) and, for the bf16
+// schedules, as a bf16 tile; split3 keeps T's lo part in that tile's place
+// and rounds A's two parts from the fp32 copy as they load: 200.5 KB at
+// n = 128 either way, one block an SM.  K1 writes its seed straight into
+// the fragments (spd: 2sI - s^2 A, s = 1/||A||_inf; pan:
+// A^T / (||A||_1 ||A||_inf), read transposed from the fp32 copy; each norm
+// a row or column sum in order by one thread, ns_common.cuh::ns_norms);
+// K8 reads X0 from device memory straight into them while A's copies are
+// in flight.  X goes out from the fp32 copy the loop leaves, in coalesced
+// stores.
 //
 // K8 replaces cuda_matrix_inversion_tpu/ops/newton_schulz.py::
 // _ns_warm_kernel (pallas_call in inverse_newton_schulz_warm): X is loaded
@@ -46,93 +55,101 @@
 // Valid while the drift delta of A satisfies delta * kappa <~ 0.3 (bf16 also
 // kappa <~ 30).  What bounds it: as K1, the serial chain of dependent
 // products (2 x 2 + 2 at the default 2 + 1 rounds against K1 spd10's 12),
-// with one more n^2 read (X0) than K1.  A, X and T live in shared memory
-// (3 n (n+1) fp32, the K1 footprint), so n <= 128.
+// with one more n^2 read (X0) than K1.
 
-#include "ns_common.cuh"
+#include "ns_mma_rounds.cuh"
 
 namespace {
 
-template <int M>
+// K1 (WARM = false) and K8 (WARM = true), bf16 (SPLIT3 = false) or split3
+// schedules.
+template <int M, bool WARM, bool SPLIT3>
 __global__ void __launch_bounds__(kThreads)
-    ns_kernel(const float* __restrict__ a, float* __restrict__ x,
-              NSParams prm) {
+    ns_mma_kernel(const float* __restrict__ a, const float* __restrict__ x0,
+                  float* __restrict__ x, NSParams prm) {
   constexpr int NP = 16 * M;
   constexpr int LD = NP + 1;
-  extern __shared__ float smem[];
+  using G = MmaGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char ns_smem[];
   __shared__ float red[kThreads / 32];
-  float* sA = smem;
-  float* sX = sA + NP * LD;
-  float* sT = sX + NP * LD;
+  const NsSmem<M, SPLIT3> sm(ns_smem);
   const int n = prm.n;
-  const int tid = threadIdx.x;
-  const float* ab = a + static_cast<size_t>(blockIdx.x) * n * n;
-  float* xb = x + static_cast<size_t>(blockIdx.x) * n * n;
-
-  // A into shared memory; every buffer's padding is zero and stays zero
-  // (the identity terms are restricted to i < n), so the n x n block of
-  // each product is exact.
-  for (int e = tid; e < NP * NP; e += kThreads) {
-    const int i = e / NP, j = e % NP;
-    sA[i * LD + j] = (i < n && j < n) ? ab[i * n + j] : 0.f;
-    sX[i * LD + j] = 0.f;
-    sT[i * LD + j] = 0.f;
-  }
-  __syncthreads();
-
-  ns_seed<M>(sA, sX, prm, red);
-  ns_rounds<M>(sA, sX, sT, prm);
-
-  for (int e = tid; e < n * n; e += kThreads) {
-    const int i = e / n, j = e % n;
-    xb[i * n + j] = sX[i * LD + j];
-  }
-}
-
-// K8: A and X0 into shared memory (zero padding, as in K1), the rounds, X
-// out.
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-    ns_warm_kernel(const float* __restrict__ a, const float* __restrict__ x0,
-                   float* __restrict__ x, NSParams prm) {
-  constexpr int NP = 16 * M;
-  constexpr int LD = NP + 1;
-  extern __shared__ float smem[];
-  float* sA = smem;
-  float* sX = sA + NP * LD;
-  float* sT = sX + NP * LD;
-  const int n = prm.n;
-  const int tid = threadIdx.x;
   const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
 
-  for (int e = tid; e < NP * NP; e += kThreads) {
-    const int i = e / NP, j = e % NP;
-    const bool in = i < n && j < n;
-    sA[i * LD + j] = in ? a[base + i * n + j] : 0.f;
-    sX[i * LD + j] = in ? x0[base + i * n + j] : 0.f;
-    sT[i * LD + j] = 0.f;
+  ns_load(sm, a + base, n);
+  const WarpTile w = warp_tile<NP>();
+  float xm[G::kMT][G::kNT][4];
+  if constexpr (WARM) {
+    if (w.active)
+      tile_for_each(xm, w, [&](int i, int j, float& v) {
+        v = (i < n && j < n) ? x0[base + i * n + j] : 0.f;
+      });
   }
-  __syncthreads();
-
-  ns_rounds<M>(sA, sX, sT, prm);
-
-  for (int e = tid; e < n * n; e += kThreads) {
-    const int i = e / n, j = e % n;
-    x[base + e] = sX[i * LD + j];
+  ns_stage(sm, n, [](int, int, float v) { return v; });
+  if constexpr (!WARM) {
+    // The seed, straight into the fragments: s = 1/||A||_inf,
+    // X = 2sI - s^2 A (spd) or A^T / (||A||_1 ||A||_inf) (pan).
+    const float* sA = sm.A;
+    float r_inf, c_1;
+    ns_norms<M>(sA, n, red, r_inf, c_1);
+    if (prm.init_spd) {
+      const float s = 1.f / r_inf;
+      const float two_s = 2.f * s;
+      const float s2 = __fmul_rn(s, s);
+      if (w.active)
+        tile_for_each(xm, w, [&](int i, int j, float& v) {
+          v = (i < n && j < n) ? __fsub_rn(i == j ? two_s : 0.f,
+                                           __fmul_rn(s2, sA[i * LD + j]))
+                               : 0.f;
+        });
+    } else {
+      const float scale = 1.f / __fmul_rn(r_inf, c_1);
+      if (w.active)
+        tile_for_each(xm, w, [&](int i, int j, float& v) {
+          v = (i < n && j < n) ? __fmul_rn(sA[j * LD + i], scale) : 0.f;
+        });
+    }
   }
+
+  ns_mma_rounds<M, SPLIT3>(xm, sm, prm, w);
+  float* xb = x + base;
+  for (int e = threadIdx.x; e < n * n; e += kThreads)
+    xb[e] = sm.Xf[(e / n) * LD + e % n];
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int m, int batch, cudaStream_t stream,
-                   Args... args) {
-  const size_t np = 16ull * m;
-  const size_t smem = 3 * np * (np + 1) * sizeof(float);
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
+                   const float* a, const float* x0, float* x,
+                   const NSParams& prm) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch, kThreads, smem, stream>>>(args...);
+  kernel<<<batch, kThreads, smem, stream>>>(a, x0, x, prm);
   return cudaGetLastError();
+}
+
+// K1 or K8 at the instance for prm.n and prm.split3.
+template <int M, bool WARM>
+cudaError_t launch_m(const NSParams& prm, int batch, cudaStream_t s,
+                     const float* a, const float* x0, float* x) {
+  const size_t smem = ns_smem_bytes(16 * M);
+  return prm.split3
+             ? launch(ns_mma_kernel<M, WARM, true>, smem, batch, s, a, x0, x,
+                      prm)
+             : launch(ns_mma_kernel<M, WARM, false>, smem, batch, s, a, x0, x,
+                      prm);
+}
+
+template <bool WARM>
+cudaError_t launch_ns(const NSParams& prm, int batch, cudaStream_t s,
+                      const float* a, const float* x0, float* x) {
+  switch (ns_tile(prm.n)) {
+    case 1: return launch_m<1, WARM>(prm, batch, s, a, x0, x);
+    case 2: return launch_m<2, WARM>(prm, batch, s, a, x0, x);
+    case 4: return launch_m<4, WARM>(prm, batch, s, a, x0, x);
+    default: return launch_m<8, WARM>(prm, batch, s, a, x0, x);
+  }
 }
 
 }  // namespace
@@ -150,13 +167,8 @@ extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ns_tile(n)) {
-    case 1: err = launch(ns_kernel<1>, 1, batch, s, a, x, prm); break;
-    case 2: err = launch(ns_kernel<2>, 2, batch, s, a, x, prm); break;
-    case 4: err = launch(ns_kernel<4>, 4, batch, s, a, x, prm); break;
-    default: err = launch(ns_kernel<8>, 8, batch, s, a, x, prm); break;
-  }
+  err = launch_ns<false>(prm, batch, static_cast<cudaStream_t>(stream), a,
+                          nullptr, x);
   return static_cast<int>(err);
 }
 
@@ -172,12 +184,7 @@ extern "C" int cmi_ns_warm(const float* a, const float* x0, float* x,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ns_tile(n)) {
-    case 1: err = launch(ns_warm_kernel<1>, 1, batch, s, a, x0, x, prm); break;
-    case 2: err = launch(ns_warm_kernel<2>, 2, batch, s, a, x0, x, prm); break;
-    case 4: err = launch(ns_warm_kernel<4>, 4, batch, s, a, x0, x, prm); break;
-    default: err = launch(ns_warm_kernel<8>, 8, batch, s, a, x0, x, prm); break;
-  }
+  err = launch_ns<true>(prm, batch, static_cast<cudaStream_t>(stream), a,
+                         x0, x);
   return static_cast<int>(err);
 }

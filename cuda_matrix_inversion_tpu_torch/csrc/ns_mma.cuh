@@ -1,9 +1,9 @@
 // Tensor-core tile routines for the Newton-Schulz kernels on sm_90a: bf16
 // operands in shared memory, fp32 accumulators in registers, through
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 and ldmatrix.  K6
-// and K11 (gp.cu, through their shared round loop ns_mma_rounds) run their
-// bf16 products on them; they take no kernel-specific state, so K1 and K8
-// can move onto them as they are.
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 and ldmatrix.  K1
+// and K8 (newton_schulz.cu, the bf16 schedules) and K6 and K11 (gp.cu) run
+// their bf16 products on them, through the round loop they share
+// (ns_mma_rounds.cuh).
 //
 // Geometry.  An NP x NP product (NP = 16M, zero padded past n) is cut over
 // the block's 8 warps into warp tiles of MT x NT m16n8 tiles: warp w owns
@@ -17,16 +17,16 @@
 // Operands.  A bf16 tile is NP rows of kLd = NP + 8 values: the 16-byte pad
 // puts the 8 rows one ldmatrix phase reads on distinct banks.  Values are
 // rounded to bf16 (nearest even) where they are stored into a tile.  The
-// left operand's 16x16 fragment comes from a bf16 tile through ldmatrix; the
-// 3-pass split's lo part of the left operand, bf16(x - bf16(x)), comes from
-// its fp32 original in shared memory, rounded as it loads.  The right
+// left operand's 16x16 fragment comes from a bf16 tile through ldmatrix,
+// or from its fp32 original in shared memory, rounded as it loads (the
+// 3-pass split's lo part bf16(x - bf16(x)), or both parts).  The right
 // operand's 16x8 fragments come from a bf16 tile stored row-major as [k][n]
 // through ldmatrix.trans.
 //
 // Arithmetic.  A bf16 x bf16 product is exact in fp32 and the tensor cores
-// accumulate in fp32, so a one-pass product computes what the CUDA-core
-// emulation (ns_common.cuh::product<M, kBF16>) computes, up to the order of
-// the sums; the 3-pass split adds hi*hi, lo*hi and hi*lo into one
+// accumulate in fp32, so a one-pass product computes what the plain
+// versions' one-pass product (bf16-rounded operands, fp32 sums) computes,
+// up to the order of the sums; the 3-pass split adds hi*hi, lo*hi and hi*lo into one
 // accumulator.  Never TF32.  NaN and Inf pass through the conversions and
 // the MMAs.
 //
@@ -145,6 +145,24 @@ __device__ __forceinline__ void frag_a_rem(uint32_t (&lo)[4], const float* P,
   }
 }
 
+// Both parts of the split, bf16(x) and bf16(x - bf16(x)), of the left
+// operand's fragment at (row0, k0) of an fp32 matrix P (row stride ld),
+// rounded as they load.
+__device__ __forceinline__ void frag_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float* P, int ld,
+                                             int row0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* p = P + (row0 + g + 8 * (i & 1)) * ld + k0 + 2 * t +
+                     8 * (i >> 1);
+    hi[i] = pack_bf16(p[0], p[1]);
+    lo[i] = pack_bf16(bf16_rem(p[0]), bf16_rem(p[1]));
+  }
+}
+
 // acc[m][j] += a[m] B[k0:k0+16, col0+8j : col0+8j+8] for m < MT, j < NT,
 // B a bf16 tile stored [k][n]: each right fragment is loaded once for the
 // MT left ones.
@@ -201,23 +219,19 @@ __device__ __forceinline__ void mma_tiles(float (&acc)[MT][NT][4],
   }
 }
 
-// The 3-pass split acc = hi(P) hi(Y) + lo(P) hi(Y) + hi(P) lo(Y): P's hi
-// part in the bf16 tile Ph and P itself in fp32 (row stride ldp, for its lo
-// part), Y's halves in the bf16 tiles Yh and Yl.
-template <int NP, int MT, int NT>
+// The 3-pass split acc = hi(P) hi(Y) + lo(P) hi(Y) + hi(P) lo(Y): the
+// left operand's two parts at (row0, k0) from load_p(hi, lo, row0, k0),
+// Y's halves in the bf16 tiles Yh and Yl.
+template <int NP, int MT, int NT, class LoadP>
 __device__ __forceinline__ void mma_split3(float (&acc)[MT][NT][4],
-                                           const bf16* Ph, const float* P,
-                                           int ldp, const bf16* Yh,
+                                           LoadP load_p, const bf16* Yh,
                                            const bf16* Yl, WarpTile w) {
   constexpr int LD = MmaGeometry<NP>::kLd;
   zero_tile(acc);
   for (int k0 = 0; k0 < NP; k0 += 16) {
     uint32_t hi[MT][4], lo[MT][4];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      frag_a_bf16(hi[m], Ph, LD, w.row0 + 16 * m, k0);
-      frag_a_rem(lo[m], P, ldp, w.row0 + 16 * m, k0);
-    }
+    for (int m = 0; m < MT; ++m) load_p(hi[m], lo[m], w.row0 + 16 * m, k0);
     mma_k16(acc, hi, Yh, LD, k0, w.col0);
     mma_k16(acc, lo, Yh, LD, k0, w.col0);
     mma_k16(acc, hi, Yl, LD, k0, w.col0);

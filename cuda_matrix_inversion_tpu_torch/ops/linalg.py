@@ -107,3 +107,13 @@ def spd_solve(a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     l = cholesky(a)
     y = torch.linalg.solve_triangular(l, rhs, upper=False)
     return torch.linalg.solve_triangular(l.mT, y, upper=True)
+
+
+def batched_inverse(a: torch.Tensor, algorithm: str = "lu") -> torch.Tensor:
+    """Dispatching batched inverse (ref ``batchedInverse``,
+    ``src/gauss_bench.cu:63-85``): the registry's ``algorithm`` on ``a``."""
+    from cuda_matrix_inversion_tpu_torch.ops.registry import (
+        get_inverse_algorithm,
+    )
+
+    return get_inverse_algorithm(algorithm)(a)

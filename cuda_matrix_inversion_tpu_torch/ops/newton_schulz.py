@@ -153,7 +153,7 @@ def _rounds(a: torch.Tensor, x: torch.Tensor, coeffs, hi_iters: int,
             bf16_products: bool) -> torch.Tensor:
     """The lo rounds X ← X·(2cI − c²AX), one per scalar c of ``coeffs``,
     then ``hi_iters`` polish rounds X ← X + X(I − AX), from ``x`` (the
-    kernels' ``ns_rounds``).
+    kernels' round loops).
 
     ``bf16_products=True`` is the kernels' (compiled-TPU) arithmetic:
     one-pass products on bf16-rounded operands, the 3-pass split where the

@@ -10,8 +10,11 @@ dictionaries, and the CPU tests feed it the JAX registry's
 ``functools.partial.keywords`` and require the result to equal
 :data:`LANES` exactly.
 
-Every algorithm takes and returns a ``(batch, n, n)`` tensor on any
-supported device.
+Device algorithms take and return a ``(batch, n, n)`` tensor on any
+supported device.  :func:`register_inverse` adds a lane at run time, as
+the JAX registry's does: a device lane beside :data:`LANES` (with no
+keywords and no schedule), or a host lane (``cpu=True``) in a table of
+its own, empty until one is registered.
 """
 
 from __future__ import annotations
@@ -87,16 +90,46 @@ def build_lane_table(keywords: Mapping[str, Mapping]) -> dict[str, dict]:
 
 
 LANES = build_lane_table(LANE_KEYWORDS)
+_CPU_ALGORITHMS: dict[str, Callable] = {}
+# Lanes whose device path runs one of the port's kernels (the JAX
+# registry's pallas=True lanes: the *_pallas lanes, and lu_hiacc on K2).
+_PALLAS_ALGORITHMS = {name for name in LANES if name.endswith("_pallas")}
+_PALLAS_ALGORITHMS.add("lu_hiacc")
+
+
+def register_inverse(name: str, fn: Callable, cpu: bool = False,
+                     pallas: bool = False) -> None:
+    """Add (or replace) lane ``name``: a device lane, or with ``cpu=True``
+    a host lane; ``pallas`` marks a lane that runs a kernel."""
+    if cpu:
+        _CPU_ALGORITHMS[name] = fn
+    else:
+        _FUNCTIONS[name] = fn
+        LANES[name] = {"keywords": {}, "schedule": None}
+    if pallas:
+        _PALLAS_ALGORITHMS.add(name)
+
+
+def is_pallas_algorithm(name: str) -> bool:
+    """True when lane ``name``'s device path runs one of the port's
+    kernels."""
+    return name in _PALLAS_ALGORITHMS
 
 
 def get_inverse_algorithm(name: str) -> Callable:
-    if name not in LANES:
-        raise KeyError(f"unknown inversion algorithm {name!r}; have "
-                       f"{list_inverse_algorithms()}")
-    return functools.partial(_FUNCTIONS[name], **LANES[name]["keywords"])
+    if name in LANES:
+        return functools.partial(_FUNCTIONS[name], **LANES[name]["keywords"])
+    if name in _CPU_ALGORITHMS:
+        return _CPU_ALGORITHMS[name]
+    raise KeyError(f"unknown inversion algorithm {name!r}; have "
+                   f"{list_inverse_algorithms()}")
 
 
 def list_inverse_algorithms(cpu: bool | None = None) -> list[str]:
-    """Registered lane names.  ``cpu=True`` lists the host-oracle lanes,
-    which the port does not have yet."""
-    return [] if cpu else sorted(LANES)
+    """Registered lane names: the device lanes (``cpu=False``), the host
+    lanes (``cpu=True``), or both (``None``), each group sorted."""
+    if cpu is True:
+        return sorted(_CPU_ALGORITHMS)
+    if cpu is False:
+        return sorted(LANES)
+    return sorted(LANES) + sorted(_CPU_ALGORITHMS)

@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cuda_matrix_inversion_tpu_torch.io.replicate import replicate_matrices
+
 _DEFAULT_DTYPE = torch.float32
 
 _SUPPORTED = {
@@ -83,6 +85,11 @@ class MatrixBatch:
 
     def astype(self, dtype) -> "MatrixBatch":
         return MatrixBatch(self.data.astype(dtype))
+
+    def replicate(self, times: int) -> "MatrixBatch":
+        """Duplicate the whole batch ``times``× (ref ``replicateMatrices``,
+        ``src/helper.cu:54-72``)."""
+        return MatrixBatch(replicate_matrices(self.data, times))
 
     def __getitem__(self, k) -> np.ndarray:
         return self.data[k]

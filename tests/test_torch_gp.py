@@ -389,16 +389,21 @@ def test_k11_route_past_128_and_validation():
 
 def test_gp_ns_probe_patches_match_the_kernel_source():
     """The card probe of K6 and K11 (``bench/gp_ns_probe.py``) builds its
-    variants by patching ``csrc/gp.cu``: every anchor must still occur as
-    often as the probe expects, and the probe refuses to run without a
-    card."""
+    variants by patching ``csrc/gp.cu`` and the round loop K6 and K11
+    share with K1 and K8 (``csrc/ns_mma_rounds.cuh``): every anchor must
+    still occur as often as the probe expects, and the probe refuses to
+    run without a card."""
     from cuda_matrix_inversion_tpu_torch.bench import gp_ns_probe
     from cuda_matrix_inversion_tpu_torch.ops import cuda_build
 
     src = (cuda_build.CSRC_DIR / "gp.cu").read_text()
     assert src.count(gp_ns_probe.DIRECT) == 1
-    for anchor, _, count in gp_ns_probe.STAMPS:
-        assert src.count(anchor) == count, anchor
+    assert set(gp_ns_probe.STAMPS) == {"gp.cu", "ns_mma_rounds.cuh",
+                                       "ns_common.cuh"}
+    for unit, patches in gp_ns_probe.STAMPS.items():
+        text = (cuda_build.CSRC_DIR / unit).read_text()
+        for anchor, _, count in patches:
+            assert text.count(anchor) == count, (unit, anchor)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             gp_ns_probe.main()

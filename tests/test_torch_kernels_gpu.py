@@ -81,12 +81,9 @@ def _rel(x, ref):
     return np.abs(x - ref).max() / np.abs(ref).max()
 
 
-@pytest.mark.parametrize("lane", _K1_LANES)
-@pytest.mark.parametrize("n", [8, 20, 64, 128])
-def test_k1_matches_plain(cuda, lane, n):
-    rng = np.random.default_rng(n)
-    a = make_spd_batch(7, n, rng).astype(np.float32)
-    sched = LANES[lane]["schedule"]
+def _check_k1(cuda, a, sched):
+    """K1 against its plain version on ``a`` (float32 NumPy), in one
+    launch, and through the gate."""
     at = torch.tensor(a, device=cuda)
     before = newton_schulz.ns_iterate_cuda.launches
     x = newton_schulz.ns_iterate_cuda(at, sched)
@@ -95,6 +92,36 @@ def test_k1_matches_plain(cuda, lane, n):
     ref = newton_schulz.ns_iterate_plain(at, sched, bf16_products=True)
     assert _rel(x.cpu(), ref.cpu()) <= K1_RTOL
     assert identity_error_inf(a, x.cpu().numpy()) < 1e-4
+
+
+@pytest.mark.parametrize("lane", _K1_LANES)
+@pytest.mark.parametrize("n", [8, 20, 64, 128, 1, 40, 72, 127])
+def test_k1_matches_plain(cuda, lane, n):
+    """Every lane at each tile size (NP = 16, 32, 64, 128: two warps own
+    tiles at 16), with zero padding where n is not a multiple of 16."""
+    rng = np.random.default_rng(n)
+    a = make_spd_batch(7, n, rng).astype(np.float32)
+    _check_k1(cuda, a, LANES[lane]["schedule"])
+
+
+def test_k1_matches_plain_at_1600x128(cuda):
+    """Every lane at the main path's largest batch (13 waves of one block
+    an SM)."""
+    a = make_spd_batch(1600, 128, np.random.default_rng(1601)).astype(
+        np.float32)
+    for lane in _K1_LANES:
+        _check_k1(cuda, a, LANES[lane]["schedule"])
+
+
+@pytest.mark.parametrize("init", ["spd", "pan"])
+@pytest.mark.parametrize("n", [20, 72, 128])
+def test_k1_polish_highest_false_matches_plain(cuda, init, n):
+    """polish_highest=False: every polish residual is the 3-pass split,
+    and the fp32 X still leaves the loop for the write."""
+    a = make_spd_batch(7, n, np.random.default_rng(500 + n)).astype(
+        np.float32)
+    _check_k1(cuda, a, newton_schulz.resolve_schedule(
+        init=init, polish_highest=False))
 
 
 @pytest.mark.parametrize("kind", ["general", "permuted", "singular"])
@@ -261,24 +288,49 @@ def _drifted(a, delta, rng, symmetric):
     return (a + delta * scale * noise).astype(np.float32)
 
 
-@pytest.mark.parametrize("precision", ["bf16", "split3"])
-@pytest.mark.parametrize("n", [8, 20, 64, 128])
-def test_k8_matches_plain(cuda, precision, n):
-    """K8 refines the inverse of a batch for its drifted copy; against its
-    plain version and through the gate."""
-    rng = np.random.default_rng(600 + n)
+def _check_k8(cuda, n, precision, lo, hi, seed, nan_member=None):
+    """K8 refines the inverse of a batch of 7 for its drifted copy, in one
+    launch: against its plain version and through the gate; member
+    ``nan_member`` starts from an X0 holding a NaN and alone comes out
+    non-finite."""
+    rng = np.random.default_rng(seed)
     split3 = precision == "split3"
     a0 = (make_square_batch if split3 else make_spd_batch)(7, n, rng)
     x0 = np.linalg.inv(a0).astype(np.float32)
     a = _drifted(a0, 1e-4 if split3 else 1e-3, rng, not split3)
+    ok = np.arange(7) != nan_member
+    if nan_member is not None:
+        x0[nan_member, 0, 0] = np.nan
     at, x0t = torch.tensor(a, device=cuda), torch.tensor(x0, device=cuda)
     before = newton_schulz.ns_refine_cuda.launches
-    x = newton_schulz.ns_refine_cuda(at, x0t, 2, 1, split3)
+    x = newton_schulz.ns_refine_cuda(at, x0t, lo, hi, split3)
     torch.cuda.synchronize()
     assert newton_schulz.ns_refine_cuda.launches == before + 1
-    ref = newton_schulz.ns_refine_plain(at, x0t, 2, 1, split3)
-    assert _rel(x.cpu(), ref.cpu()) <= WARM_RTOL
-    assert identity_error_inf(a, x.cpu().numpy()) < 1e-4
+    ref = newton_schulz.ns_refine_plain(at, x0t, lo, hi, split3)
+    x, ref = x.cpu().numpy(), ref.cpu().numpy()
+    assert (np.isfinite(x).all(axis=(1, 2)) == ok).all()
+    assert (np.isfinite(ref).all(axis=(1, 2)) == ok).all()
+    assert _rel(x[ok], ref[ok]) <= WARM_RTOL
+    assert identity_error_inf(a[ok], x[ok]) < 1e-4
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("n", [8, 20, 64, 128, 1, 40, 72, 127])
+def test_k8_matches_plain(cuda, precision, n):
+    """K8 at its default 2 + 1 rounds at each tile size, with zero
+    padding where n is not a multiple of 16."""
+    _check_k8(cuda, n, precision, 2, 1, 600 + n)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("lo,hi", [(0, 1), (1, 2), (3, 2)])
+@pytest.mark.parametrize("n", [20, 128])
+def test_k8_matches_plain_off_its_default_schedule(cuda, precision, lo, hi,
+                                                   n):
+    """(0, 1) is the fp32 polish round alone; (1, 2) and (3, 2) put a
+    split-residual polish round before it.  Member 3's X0 holds a NaN."""
+    _check_k8(cuda, n, precision, lo, hi, 700 + 10 * lo + hi + n,
+              nan_member=3)
 
 
 @pytest.mark.parametrize("emit_w", [False, True])

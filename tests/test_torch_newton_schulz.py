@@ -441,3 +441,33 @@ def test_warm_validation_and_no_launch_on_cpu():
         ns.inverse_newton_schulz_warm(a, a[:2])
     with pytest.raises(ValueError, match="float32 CUDA"):
         ns.ns_refine_cuda(a, a, 2, 1, False)
+
+
+def test_ns_probe_patches_match_the_kernel_source():
+    """The card probe of K1 and K8 (``bench/ns_probe.py``) builds its
+    clock-split variant by patching ``csrc/newton_schulz.cu``, the shared
+    tensor-core loop (``csrc/ns_mma_rounds.cuh``) and ``csrc/ns_common.cuh``
+    (the stamps' bookkeeping): every anchor must still occur as often as
+    the probe expects, every stamp id must have a phase name, the
+    occupancy reader must name what the source defines, and the probe
+    refuses to run without a card."""
+    import re
+
+    from cuda_matrix_inversion_tpu_torch.bench import gp_ns_probe, ns_probe
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_build
+
+    assert set(ns_probe.STAMPS) == {"newton_schulz.cu", "ns_mma_rounds.cuh",
+                                    "ns_common.cuh"}
+    for unit, patches in ns_probe.STAMPS.items():
+        text = (cuda_build.CSRC_DIR / unit).read_text()
+        for anchor, new, count in patches:
+            assert text.count(anchor) == count, (unit, anchor)
+            for stamp_id in re.findall(r"ns_stamp\((\d+)\)", new):
+                assert int(stamp_id) == 0 or int(stamp_id) in gp_ns_probe.PHASES
+    src = (cuda_build.CSRC_DIR / "newton_schulz.cu").read_text()
+    for name in ("ns_mma_kernel", "ns_smem_bytes"):
+        assert name in ns_probe.OCCUPANCY and name in src + (
+            cuda_build.CSRC_DIR / "ns_mma_rounds.cuh").read_text()
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            ns_probe.main()

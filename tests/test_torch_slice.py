@@ -6,6 +6,7 @@ Inputs are NumPy draws cast to float32 explicitly (the suite runs JAX with
 x64 on).  Tolerances are max-norm relative differences.
 """
 
+import copy
 import subprocess
 import sys
 import textwrap
@@ -20,7 +21,9 @@ import cuda_matrix_inversion_tpu_torch as port
 from cuda_matrix_inversion_tpu.bench import reporting as jax_reporting
 from cuda_matrix_inversion_tpu.io import fixtures as jax_fixtures
 from cuda_matrix_inversion_tpu.io import replicate as jax_replicate
+from cuda_matrix_inversion_tpu import types as jax_types
 from cuda_matrix_inversion_tpu.ops import host_api as jax_host_api
+from cuda_matrix_inversion_tpu.ops import registry as jax_registry
 from cuda_matrix_inversion_tpu.ops import xla as jax_xla
 from cuda_matrix_inversion_tpu_torch import types as port_types
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
@@ -30,9 +33,11 @@ from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_cholesky,
     cuda_lu,
     host_api,
+    linalg,
     lu_bign,
     newton_schulz,
 )
+from cuda_matrix_inversion_tpu_torch.ops import registry as port_registry
 from cuda_matrix_inversion_tpu_torch.ops.registry import (
     get_inverse_algorithm,
     list_inverse_algorithms,
@@ -293,3 +298,75 @@ def test_types_default_dtype_and_batch():
     assert port_types.as_batch(np.eye(3)).shape == (1, 3, 3)
     with pytest.raises(ValueError):
         port_types.as_batch(np.ones(3))
+
+
+@pytest.mark.parametrize("times", [1, 2, 3])
+def test_matrix_batch_replicate_matches_jax_package(times):
+    """``MatrixBatch.replicate`` on the JAX suite's shapes
+    (``tests/test_misc_surface.py``) against the JAX package's."""
+    a = np.random.default_rng(28).standard_normal((3, 4, 5))
+    got = port_types.MatrixBatch(a).replicate(times)
+    ref = jax_types.MatrixBatch(a).replicate(times)
+    assert isinstance(got, port_types.MatrixBatch)
+    assert (got.batch_size, got.m, got.n) == (3 * times, 4, 5)
+    np.testing.assert_array_equal(got.data, ref.data)
+    with pytest.raises(ValueError, match="times"):
+        port_types.MatrixBatch(a).replicate(0)
+
+
+@pytest.mark.parametrize("cpu", [False, True])
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_register_inverse_lists_and_gets_the_lane(monkeypatch, package, cpu):
+    """A lane added with ``register_inverse`` is listed with its kind
+    (device or host) and in the whole list, is got back by name and
+    carries its ``pallas`` mark, in both packages; the registry's tables
+    are restored afterwards."""
+    reg = jax_registry if package == "jax" else port_registry
+    reg.list_inverse_algorithms()  # the JAX registry fills its tables lazily
+    tables = ["_CPU_ALGORITHMS", "_PALLAS_ALGORITHMS"]
+    tables += (["_DEVICE_ALGORITHMS"] if package == "jax"
+               else ["_FUNCTIONS", "LANES"])
+    for table in tables:
+        monkeypatch.setattr(reg, table, copy.copy(getattr(reg, table)))
+    name = "test_lane_cpu" if cpu else "test_lane_device"
+
+    def fn(a):
+        return ("ran", a)
+
+    reg.register_inverse(name, fn, cpu=cpu, pallas=not cpu)
+    assert name in reg.list_inverse_algorithms(cpu=cpu)
+    assert name not in reg.list_inverse_algorithms(cpu=not cpu)
+    assert name in reg.list_inverse_algorithms()
+    a = np.eye(3, dtype=np.float32)[None]
+    got = reg.get_inverse_algorithm(name)(a)
+    assert got[0] == "ran" and got[1] is a
+    assert reg.is_pallas_algorithm(name) == (not cpu)
+    if package == "port":
+        assert linalg.batched_inverse(a, name)[1] is a
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_pallas_marks_match_the_jax_registry(lane):
+    assert (port_registry.is_pallas_algorithm(lane)
+            == jax_registry.is_pallas_algorithm(lane))
+
+
+@pytest.mark.parametrize("algorithm", [None, "cholesky", "lu_pallas",
+                                       "gauss_pallas", "cholesky_pallas",
+                                       "newton_schulz_spd10_pallas"])
+def test_batched_inverse_is_the_registry_lane(algorithm):
+    """``linalg.batched_inverse`` runs the registry's lane (``lu`` by
+    default) on a CPU batch: the same bits as ``get_inverse_algorithm``,
+    through the gate; the default also against the JAX package's
+    ``xla.batched_inverse``."""
+    a = fixtures.make_spd_batch(4, 16, np.random.default_rng(3)).astype(
+        np.float32)
+    at = torch.tensor(a)
+    kw = {} if algorithm is None else {"algorithm": algorithm}
+    got = linalg.batched_inverse(at, **kw)
+    ref = get_inverse_algorithm(algorithm or "lu")(at)
+    assert torch.equal(got, ref)
+    assert identity_error_inf(a, got.numpy()) < 1e-4
+    if algorithm is None:
+        jax_ref = np.asarray(jax_xla.batched_inverse(a))
+        assert _rel(got.numpy(), jax_ref) < 1e-5
