@@ -13,7 +13,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (and 1600 at n = 128; K1 and K8 also at n ∈ {1, 40, 72, 127}, K1 with
    ``polish_highest=False`` at n ∈ {20, 72, 128}; K6 and K11 also at n =
    72; K8 and K11 at n ∈ {20, 128} with (lo, hi) ∈ {(0, 1), (1, 2), (3,
-   2)}; K7 at n = 192); K2–K7 and K10 with one singular or indefinite
+   2)}; K7 at n = 192; K2 also at n ∈ {1, 2, 7, 40, 72, 127} and on
+   draws of small integers, where exact ties decide the pivots, its raw
+   ``inv`` and ``ipiv`` equal to the plain version's (``torch.equal``) on
+   every finite member); K2–K7 and K10 with one singular or indefinite
    member per batch, K8 and K11 with one member whose previous inverse
    holds a NaN, which alone must come out non-finite; K9 in the blocked factor and the whole polished blocked LU
    against the same routine on its plain version, n ∈ {160, 256, 512} ×
@@ -57,7 +60,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
    ``solve`` method on cuSOLVER), K1, K8, K6 and K11 also beside their
    CUDA-core times before their tensor-core redesign, K3, K4, K5 and K10 beside
-   theirs before the panel-blocked factor and L⁻¹; the warm lanes against
+   theirs before the panel-blocked factor and L⁻¹, K2 beside its time
+   before its Hopper redesign and on the general class too; the warm lanes against
    the cold ones, one fit step of each method, and one engine request NumPy
    in and out;
    at 100×512 and 1600×256 K9 alone (its launches in one call, summed)
@@ -93,6 +97,11 @@ K1_RTOL = 2e-4
 # order, so the measured difference is far below either bound.
 K2_RTOL_SPD = 1e-5
 K2_RTOL_GENERAL = 1e-4
+# K2 before its Hopper redesign (whole-row swaps and four barriers a pivot
+# column, column-serial substitutions), through its
+# wrapper on the SPD draws, in ms (phase 5 of this script on an NVIDIA H100
+# 80GB HBM3 at 700 W).
+K2_BEFORE_MS = {"spd_100x128": 0.639, "spd_1600x128": 7.759}
 # K3/K4 vs plain, max-norm relative: both fp32 with the same operations in
 # the same order (K3's WᵀW in another summation order), κ ≈ 2–3 draws.
 CHOL_RTOL = 1e-5
@@ -174,6 +183,45 @@ HIACC_TIGHT, HIACC_LOOSE = 1e-11, 1e-8
 
 def _rel(x, ref) -> float:
     return float((x - ref).abs().max() / ref.abs().max())
+
+
+def _k2_vs_plain(a, label, rtol, err, torch, singular=None):
+    """K2's raw outputs against its plain version on ``a``: ``inv`` and
+    ``ipiv`` equal (``torch.equal``) on every finite member and the same
+    members non-finite (only ``singular``, where given); then, unless
+    ``rtol`` is None, both inverses after the fp32 polish within ``rtol``
+    (max-norm relative)."""
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_lu
+
+    batch, n = a.shape[0], a.shape[-1]
+    x, piv = cuda_lu.lu_inverse_cuda(a)
+    torch.cuda.synchronize()
+    ref, ref_piv = cuda_lu.lu_inverse_plain(a)
+    ok = torch.isfinite(ref).all(dim=(1, 2))
+    what = f"K2 {label} {batch}x{n}"
+    if not torch.equal(torch.isfinite(x).all(dim=(1, 2)), ok):
+        raise AssertionError(f"{what}: non-finite members differ from the "
+                             f"plain version")
+    if singular is not None and (~ok).nonzero().flatten().tolist() != [
+            singular]:
+        raise AssertionError(f"{what}: the singular member alone must come "
+                             f"out non-finite")
+    if not (torch.equal(x[ok], ref[ok]) and torch.equal(piv[ok], ref_piv[ok])):
+        raise AssertionError(f"{what}: inv or ipiv differ from the plain "
+                             f"version's bits")
+    err["raw_equal_members"] += int(ok.sum())
+    if rtol is None or int(ok.sum()) == 0:
+        return
+    eye = torch.eye(n, device=a.device)
+    x = x + x @ (eye - a @ x)
+    ref = ref + ref @ (eye - a @ ref)
+    rel = _rel(x[ok], ref[ok])
+    err["abs"] = max(err["abs"], float((x[ok] - ref[ok]).abs().max()))
+    key = "rel_spd" if label == "spd" else "rel_general"
+    err[key] = max(err[key], rel)
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: polished kernel vs plain {rel:.3e} > "
+                             f"{rtol:g}")
 
 
 def _median_ms(fn, torch, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
@@ -1098,7 +1146,8 @@ def main() -> int:
     k1_lanes = [name for name in list_inverse_algorithms()
                 if LANES[name]["schedule"] is not None]
     k1_err = {"abs": 0.0, "rel": 0.0}
-    k2_err = {"abs": 0.0, "rel_spd": 0.0, "rel_general": 0.0}
+    k2_err = {"abs": 0.0, "rel_spd": 0.0, "rel_general": 0.0,
+              "raw_equal_members": 0}
     gp_err = {k: {"abs": 0.0, "rel": 0.0} for k in ("k3", "k4", "k5", "k6")}
     new_err = {}  # K7, K8, K10, K11 (_compare's keys)
     shapes = [(b, n) for n in (8, 20, 64, 128) for b in (1, 7, 100)]
@@ -1121,31 +1170,8 @@ def main() -> int:
                                ("general", gen, K2_RTOL_GENERAL),
                                ("permuted", permuted, K2_RTOL_GENERAL),
                                ("singular", singular, K2_RTOL_GENERAL)):
-            eye = torch.eye(n, device=dev)
-            x, piv = cuda_lu.lu_inverse_cuda(a)
-            torch.cuda.synchronize()
-            ref, ref_piv = cuda_lu.lu_inverse_plain(a)
-            x = x + x @ (eye - a @ x)
-            ref = ref + ref @ (eye - a @ ref)
-            ok = torch.isfinite(ref).all(dim=(1, 2))
-            if not torch.equal(torch.isfinite(x).all(dim=(1, 2)), ok):
-                raise AssertionError(f"K2 {label} {batch}x{n}: non-finite "
-                                     f"members differ from the plain version")
-            if label == "singular" and bool(ok[batch // 2]):
-                raise AssertionError(f"K2 singular {batch}x{n}: singular "
-                                     f"member came out finite")
-            if int(ok.sum()) == 0:
-                continue
-            rel = _rel(x[ok], ref[ok])
-            k2_err["abs"] = max(k2_err["abs"],
-                                float((x[ok] - ref[ok]).abs().max()))
-            key = "rel_spd" if label == "spd" else "rel_general"
-            k2_err[key] = max(k2_err[key], rel)
-            if not rel <= rtol:
-                raise AssertionError(f"K2 {label} {batch}x{n}: kernel vs "
-                                     f"plain {rel:.3e} > {rtol:g}")
-            if not torch.equal(piv[ok], ref_piv[ok]):
-                raise AssertionError(f"K2 {label} {batch}x{n}: pivots differ")
+            _k2_vs_plain(a, label, rtol, k2_err, torch,
+                         singular=batch // 2 if label == "singular" else None)
 
         # K3 / K4 on the SPD draw, K5 / K6 on a GP system; for batch > 1
         # member batch // 2 is negated (negative definite) and alone must
@@ -1249,6 +1275,24 @@ def main() -> int:
     for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
         _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
                               dev, new_err, torch, k7_only=True)
+    # K2 at every instance off the shapes above (n = 1, 2, 7: NP = 16;
+    # 40: 64; 72, 127: 128, padded; n off a multiple of 4: scalar loads),
+    # and on small integers in [-2, 2], where exact ties decide the pivots
+    # (a member may be singular: raw bits only)
+    for n in (1, 2, 7, 40, 72, 127):
+        for batch in (1, 7, 100):
+            rng = np.random.default_rng(3000 * n + batch)
+            gen = torch.tensor(make_square_batch(batch, n, rng),
+                               dtype=torch.float32, device=dev)
+            _k2_vs_plain(gen, "general", K2_RTOL_GENERAL, k2_err, torch)
+            if batch > 1:
+                gen[batch // 2] = 1.0 if n > 1 else 0.0
+                _k2_vs_plain(gen, "singular", K2_RTOL_GENERAL, k2_err, torch,
+                             singular=batch // 2)
+    for batch, n in ((7, 7), (7, 20), (7, 64), (7, 72), (100, 128)):
+        ties = np.random.default_rng(5000 + n).integers(-2, 3, (batch, n, n))
+        _k2_vs_plain(torch.tensor(ties, dtype=torch.float32, device=dev),
+                     "ties", None, k2_err, torch)
     _k9_vs_plain(dev, new_err, torch)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
                       "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
@@ -1422,6 +1466,11 @@ def main() -> int:
     card = {"card": name, "power_limit": limit}
     timing = {}
     library = {}  # the one PyTorch call computing the same function
+    # K2's general class (κ ≤ 4n) at both shapes
+    k2_squares = {"spd_100x128": dev_cases["square_100x128"],
+                  "spd_1600x128": torch.tensor(make_square_batch(
+                      1600, 128, np.random.default_rng(2028)),
+                      dtype=torch.float32, device=dev)}
     for case in ("spd_100x128", "spd_1600x128"):
         a = dev_cases[case]
         linalg_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
@@ -1450,10 +1499,19 @@ def main() -> int:
         plain_ms = _median_ms(lambda: cuda_lu.lu_inverse_plain(a), torch)
         timing[("k2", "lu_pallas", case)] = (ms, plain_ms)
         library[("k2", "lu_pallas", case)] = linalg_ms
+        sq = k2_squares[case]
         print(json.dumps({"timing": "K2", "lane": "lu_pallas", "case": case,
-                          "kernel_ms": ms, "plain_ms": plain_ms,
-                          "torch_linalg_inv_ms": linalg_ms, **card}),
-              flush=True)
+                          "kernel_ms": ms, "k2_before_ms": K2_BEFORE_MS[case],
+                          "plain_ms": plain_ms,
+                          "torch_linalg_inv_ms": linalg_ms,
+                          "general_class": {
+                              "kernel_ms": _median_ms(
+                                  lambda: cuda_lu.lu_inverse_cuda(sq), torch),
+                              "lane_ms": _median_ms(
+                                  lambda: cuda_lu.inverse_lu(sq), torch),
+                              "torch_linalg_inv_ms": _median_ms(
+                                  lambda: torch.linalg.inv(sq), torch)},
+                          **card}), flush=True)
         chol_ms = _median_ms(lambda: linalg.cholesky(a), torch)
         for key, kernel, plain, lane, lane_t in (
                 ("k3", cuda_cholesky.inverse_cholesky_cuda,

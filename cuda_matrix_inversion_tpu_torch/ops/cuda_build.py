@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel holds its matrices in one block's shared memory, of which a block
 # may opt into 227 KB: K1, K8, K6 and K11 keep A (K) in fp32 and four
 # bf16 n×n tiles (200.5 KB at n = 128; K6 and K11 201.5 with [d a]); K2
-# keeps two n×n buffers (2·n²); K3 and K10 with ``emit_w`` two n×ld
+# keeps its tiles in registers and one n×ld buffer (83 KB at 128, with
+# the panel, the staged rows and the tables); K3 and K10 with ``emit_w`` two n×ld
 # (``csrc/cholesky_common.cuh::chol_ld``, 132 at n = 128: 135 KB); K4, K5
 # and K10 one n×ld (68 KB, three blocks an SM).  K7 keeps one n×n buffer
 # too and states its own larger ceiling, GAUSS_JORDAN_MAX_N = 192

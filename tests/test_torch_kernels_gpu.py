@@ -38,8 +38,8 @@ pytestmark = pytest.mark.gpu
 # products and differ only in summation order; each lands within its
 # residual (~2e-5 at the κ edge) of A⁻¹
 K1_RTOL = 2e-4
-# K2 repeats the plain version's operations in the same order
-K2_RTOL = 1e-5
+# K2 repeats the plain version's operations in the same order: its raw
+# inverse and pivots are compared with torch.equal (see _check_k2)
 # K3/K4: both fp32, the same operations (K3's WᵀW in another summation
 # order), on SPD draws with κ ≈ 2–3
 CHOL_RTOL = 1e-5
@@ -124,28 +124,60 @@ def test_k1_polish_highest_false_matches_plain(cuda, init, n):
         init=init, polish_highest=False))
 
 
+def _check_k2(cuda, a, bad=None, gate=True):
+    """K2's raw outputs against :func:`cuda_lu.lu_inverse_plain` on ``a``
+    (float32 NumPy), in one launch: ``inv`` and ``ipiv`` equal
+    (``torch.equal``) on every finite member and the same members
+    non-finite (``bad``, where given); the polished inverse of the finite
+    members through the gate."""
+    at = torch.tensor(a, device=cuda)
+    before = cuda_lu.lu_inverse_cuda.launches
+    x, piv = cuda_lu.lu_inverse_cuda(at)
+    torch.cuda.synchronize()
+    assert cuda_lu.lu_inverse_cuda.launches == before + 1
+    ref, ref_piv = cuda_lu.lu_inverse_plain(at)
+    finite = torch.isfinite(ref).all(dim=(1, 2))
+    assert torch.equal(torch.isfinite(x).all(dim=(1, 2)), finite)
+    if bad is not None:
+        assert (~finite).nonzero().flatten().tolist() == list(bad)
+    assert torch.equal(x[finite], ref[finite])
+    assert torch.equal(piv[finite], ref_piv[finite])
+    if gate:
+        keep = finite.cpu().numpy()
+        polished = cuda_lu.inverse_lu(at).cpu().numpy()
+        assert identity_error_inf(a[keep], polished[keep]) < 1e-4
+
+
 @pytest.mark.parametrize("kind", ["general", "permuted", "singular"])
-@pytest.mark.parametrize("n", [8, 20, 64, 128])
+@pytest.mark.parametrize("n", [8, 20, 64, 128, 1, 7, 40, 72, 127])
 def test_k2_matches_plain(cuda, kind, n):
+    """Every template instance (n ≤ 16, 32, 64, 128), n off a multiple of
+    4 (scalar loads and stores) and padded to the instance; one singular
+    member (rank 1, or 0 at n = 1) alone non-finite."""
     rng = np.random.default_rng(100 + n)
     a = make_square_batch(7, n, rng).astype(np.float32)
     if kind == "permuted":
         a = a + n * np.eye(n, dtype=np.float32)[rng.permutation(n)]
     if kind == "singular":
-        a[3] = 1.0
-    at = torch.tensor(a, device=cuda)
-    x, piv = cuda_lu.lu_inverse_cuda(at)
-    torch.cuda.synchronize()
-    ref, ref_piv = cuda_lu.lu_inverse_plain(at)
-    x, ref = x.cpu().numpy(), ref.cpu().numpy()
-    finite = np.isfinite(ref).all(axis=(1, 2))
-    assert (np.isfinite(x).all(axis=(1, 2)) == finite).all()
-    assert finite.sum() == (6 if kind == "singular" else 7)
-    assert _rel(x[finite], ref[finite]) <= K2_RTOL
-    keep = torch.from_numpy(finite)
-    assert torch.equal(piv.cpu()[keep], ref_piv.cpu()[keep])
-    polished = cuda_lu.inverse_lu(at).cpu().numpy()
-    assert identity_error_inf(a[finite], polished[finite]) < 1e-4
+        a[3] = 1.0 if n > 1 else 0.0
+    _check_k2(cuda, a, bad=[3] if kind == "singular" else [])
+
+
+@pytest.mark.parametrize("n", [7, 20, 64, 128])
+def test_k2_matches_plain_on_ties(cuda, n):
+    """Small integers in [-2, 2]: exact ties decide the pivots (the first
+    maximum by position), and some members may be singular."""
+    a = np.random.default_rng(300 + n).integers(-2, 3, (7, n, n)).astype(
+        np.float32)
+    _check_k2(cuda, a, gate=False)
+
+
+def test_k2_matches_plain_at_1600x128(cuda):
+    """The main path's largest batch, the general class (13 waves at one
+    block an SM)."""
+    a = make_square_batch(1600, 128, np.random.default_rng(1602)).astype(
+        np.float32)
+    _check_k2(cuda, a, bad=[])
 
 
 def _check_cholesky_kernels(cuda, batch, n, seed):
