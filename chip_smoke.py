@@ -13,10 +13,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (and 1600 at n = 128; K1 and K8 also at n ∈ {1, 40, 72, 127}, K1 with
    ``polish_highest=False`` at n ∈ {20, 72, 128}; K6 and K11 also at n =
    72; K8 and K11 at n ∈ {20, 128} with (lo, hi) ∈ {(0, 1), (1, 2), (3,
-   2)}; K7 at n = 192; K2 also at n ∈ {1, 2, 7, 40, 72, 127} and on
-   draws of small integers, where exact ties decide the pivots, its raw
-   ``inv`` and ``ipiv`` equal to the plain version's (``torch.equal``) on
-   every finite member); K2–K7 and K10 with one singular or indefinite
+   2)}; K2 also at n ∈ {1, 2, 7, 40, 72, 127} and on draws of small
+   integers, where exact ties decide the pivots, its raw ``inv`` and
+   ``ipiv`` equal to the plain version's (``torch.equal``) on every finite
+   member; K7 likewise at n ∈ {1, 7, 40, 72, 127, 160, 192} and on ties,
+   its raw inverse equal to the plain version's); K2–K7 and K10 with one
+   singular or indefinite
    member per batch, K8 and K11 with one member whose previous inverse
    holds a NaN, which alone must come out non-finite; K9 in the blocked factor and the whole polished blocked LU
    against the same routine on its plain version, n ∈ {160, 256, 512} ×
@@ -61,7 +63,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``solve`` method on cuSOLVER), K1, K8, K6 and K11 also beside their
    CUDA-core times before their tensor-core redesign, K3, K4, K5 and K10 beside
    theirs before the panel-blocked factor and L⁻¹, K2 beside its time
-   before its Hopper redesign and on the general class too; the warm lanes against
+   before its Hopper redesign and on the general class too, K7 beside its
+   time before its Hopper redesign; the warm lanes against
    the cold ones, one fit step of each method, and one engine request NumPy
    in and out;
    at 100×512 and 1600×256 K9 alone (its launches in one call, summed)
@@ -147,9 +150,13 @@ GP_ATOL = 1e-4
 GP_METHODS = ("solve", "inverse", "lu", "newton_schulz", "pallas",
               "pallas_ns")
 TIMED_CALLS = 20
-# K7 vs plain, max-norm relative: the kernel repeats the plain version's
-# operations in order (IEEE division, no FMA contraction).
-K7_RTOL = 1e-5
+# K7 repeats the plain version's operations in order (IEEE division, no FMA
+# contraction): its raw inverse is compared with torch.equal (_k7_vs_plain).
+# K7 before its Hopper redesign (one warp's pivot search, whole-row swaps
+# and three block barriers a step on a shared-memory matrix), through its
+# wrapper on the general class, in ms (phase 5 of this script on an NVIDIA
+# H100 80GB HBM3 at 700 W).
+K7_BEFORE_MS = {"square_100x128": 0.502, "square_1600x128": 2.801}
 # K8 and K11 vs plain: K1's arithmetic from a warm start, K1's bound.
 WARM_RTOL = 2e-4
 # K10 vs plain: K5's factor and substitution and K3's W; the sums and
@@ -222,6 +229,32 @@ def _k2_vs_plain(a, label, rtol, err, torch, singular=None):
     if not rel <= rtol:
         raise AssertionError(f"{what}: polished kernel vs plain {rel:.3e} > "
                              f"{rtol:g}")
+
+
+def _k7_vs_plain(a, label, err, torch, singular=None):
+    """K7's raw inverse against its plain version on ``a``: equal
+    (``torch.equal``) on every finite member and the same members
+    non-finite (only ``singular``, where given)."""
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_gauss_jordan
+
+    x = cuda_gauss_jordan.gauss_jordan_cuda(a)
+    torch.cuda.synchronize()
+    ref = cuda_gauss_jordan.gauss_jordan_plain(a)
+    what = f"K7 {label} {a.shape[0]}x{a.shape[-1]}"
+    ok = torch.isfinite(ref).all(dim=(1, 2))
+    if not torch.equal(torch.isfinite(x).all(dim=(1, 2)), ok):
+        raise AssertionError(f"{what}: non-finite members differ from the "
+                             f"plain version")
+    if singular is not None and (~ok).nonzero().flatten().tolist() != [
+            singular]:
+        raise AssertionError(f"{what}: the singular member alone must come "
+                             f"out non-finite")
+    if not torch.equal(x[ok], ref[ok]):
+        raise AssertionError(f"{what}: differs from the plain version's "
+                             f"bits")
+    entry = err.setdefault("k7", {"abs": 0.0, "rel": 0.0,
+                                  "raw_equal_members": 0})
+    entry["raw_equal_members"] += int(ok.sum())
 
 
 def _median_ms(fn, torch, calls: int = TIMED_CALLS, warmup: int = 3) -> float:
@@ -315,10 +348,7 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
         make_spd_batch,
         make_square_batch,
     )
-    from cuda_matrix_inversion_tpu_torch.ops import (
-        cuda_gauss_jordan,
-        cuda_gp_lml,
-    )
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_gp_lml
 
     bad = batch // 2 if batch > 1 else None
     seed = 1000 * n + batch
@@ -326,10 +356,9 @@ def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
                        device=dev)
     sing = gen.clone()
     if bad is not None:
-        sing[bad] = 1.0
-    _compare("k7", cuda_gauss_jordan.gauss_jordan_cuda,
-             cuda_gauss_jordan.gauss_jordan_plain, (sing,), bad, K7_RTOL,
-             err, torch)
+        sing[bad] = 1.0 if n > 1 else 0.0
+    _k7_vs_plain(sing, "singular" if bad is not None else "general", err,
+                 torch, singular=bad)
     if k7_only:
         return
     spd = torch.tensor(make_spd_batch(batch, n, rng), dtype=torch.float32,
@@ -615,8 +644,10 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
             lambda: cuda_gauss_jordan.gauss_jordan_plain(sq), torch)
         lane_ms = _median_ms(
             lambda: cuda_gauss_jordan.inverse_gauss_jordan(sq), torch)
-        timing[("k7", case)], library[("k7", case)] = (ms, plain_ms), inv_ms
-        show("K7", case.replace("spd", "square"), kernel_ms=ms,
+        sq_case = case.replace("spd", "square")
+        timing[("k7", sq_case)] = (ms, plain_ms)
+        library[("k7", sq_case)] = inv_ms
+        show("K7", sq_case, kernel_ms=ms, k7_before_ms=K7_BEFORE_MS[sq_case],
              plain_ms=plain_ms, lane_gauss_pallas_ms=lane_ms,
              torch_linalg_inv_ms=inv_ms)
 
@@ -1272,9 +1303,20 @@ def main() -> int:
                                dtype=torch.float32, device=dev)
             _k8_vs_plain(spd, gen, 3, 8000 + n, new_err, torch, lo=lo,
                          hi=hi)
-    for batch in (7, 100):  # K7 at the JAX kernel's ceiling, 148 KB
-        _new_kernels_vs_plain(batch, 192, np.random.default_rng(192 + batch),
-                              dev, new_err, torch, k7_only=True)
+    # K7 at every instance off the shapes above (n = 1, 7: NP = 16; 40:
+    # 64; 72, 127: 128, padded; 160 and the JAX kernel's ceiling 192: 192;
+    # n off a multiple of 4: scalar loads), and on small integers in
+    # [-2, 2], where exact ties decide the pivots (a member may be
+    # singular)
+    for n in (1, 7, 40, 72, 127, 160, 192):
+        for batch in (1, 7, 100):
+            _new_kernels_vs_plain(batch, n, np.random.default_rng(
+                4000 * n + batch), dev, new_err, torch, k7_only=True)
+    for batch, n in ((7, 7), (7, 20), (7, 64), (7, 72), (100, 128), (7, 160),
+                     (7, 192)):
+        ties = np.random.default_rng(6000 + n).integers(-2, 3, (batch, n, n))
+        _k7_vs_plain(torch.tensor(ties, dtype=torch.float32, device=dev),
+                     "ties", new_err, torch)
     # K2 at every instance off the shapes above (n = 1, 2, 7: NP = 16;
     # 40: 64; 72, 127: 128, padded; n off a multiple of 4: scalar loads),
     # and on small integers in [-2, 2], where exact ties decide the pivots
@@ -1604,7 +1646,7 @@ def main() -> int:
                    ("k6", "gp_100x128")),
         entry_line("k7", "K7 gauss_jordan (pivoted, no polish, square "
                    "100x128)", "gauss_jordan.cu",
-                   "pallas_gauss_jordan.py:244", ("k7", "spd_100x128")),
+                   "pallas_gauss_jordan.py:244", ("k7", "square_100x128")),
         entry_line("k8", "K8 newton_schulz warm (bf16, 2+1 rounds, drifted "
                    "spd 100x128)", "newton_schulz.cu", "newton_schulz.py:742",
                    ("k8", "spd_100x128")),

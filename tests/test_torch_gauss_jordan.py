@@ -146,3 +146,159 @@ def test_cpu_tensor_launches_no_kernel_and_shape_checks():
         gj.gauss_jordan_cuda(torch.eye(193)[None])
     with pytest.raises(ValueError, match="batch, n, n"):
         gj.inverse_gauss_jordan(torch.zeros(2, 3, 4))
+
+
+@pytest.fixture
+def one_thread():
+    """The replay and the plain version are thousands of small tensor ops,
+    and the suite runs in parallel workers: on one thread each op runs at
+    once instead of waiting for the worker's other threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _k7_schedule_replay(a: torch.Tensor, mutant: str | None = None):
+    """K7's schedule (``csrc/gauss_jordan.cu``) in plain PyTorch, float32,
+    each step an unfused mul then sub: the batch padded with the identity
+    to the kernel's NP (16, 32, 64, 128 or 192); rows never move (a row
+    map: each row's position, the pivot by the first maximum of the
+    magnitudes by position over the real rows at positions ≥ k, NaN never
+    winning); the steps by panels of 4 columns, each column's step taken
+    on the panel's columns first (the pivot row scaled by its reciprocal,
+    every other row v − f·prow with its own column value as f); at the
+    panel's end the 4 pivot rows formed across all columns (row h takes
+    the panel's earlier steps in order, then its scaling) and the panel's 4
+    steps taken on every row in order, a pivot row taking its scaled row at
+    its own step; then the composed unswap: W's row s goes to output row
+    pos[s], its column c to output column (the row at position c).  The
+    kernel's lookahead instance runs the same operations: its panel
+    threads bring the next panel's columns up to date with the same formed
+    pivot rows and multipliers as the tiles.
+
+    ``mutant`` breaks the order on purpose: ``"reversed_steps"`` takes a
+    panel's steps on the rows outside the panel last first, and
+    ``"unordered_pivot_rows"`` forms each pivot row without the panel's
+    earlier steps."""
+    batch, n, _ = a.shape
+    np_ = next(p for p in (16, 32, 64, 128, 192) if n <= p)
+    w = torch.eye(np_).repeat(batch, 1, 1)
+    w[:, :n, :n] = a
+    rows = torch.arange(batch)
+    slots = torch.arange(np_)
+    pos = slots.repeat(batch, 1)
+    nan4 = torch.full((batch, 4), float("nan"))
+    for k0 in range(0, n, 4):
+        nh = min(4, n - k0)
+        pan = slice(k0, k0 + 4)
+        v = w[:, :, pan].clone()  # the panel threads' columns
+        f = torch.zeros((batch, np_, 4))
+        sp, rs = [], []
+        for h in range(nh):
+            k = k0 + h
+            x = v[:, :, h].clone()
+            rx = 1.0 / x
+            cand = v.clone()
+            cand[:, :, h] = 1.0
+            cand = cand * rx[:, :, None]
+            mag = torch.where((slots < n) & (pos >= k), x.abs(),
+                              torch.tensor(float("nan")))
+            mag = torch.nan_to_num(mag, nan=-1.0)
+            best = mag.max(1).values
+            first = torch.where(mag == best[:, None], pos, np_).argmin(1)
+            found = best >= 0
+            s = torch.where(found, first, (pos == k).int().argmax(1))
+            p = pos[rows, s]
+            prow = torch.where(found[:, None], cand[rows, s], nan4)
+            f[:, :, h] = x
+            upd = v.clone()
+            upd[:, :, h] = 0.0
+            v = upd - x[:, :, None] * prow[:, None, :]
+            v[rows, s] = prow
+            at_k = pos == k
+            pos = torch.where(at_k, p[:, None], pos)
+            pos[rows, s] = k
+            sp.append(s)
+            rs.append(rx[rows, s])
+        st = [w[rows, s].clone() for s in sp]  # the pivot rows at the start
+        u = []
+        for h in range(nh):
+            uh = st[h]
+            if mutant != "unordered_pivot_rows":
+                for e in range(h):
+                    uh = uh - f[rows, sp[h], e][:, None] * u[e]
+            u.append(uh * rs[h][:, None])
+        order = range(nh - 1, -1, -1) if mutant == "reversed_steps" \
+            else range(nh)
+        for h in order:
+            piv = slots[None, :] == sp[h][:, None]
+            w = torch.where(piv[:, :, None], u[h][:, None, :],
+                            w - f[:, :, h:h + 1] * u[h][:, None, :])
+        w[:, :, pan] = v
+    row_at = torch.argsort(pos, dim=1)  # the row at each position
+    out = torch.empty((batch, n, n))
+    for b in range(batch):
+        out[b, pos[b, :n, None], row_at[b, None, :n]] = w[b, :n, :n]
+    return out
+
+
+@pytest.mark.parametrize("draw", ["general", "ties"])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 20, 72, 127, 128, 129, 192])
+def test_k7_schedule_is_bitwise_the_plain_order(n, draw, one_thread):
+    """K7's schedule against :func:`gj.gauss_jordan_plain`, equal
+    (``torch.equal``) on every finite member and the same members
+    non-finite: the identity padding to NP, the row map, the panels with
+    their pivot rows formed first and the composed unswap keep every
+    element's operations in the plain order.  A general draw with one
+    singular member (rank 1, or 0 at n = 1), and a draw of small integers
+    in [-2, 2] (exact ties decide the pivots; a member may be singular)."""
+    rng = np.random.default_rng(4000 + n)
+    if draw == "general":
+        a = rng.standard_normal((3, n, n)).astype(np.float32)
+        a[1] = 1.0 if n > 1 else 0.0
+    else:
+        a = rng.integers(-2, 3, (3, n, n)).astype(np.float32)
+    at = torch.tensor(a)
+    x = _k7_schedule_replay(at)
+    ref = gj.gauss_jordan_plain(at)
+    finite = torch.isfinite(ref).all(dim=(1, 2))
+    assert torch.equal(torch.isfinite(x).all(dim=(1, 2)), finite)
+    if draw == "general":
+        assert finite.tolist() == [True, False, True]
+    assert torch.equal(x[finite], ref[finite])
+
+
+@pytest.mark.parametrize("mutant", ["reversed_steps", "unordered_pivot_rows"])
+def test_k7_schedule_replay_catches_a_broken_order(mutant, one_thread):
+    """The replay is sharp enough to hold the kernel's order: a panel's
+    steps taken last first outside the panel, or pivot rows formed without
+    the panel's earlier steps, change bits of the result."""
+    a = torch.tensor(np.random.default_rng(4020).standard_normal(
+        (3, 20, 20)).astype(np.float32))
+    ref = gj.gauss_jordan_plain(a)
+    assert torch.equal(_k7_schedule_replay(a), ref)
+    assert not torch.equal(_k7_schedule_replay(a, mutant), ref)
+
+
+def test_k7_probe_patches_match_the_kernel_source():
+    """The card probe of K7 (``bench/gj_probe.py``) builds its stamped
+    variant by patching ``csrc/gauss_jordan.cu``: the source holds every
+    anchor of the current design's patches as often as the probe expects
+    (and so is probed as that design), the names its occupancy reader and
+    launcher call are the source's, and the probe refuses to run without a
+    card."""
+    from cuda_matrix_inversion_tpu_torch.bench import gj_probe
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "gauss_jordan.cu").read_text()
+    for anchor, _, count in gj_probe.DESIGNS["tiles"]["stamps"]:
+        assert src.count(anchor) == count, anchor
+    assert gj_probe.design_of(cuda_build.CSRC_DIR) == "tiles"
+    for name in ("const void* gj_kernel_for(int n)", "size_t gj_smem(int n)",
+                 "int gj_threads(int n)"):
+        assert src.count(name) == 1, name
+    assert all(len(d["steps"]) <= 16 for d in gj_probe.DESIGNS.values())
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            gj_probe.main()
