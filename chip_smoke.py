@@ -72,7 +72,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``lu_factor_big`` and ``torch.linalg.lu_factor_ex`` (the library
    factor, a yardstick the port never calls), the ``lu_bign_pallas`` lane
    beside its bound, ``torch.linalg.inv``, the plain routine, ``lu_hiacc``
-   and the panel-width ladder.
+   and the panel-width ladder;
+6. reference harness, with the counters reset: the port's fixture tree
+   (``generate_all`` at n ∈ {8, 32, 128}, 100 matrices), the native
+   LAPACK oracle's build (optional: its rows register when it loads), the
+   ``inverse_bench`` CLI on the default roster at 100×128 and 1600×128 and
+   on the general roster at 100×128 (every requested row present, every
+   row through the gate on its returned inverse), ``gauss_bench`` with
+   each method at 100×128 and 1600×128 and its fit rows at 1600×128
+   (every mean and variance row within 1e-4 a matrix of the fp64 truth),
+   ``stream_inverse`` over the written ``a.mats`` files (the same bits as
+   the lane called directly on the same batches) and the autodiff backward
+   through K2 against its fp64 closed form; K1, K2, K3, K5, K6, K7, K9
+   and K10's counters must move.  Each CLI device row's mean ms is printed
+   beside phase 5's time for the same lane and shape.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 bound (the larger of its bytes over the HBM rate and its operations over
@@ -1121,6 +1134,210 @@ def _time_big_n(dev, cases, timing, library, card, torch):
         show("pw_ladder", case, default_pw=lu_bign.DEFAULT_PW, ladder=ladder)
 
 
+# Phase 6 (the reference's harness): the fixture tree's dimensions, the
+# shape of its rows, the CLIs' reps, and the stream's batch.
+HARNESS_DIMS = (8, 32, 128)
+HARNESS_N = 128
+HARNESS_NUM = 100
+INVERSE_REPS = 3
+GAUSS_REPS = 2
+STREAM_BATCH = 64
+# the autodiff gradient against its fp64 closed form, max-norm relative
+AUTODIFF_RTOL = 1e-4
+# The general roster's host rows (lu_cpu, gauss_cpu, lu_native_cpu) are
+# fp32 LAPACK / Gauss-Jordan with no polish, bit for bit the JAX package's
+# host lanes: on the general class at n = 128 (κ ≤ 4n) they sit at
+# ~4e-4, above GATE, where every polished device row passes it.  They are
+# held to this instead (a broken oracle is off by O(1)).
+HOST_GENERAL_GATE = 1e-3
+
+
+def _cli_rows(bench, argv, what, phase5, lines, card, method=None):
+    """Run a CLI through ``run_argv`` (what its ``main`` runs), print every
+    CSV row as it comes, parse them with the port's ``parse_csv_rows`` and
+    return ``(rows, reporter)``.  Each device row's mean ms is noted beside
+    phase 5's time for the same lane (GP ``method``) and shape."""
+    import io
+    import tempfile
+
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import parse_csv_rows
+
+    buf = io.StringIO()
+    rep = bench.run_argv(argv, stream=buf)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"{what}: {line}", flush=True)
+    with tempfile.NamedTemporaryFile("w", suffix=".csv") as f:
+        f.write(text)
+        f.flush()
+        rows = parse_csv_rows(f.name)
+    for row in rows:
+        key = (("gp", method) if row["name"].endswith("_gpu")
+               else ("lane", row["name"])) + (row["num_matrices"], row["n"])
+        if key in phase5:
+            lines.append({"phase": "reference_harness", "timing": what,
+                          "row": row["name"],
+                          "shape": f"{row['num_matrices']}x{row['n']}",
+                          "cli_mean_ms": row["mean_ms"],
+                          "phase5_ms": phase5[key][0],
+                          "phase5_what": phase5[key][1], **card})
+    return rows, rep
+
+
+def _reference_harness(device, phase5, card, torch):
+    """Phase 6: the reference's own workflow on the port — the fixture
+    tree, the native oracle, both CLIs, the pinned-buffer stream and the
+    autodiff backward.  Returns (printed lines, failures)."""
+    import shutil
+    import tempfile
+
+    from cuda_matrix_inversion_tpu_torch.bench import gauss_bench, inverse_bench
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        generate_all,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.io.stream import (
+        DeviceBatchStream,
+        stream_inverse,
+    )
+    from cuda_matrix_inversion_tpu_torch.native import build as native_build
+    from cuda_matrix_inversion_tpu_torch.ops import autodiff
+    from cuda_matrix_inversion_tpu_torch.ops.registry import (
+        get_inverse_algorithm,
+        list_inverse_algorithms,
+    )
+
+    lines, failures = [], []
+    n, num = HARNESS_N, HARNESS_NUM
+    root = tempfile.mkdtemp(prefix="cmi_harness_")
+    try:
+        t0 = time.monotonic()
+        generate_all(root, dims=HARNESS_DIMS, num=num)
+        native = native_build.ensure_built()
+        native_err = None
+        if native is None:
+            try:
+                native_build.build(verbose=False)
+            except (OSError, native_build.NativeBuildError) as exc:
+                native_err = str(exc)
+        host_lanes = list_inverse_algorithms(cpu=True)
+        print(json.dumps({"phase": "reference_harness", "fixtures": root,
+                          "dims": list(HARNESS_DIMS), "num": num,
+                          "seconds": time.monotonic() - t0,
+                          "native_registered": "lu_native_cpu" in host_lanes
+                          and "cholesky_native_cpu" in host_lanes,
+                          "native_error": native_err,
+                          "host_lanes": host_lanes}), flush=True)
+
+        # inverse_bench: the default roster on the SPD set (100 and 1600
+        # matrices), the general roster on the general set (100)
+        available = set(list_inverse_algorithms())
+        runs = [
+            (f"inverse_{num}_{n}x{n}", 1, inverse_bench.DEFAULT_ALGORITHMS),
+            (f"inverse_{num}_{n}x{n}", 16, inverse_bench.DEFAULT_ALGORITHMS),
+            (f"square_5_{n}x{n}", 20, inverse_bench.GENERAL_ALGORITHMS)]
+        for folder, dups, roster in runs:
+            argv = [f"{root}/{folder}", str(INVERSE_REPS), str(dups), "-csv",
+                    "--algorithms", *roster, "--device", str(device)]
+            what = f"inverse_bench {folder} x{dups}"
+            rows, rep = _cli_rows(inverse_bench, argv, what, phase5, lines,
+                                  card)
+            want = inverse_bench.resolve_algorithms(roster, available)
+            got = [r["name"] for r in rows]
+            if got != want:
+                failures.append(f"{what}: rows {got}, want {want}")
+            for name in want:
+                gate = float(rep.entries[name].extra["max ||AA^-1 - I||_inf"])
+                bound = (HOST_GENERAL_GATE if name.endswith("_cpu")
+                         and folder.startswith("square") else GATE)
+                lines.append({"phase": "reference_harness", "cli": what,
+                              "row": name, "gate": gate, "bound": bound})
+                if not gate < bound:
+                    failures.append(f"{what} {name}: gate {gate:.3e}")
+
+        # gauss_bench: each method at 100 and 1600 matrices (host rows on
+        # the solve and inverse runs, the two host pipelines), the fit
+        # rows once at 1600
+        folder = f"{root}/gaussian_{num}_{n}x{n}"
+        for dups in (1, 16):
+            for method in GP_METHODS:
+                argv = [folder, str(GAUSS_REPS), str(dups), "-csv",
+                        "--method", method, "--device", str(device)]
+                if method not in ("solve", "inverse"):
+                    argv.append("--skip-cpu")
+                if dups == 16 and method == "solve":
+                    argv.append("--fit")
+                what = f"gauss_bench {method} x{dups}"
+                rows, _ = _cli_rows(gauss_bench, argv, what, phase5, lines,
+                                    card, method=method)
+                want = ["means_gpu", "variances_gpu"]
+                if "--skip-cpu" not in argv:
+                    want = ["means_cpu", "variances_cpu", *want]
+                if "--fit" in argv:
+                    want += ["fit_step_xla", "fit_step_pallas"]
+                got = [r["name"] for r in rows]
+                if got != want:
+                    failures.append(f"{what}: rows {got}, want {want}")
+                for r in rows:
+                    if r["name"].startswith(("means", "variances", "fit")) \
+                            and not r["err"] < GP_ATOL:
+                        failures.append(f"{what} {r['name']}: error "
+                                        f"{r['err']:.3e} per matrix")
+
+        # stream_inverse over the written a.mats files: the same bits as
+        # one direct call of the lane on the same re-chunked batches
+        for lane, kinds in (("lu_pallas", ("inverse", "square")),
+                            ("newton_schulz_spd10_pallas", ("inverse",))):
+            fn = get_inverse_algorithm(lane)
+            for dim in HARNESS_DIMS:
+                paths = [f"{root}/inverse_{num}_{dim}x{dim}/a.mats"]
+                if "square" in kinds:
+                    paths.append(f"{root}/square_5_{dim}x{dim}/a.mats")
+                streamed = list(stream_inverse(paths, lane, STREAM_BATCH,
+                                               device=device))
+                chunks = list(DeviceBatchStream(
+                    paths, STREAM_BATCH, device="cpu")._host_batches())
+                equal = len(streamed) == len(chunks)
+                worst = 0.0
+                for x, host in zip(streamed, chunks):
+                    direct = fn(torch.tensor(host, device=device)).cpu()
+                    equal &= torch.equal(torch.from_numpy(x), direct)
+                    worst = max(worst, identity_error_inf(host, x))
+                lines.append({"phase": "reference_harness",
+                              "stream_inverse": lane, "n": dim,
+                              "batches": [c.shape[0] for c in chunks],
+                              "equal_to_direct": bool(equal), "gate": worst})
+                if not equal:
+                    failures.append(f"stream_inverse {lane} n={dim}: not "
+                                    f"equal to the direct lane")
+                if not worst < GATE:
+                    failures.append(f"stream_inverse {lane} n={dim}: gate "
+                                    f"{worst:.3e}")
+
+        # autodiff: d sum(X * G) / dA through K2, against -A^-T G A^-T
+        rng = np.random.default_rng(2029)
+        a = torch.tensor(make_spd_batch(100, 32, rng), dtype=torch.float32,
+                         device=device, requires_grad=True)
+        g = torch.tensor(rng.standard_normal((100, 32, 32)),
+                         dtype=torch.float32, device=device)
+        x = autodiff.differentiable("lu_pallas")(a)
+        (grad,) = torch.autograd.grad((x * g).sum(), a)
+        inv64 = torch.linalg.inv(a.detach().double())
+        ref = -(inv64.mT @ g.double() @ inv64.mT)
+        rel = float((grad.double() - ref).abs().max() / ref.abs().max())
+        lines.append({"phase": "reference_harness",
+                      "autodiff": "differentiable('lu_pallas') 100x32",
+                      "rel_vs_fp64": rel, "gate": AUTODIFF_RTOL})
+        if not rel <= AUTODIFF_RTOL:
+            failures.append(f"autodiff: {rel:.3e} off the fp64 closed form")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return lines, failures
+
+
 def main() -> int:
     import torch
 
@@ -1174,7 +1391,7 @@ def main() -> int:
           flush=True)
 
     # ---- 3. each kernel against its plain version ----
-    k1_lanes = [name for name in list_inverse_algorithms()
+    k1_lanes = [name for name in list_inverse_algorithms(cpu=False)
                 if LANES[name]["schedule"] is not None]
     k1_err = {"abs": 0.0, "rel": 0.0}
     k2_err = {"abs": 0.0, "rel_spd": 0.0, "rel_general": 0.0,
@@ -1351,8 +1568,9 @@ def main() -> int:
     cases = {"spd_100x128": a100, "spd_1600x128": a1600,
              "square_100x128": sq100}
     dev_cases = {k: torch.tensor(v, device=dev) for k, v in cases.items()}
-    runs = [(lane, "spd_100x128") for lane in list_inverse_algorithms()]
-    runs += [(lane, "spd_1600x128") for lane in list_inverse_algorithms()]
+    device_lanes = list_inverse_algorithms(cpu=False)
+    runs = [(lane, "spd_100x128") for lane in device_lanes]
+    runs += [(lane, "spd_1600x128") for lane in device_lanes]
     runs += [("lu_pallas", "square_100x128"),
              ("newton_schulz_pan500_pallas", "square_100x128")]
     # GP systems as generate_gaussian_fixtures draws them, and entry()'s
@@ -1386,6 +1604,7 @@ def main() -> int:
     inversion_path = ("k1", "k2", "k3", "k4", "k5", "k6")
     engine_path = ("k7", "k8", "k10", "k11")
     big_n_path = ("k2", "k9")
+    harness_path = ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "k10")
 
     for fn in counters.values():
         fn.launches = 0
@@ -1508,6 +1727,9 @@ def main() -> int:
     card = {"card": name, "power_limit": limit}
     timing = {}
     library = {}  # the one PyTorch call computing the same function
+    # phase 5's time of each lane / GP method by ("lane" | "gp", name,
+    # batch, n), for phase 6's CLI rows
+    phase5 = {}
     # K2's general class (κ ≤ 4n) at both shapes
     k2_squares = {"spd_100x128": dev_cases["square_100x128"],
                   "spd_1600x128": torch.tensor(make_square_batch(
@@ -1517,9 +1739,11 @@ def main() -> int:
         a = dev_cases[case]
         linalg_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
         lane_ms = {}
-        for lane in list_inverse_algorithms():
+        for lane in list_inverse_algorithms(cpu=False):
             lane_ms[lane] = _median_ms(
                 lambda: host_api.inverse_batched_device(a, lane), torch)
+            phase5[("lane", lane, a.shape[0], a.shape[-1])] = (
+                lane_ms[lane], f"inverse_batched_device {case}")
             print(json.dumps({"timing": "lane", "lane": lane, "case": case,
                               "ms": lane_ms[lane],
                               "torch_linalg_inv_ms": linalg_ms, **card}),
@@ -1582,6 +1806,8 @@ def main() -> int:
         for method in GP_METHODS:
             method_ms[method] = _median_ms(
                 lambda: gp.gp_mean_variance(*args, method=method), torch)
+            phase5[("gp", method, args[1].shape[0], args[1].shape[-1])] = (
+                method_ms[method], f"gp_mean_variance (mean and var) {case}")
             print(json.dumps({"timing": "gp_mean_variance", "method": method,
                               "case": case, "ms": method_ms[method],
                               **card}), flush=True)
@@ -1605,6 +1831,25 @@ def main() -> int:
                               **before, **card}), flush=True)
     _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch)
     _time_big_n(dev, big_cases, timing, library, card, torch)
+
+    # ---- 6. the reference's harness, counted on its own ----
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    harness_lines, failures = _reference_harness(dev, phase5, card, torch)
+    torch.cuda.synchronize()
+    harness_launches = {key: fn.launches for key, fn in counters.items()}
+    for line in harness_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "reference_harness",
+                      "seconds": time.monotonic() - t0,
+                      "launches": harness_launches}), flush=True)
+    if failures:
+        raise AssertionError("reference harness: " + "; ".join(failures))
+    if not all(harness_launches[k] for k in harness_path):
+        raise AssertionError(f"reference harness did not launch every "
+                             f"kernel of its path: {harness_launches}")
+    launches = {k: launches[k] + harness_launches[k] for k in counters}
 
     scheds = (LANES["newton_schulz_spd10_pallas"]["schedule"],
               cuda_gp.GP_NS_SCHEDULE)

@@ -41,13 +41,19 @@ def resolve_device(device=None) -> torch.device:
 
 def inverse_batched(a: np.ndarray, algorithm: str = "lu", device=None,
                     check: bool = False) -> np.ndarray:
-    """Invert a host batch on ``device``; NumPy in, NumPy out.
+    """Invert a host batch on ``device``; NumPy in, NumPy out.  A host
+    lane (a name ending in ``_cpu``) takes the NumPy batch itself and
+    touches no device.
 
     ``check=True`` raises :class:`SingularBatchError` naming the members
     whose inverse is not finite."""
     host = as_batch(a)
     fn = get_inverse_algorithm(algorithm)
-    out = fn(torch.tensor(host, device=resolve_device(device))).cpu().numpy()
+    if algorithm.endswith("_cpu"):
+        out = fn(host)
+    else:
+        out = fn(torch.tensor(host, device=resolve_device(device))
+                 ).cpu().numpy()
     if check:
         finite = np.isfinite(out).all(axis=(1, 2))
         if not finite.all():
@@ -64,17 +70,30 @@ def solve_batched(a: np.ndarray, rhs: np.ndarray, method: str = "lu",
                   device=None) -> np.ndarray:
     """Batched linear solve AX = RHS without forming A⁻¹; NumPy in/out.
 
-    ``method="lu"`` for general systems, ``"cholesky"`` for SPD ones.
-    ``rhs``: (batch, n, k) or (batch, n)."""
+    ``method="lu"`` for general systems, ``"cholesky"`` for SPD ones;
+    ``"lu_cpu"`` and ``"cholesky_cpu"`` solve each member on the host with
+    SciPy and touch no device.  ``rhs``: (batch, n, k) or (batch, n)."""
     solvers = {"lu": linalg.lu_solve, "cholesky": linalg.spd_solve}
-    if method not in solvers:
-        raise KeyError(f"unknown solve method {method!r}; have {list(solvers)}")
+    methods = (*solvers, "lu_cpu", "cholesky_cpu")
+    if method not in methods:
+        raise KeyError(f"unknown solve method {method!r}; have {list(methods)}")
     host_a = as_batch(a)
     host_rhs = np.asarray(rhs, dtype=host_a.dtype)
     squeeze = host_rhs.ndim == 2
     if squeeze:
         host_rhs = host_rhs[..., None]
-    dev = resolve_device(device)
-    out = solvers[method](torch.tensor(host_a, device=dev),
-                          torch.tensor(host_rhs, device=dev)).cpu().numpy()
+    if method.endswith("_cpu"):
+        import scipy.linalg
+
+        out = np.empty_like(host_rhs)
+        for i in range(host_a.shape[0]):
+            if method == "cholesky_cpu":
+                cf = scipy.linalg.cho_factor(host_a[i], lower=True)
+                out[i] = scipy.linalg.cho_solve(cf, host_rhs[i])
+            else:
+                out[i] = scipy.linalg.solve(host_a[i], host_rhs[i])
+    else:
+        dev = resolve_device(device)
+        out = solvers[method](torch.tensor(host_a, device=dev),
+                              torch.tensor(host_rhs, device=dev)).cpu().numpy()
     return out[..., 0] if squeeze else out

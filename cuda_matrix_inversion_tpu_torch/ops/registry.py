@@ -14,7 +14,10 @@ Device algorithms take and return a ``(batch, n, n)`` tensor on any
 supported device.  :func:`register_inverse` adds a lane at run time, as
 the JAX registry's does: a device lane beside :data:`LANES` (with no
 keywords and no schedule), or a host lane (``cpu=True``) in a table of
-its own, empty until one is registered.
+its own.  The host lanes are the LAPACK oracle of :mod:`.cpu_reference`
+(``lu_cpu``, ``cholesky_cpu``, ``gauss_cpu``) and, once its library loads,
+the native one (``lu_native_cpu``, ``cholesky_native_cpu``): NumPy in,
+NumPy out, on the host.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import functools
 from typing import Callable, Mapping
 
 from cuda_matrix_inversion_tpu_torch.ops import (
+    cpu_reference,
     cuda_cholesky,
     cuda_gauss_jordan,
     cuda_lu,
@@ -90,7 +94,12 @@ def build_lane_table(keywords: Mapping[str, Mapping]) -> dict[str, dict]:
 
 
 LANES = build_lane_table(LANE_KEYWORDS)
-_CPU_ALGORITHMS: dict[str, Callable] = {}
+# Host lanes — analog of inverse_lu_blas / inverse_chol_blas.
+_CPU_ALGORITHMS: dict[str, Callable] = {
+    "lu_cpu": cpu_reference.inverse_lu,
+    "cholesky_cpu": cpu_reference.inverse_cholesky,
+    "gauss_cpu": cpu_reference.inverse_gauss_jordan,
+}
 # Lanes whose device path runs one of the port's kernels (the JAX
 # registry's pallas=True lanes: the *_pallas lanes, and lu_hiacc on K2).
 _PALLAS_ALGORITHMS = {name for name in LANES if name.endswith("_pallas")}
@@ -116,9 +125,25 @@ def is_pallas_algorithm(name: str) -> bool:
     return name in _PALLAS_ALGORITHMS
 
 
+def _populate_native() -> None:
+    """Register the native oracle's lanes once its library loads.  Retried
+    on every listing and host-lane lookup until then, since the library
+    may be built later in the process (``oracle.available()`` stats three
+    files while it is missing: never on a device lane's lookup)."""
+    if "lu_native_cpu" in _CPU_ALGORITHMS:
+        return
+    from cuda_matrix_inversion_tpu_torch.native import oracle
+
+    if oracle.available():
+        register_inverse("lu_native_cpu", oracle.inverse_lu, cpu=True)
+        register_inverse("cholesky_native_cpu", oracle.inverse_cholesky,
+                         cpu=True)
+
+
 def get_inverse_algorithm(name: str) -> Callable:
     if name in LANES:
         return functools.partial(_FUNCTIONS[name], **LANES[name]["keywords"])
+    _populate_native()
     if name in _CPU_ALGORITHMS:
         return _CPU_ALGORITHMS[name]
     raise KeyError(f"unknown inversion algorithm {name!r}; have "
@@ -127,7 +152,9 @@ def get_inverse_algorithm(name: str) -> Callable:
 
 def list_inverse_algorithms(cpu: bool | None = None) -> list[str]:
     """Registered lane names: the device lanes (``cpu=False``), the host
-    lanes (``cpu=True``), or both (``None``), each group sorted."""
+    lanes (``cpu=True``), or both (``None``: the device lanes, then the
+    host lanes), each group sorted."""
+    _populate_native()
     if cpu is True:
         return sorted(_CPU_ALGORITHMS)
     if cpu is False:

@@ -28,6 +28,7 @@ from cuda_matrix_inversion_tpu.ops import xla as jax_xla
 from cuda_matrix_inversion_tpu_torch import types as port_types
 from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
 from cuda_matrix_inversion_tpu_torch.io import fixtures, replicate
+from cuda_matrix_inversion_tpu_torch.native import build as native_build
 from cuda_matrix_inversion_tpu_torch.ops import (
     cuda_build,
     cuda_cholesky,
@@ -56,11 +57,21 @@ def _rel(x, ref):
 
 
 def test_registry_lanes():
-    assert list_inverse_algorithms() == LANES
+    """The device lanes, then the host lanes: JAX's SciPy three, and the
+    native two exactly when the port's oracle is built and loads."""
+    built = native_build.ensure_built() is not None
+    host = ["cholesky_cpu", "gauss_cpu", "lu_cpu"]
+    jax_host = jax_registry.list_inverse_algorithms(cpu=True)
+    assert [n for n in jax_host if "native" not in n] == host
+    if built:
+        host = sorted(host + ["cholesky_native_cpu", "lu_native_cpu"])
     assert list_inverse_algorithms(cpu=False) == LANES
-    assert list_inverse_algorithms(cpu=True) == []
-    with pytest.raises(KeyError, match="lu_cpu"):
-        get_inverse_algorithm("lu_cpu")
+    assert list_inverse_algorithms(cpu=True) == host
+    assert list_inverse_algorithms() == LANES + host
+    for name in host:
+        assert callable(get_inverse_algorithm(name))
+    with pytest.raises(KeyError, match="bogus"):
+        get_inverse_algorithm("bogus")
 
 
 @pytest.mark.parametrize("lane,batch,n", [(lane, 8, 32) for lane in LANES]
@@ -105,8 +116,11 @@ def test_solve_batched_matches_jax(method, rhs_shape):
     x = host_api.solve_batched(a, rhs, method=method, device="cpu")
     assert x.shape == rhs.shape
     assert _rel(x, ref) <= 1e-5
-    with pytest.raises(KeyError, match="lu_cpu"):
-        host_api.solve_batched(a, rhs, method="lu_cpu")
+    host = f"{method}_cpu"
+    assert np.array_equal(host_api.solve_batched(a, rhs, method=host),
+                          jax_host_api.solve_batched(a, rhs, method=host))
+    with pytest.raises(KeyError, match="lu_cpu"):  # the methods it has
+        host_api.solve_batched(a, rhs, method="bogus")
 
 
 def test_cpu_tensors_do_not_launch_kernels():
@@ -196,7 +210,10 @@ def test_nvcc_missing_is_a_clear_error(monkeypatch):
 
 def test_port_imports_no_jax():
     """A subprocess that refuses any import of jax imports the port,
-    inverts a CPU batch through the registry and runs every GP method."""
+    inverts a CPU batch through the registry (host lanes included), runs
+    every GP method, and drives the reference's harness on the CPU: the
+    fixture tree, both bench CLIs, the stream and the autodiff, stats and
+    Strassen modules."""
     code = textwrap.dedent("""
         import sys
         class NoJax:
@@ -235,6 +252,39 @@ def test_port_imports_no_jax():
                                                   device="cpu")):
             n = m.shape[0]
             assert np.abs(m @ x - np.eye(n)).sum(-1).max() < 1e-4
+        import contextlib, io, tempfile
+        import torch
+        from cuda_matrix_inversion_tpu_torch.bench import (
+            gauss_bench, inverse_bench,
+        )
+        from cuda_matrix_inversion_tpu_torch.io.fixtures import generate_all
+        from cuda_matrix_inversion_tpu_torch.io.stream import stream_inverse
+        from cuda_matrix_inversion_tpu_torch.native import (
+            build, matsio, oracle,
+        )
+        from cuda_matrix_inversion_tpu_torch.ops import (
+            autodiff, cpu_reference, stats, strassen,
+        )
+        from cuda_matrix_inversion_tpu_torch.utils import printing, timer
+        with tempfile.TemporaryDirectory() as root:
+            generate_all(root, dims=(4,), num=6)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert inverse_bench.main(
+                    [root + "/inverse_6_4x4", "2", "1", "-csv",
+                     "--device", "cpu"]) == 0
+                assert gauss_bench.main(
+                    [root + "/gaussian_6_4x4", "1", "1", "-csv", "--method",
+                     "pallas", "--fit", "--device", "cpu"]) == 0
+            rows = [line.split() for line in out.getvalue().splitlines()]
+            assert rows and all(len(r) in (6, 8) for r in rows), rows
+            streamed = list(stream_inverse(
+                [root + "/inverse_6_4x4/a.mats"] * 2, "lu_pallas",
+                batch_size=5, device="cpu"))
+            assert [x.shape[0] for x in streamed] == [5, 5, 2]
+        x = torch.eye(3, dtype=torch.float64)[None].requires_grad_(True)
+        autodiff.differentiable("lu")(x).sum().backward()
+        assert x.grad.shape == (1, 3, 3)
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
         print("ok")
     """)
