@@ -25,7 +25,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    batch ∈ {1, 7, 100}, 1600×256, 7×160 at pw = 8 and 24 (the generic
    instance) and draws of small integers (exact ties decide the pivots),
    one member with a zero column; the factor, pivots,
-   perm and triangle inverses bitwise;
+   perm and triangle inverses bitwise; K8 (bf16 and split3) and K11 on
+   their thread-block-cluster instances at n ∈ {129, 144, 160, 192, 200,
+   224} × batch ∈ {1, 7, 100}, K8 at 1600×224, and both at n = 160 with
+   (lo, hi) ∈ {(0, 1), (3, 2)}, each with one NaN member;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -56,7 +59,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the gate; and
    ``lu_hiacc`` against JAX's fp64 contracts (≤ 1e-11 at κ = 500, n = 128,
    also beside a singular member; ≤ 1e-8 at κ = 2e4 adaptive and on the
-   κ ≈ 4n class at n = 512); K2 and K9's counters must move in this path;
+   κ ≈ 4n class at n = 512); K2 and K9's counters must move in this path.
+   Then the warm band path, with the counters reset and every warning an
+   error: a spd10 engine's bf16 ``inverse_warm`` at 100×140, 100×192 and
+   100×224 (buckets 160, 192, 224), a pan500 engine's split3
+   ``inverse_warm`` on the κ = 500 class at 100×224 and
+   ``GPEngine.mean_variance_warm`` over 3 drifting timesteps at 100×192,
+   all through the gate or within 1e-4 of the fp64 closed form; the
+   cluster instances of K8 and K11 must launch in this path;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
@@ -72,7 +82,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``lu_factor_big`` and ``torch.linalg.lu_factor_ex`` (the library
    factor, a yardstick the port never calls), the ``lu_bign_pallas`` lane
    beside its bound, ``torch.linalg.inv``, the plain routine, ``lu_hiacc``
-   and the panel-width ladder;
+   and the panel-width ladder; at 100×224, 1600×224, 100×160 and 100×192
+   K8 (bf16, split3) and K11 on their cluster instances beside their plain
+   versions, ``torch.linalg.inv``, the route each replaced and the
+   bound;
 6. reference harness, with the counters reset: the port's fixture tree
    (``generate_all`` at n ∈ {8, 32, 128}, 100 matrices), the native
    LAPACK oracle's build (optional: its rows register when it loads), the
@@ -172,6 +185,13 @@ TIMED_CALLS = 20
 K7_BEFORE_MS = {"square_100x128": 0.502, "square_1600x128": 2.801}
 # K8 and K11 vs plain: K1's arithmetic from a warm start, K1's bound.
 WARM_RTOL = 2e-4
+# The warm kernels' cluster instances (n = 129 … 224, NP = 160, 192, 224):
+# phase 3's dimensions (31 rows of zero padding at 129, none at 160, 192,
+# 224), phase 4's engine requests (buckets 160, 192, 224), and phase 5's
+# shapes.
+BAND_N = (129, 144, 160, 192, 200, 224)
+BAND_ENGINE_N = (140, 192, 224)
+BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
 # K10 vs plain: K5's factor and substitution and K3's W; the sums and
 # logarithms differ in order only.
 LML_RTOL = 1e-5
@@ -309,6 +329,21 @@ def _confined(out, bad: int | None, what: str, torch):
     return finite
 
 
+def _norm2(x, torch, iters: int = 1000):
+    """The 2-norm of each member of the float64 batch ``x``, by power
+    iteration on xᵀx from a fixed start: on this script's draws and noise
+    1000 steps agree with the SVD's within 3e-4 relative (so the drift's
+    δ does), in batched products where the card's SVD goes matrix by
+    matrix."""
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    v = torch.randn((x.shape[0], x.shape[-1], 1), generator=gen,
+                    device=x.device, dtype=x.dtype)
+    for _ in range(iters):
+        v = x.mT @ (x @ v)
+        v = v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+    return torch.linalg.vector_norm(x @ v, dim=(1, 2))
+
+
 def _drift(a, delta: float, seed: int, symmetric: bool, torch):
     """``a`` plus Gaussian noise of relative 2-norm ``delta`` per member
     (symmetrised for SPD input), drawn on ``a``'s device from ``seed``."""
@@ -318,8 +353,7 @@ def _drift(a, delta: float, seed: int, symmetric: bool, torch):
     if symmetric:
         noise = (noise + noise.mT) / 2
     a64 = a.double()
-    scale = (torch.linalg.matrix_norm(a64, ord=2)
-             / torch.linalg.matrix_norm(noise, ord=2))
+    scale = _norm2(a64, torch) / _norm2(noise, torch)
     return (a64 + delta * scale[:, None, None] * noise).float()
 
 
@@ -419,15 +453,20 @@ def _k1_vs_plain(a, sched, what, err, torch):
                              f"{K1_RTOL:g}")
 
 
-def _k8_vs_plain(spd, gen, bad, seed, err, torch, lo=2, hi=1):
+def _k8_vs_plain(spd, gen, bad, seed, err, torch, lo=2, hi=1, suffix=""):
     """K8 at ``lo`` + ``hi`` rounds against its plain version: bf16 on the
     SPD batch drifted by WARM_DELTA, split3 on the general batch drifted by
     SPLIT3_DELTA, each from its exact inverse; member ``bad`` (if any)
-    starts from an X0 holding a NaN and alone must come out non-finite."""
+    starts from an X0 holding a NaN and alone must come out non-finite.
+    The errors go under ``k8`` and ``k8_split3`` with ``suffix``; a batch
+    given as None is skipped."""
     from cuda_matrix_inversion_tpu_torch.ops import newton_schulz
 
-    for key, a0, delta, split3 in (("k8", spd, WARM_DELTA, False),
-                                   ("k8_split3", gen, SPLIT3_DELTA, True)):
+    for key, a0, delta, split3 in (("k8" + suffix, spd, WARM_DELTA, False),
+                                   ("k8_split3" + suffix, gen, SPLIT3_DELTA,
+                                    True)):
+        if a0 is None:
+            continue
         x0 = torch.linalg.inv(a0.double()).float()
         if bad is not None:
             x0[bad, 0, 0] = float("nan")
@@ -437,23 +476,63 @@ def _k8_vs_plain(spd, gen, bad, seed, err, torch, lo=2, hi=1):
                  WARM_RTOL, err, torch)
 
 
-def _k11_vs_plain(g, bad, seed, err, torch, lo=2, hi=1):
+def _k11_vs_plain(g, bad, seed, err, torch, lo=2, hi=1, key="k11"):
     """K11 against its plain version at `lo` + `hi` rounds on the GP batch
     ``g`` (float32 tensors a … e on the card, B drifted by WARM_DELTA from
     the one X0 inverts): WARM_RTOL on every output, K6_ATOL on mean and
     var; member ``bad``'s X0 holds a NaN and alone must come out
-    non-finite."""
-    from cuda_matrix_inversion_tpu_torch.ops import cuda_gp, linalg
+    non-finite.  The errors go under ``key``."""
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_build, cuda_gp, linalg
 
     x0 = torch.linalg.inv(linalg.add_diagonal(g["b"], g["c"]).double()
                           ).float()
     if bad is not None:
         x0[bad, 0, 0] = float("nan")
     flat = cuda_gp._flat(g["a"], _drift(g["b"], WARM_DELTA, seed, True,
-                                        torch), g["c"], g["d"], g["e"])
-    _compare("k11", cuda_gp.gp_fused_warm_cuda, cuda_gp.gp_fused_warm_plain,
+                                        torch), g["c"], g["d"], g["e"],
+                         max_n=cuda_build.WARM_MAX_N)
+    _compare(key, cuda_gp.gp_fused_warm_cuda, cuda_gp.gp_fused_warm_plain,
              (*flat, x0, lo, hi), bad, WARM_RTOL, err, torch,
              atols=(K6_ATOL,))
+
+
+def _band_vs_plain(dev, err, torch):
+    """Phase 3 for the warm kernels' cluster instances: K8 (bf16 and
+    split3) and K11 at n ∈ BAND_N × batch {1, 7, 100} (member batch // 2
+    starts from an X0 holding a NaN), K8 bf16 at 1600×224, both at n = 160
+    off their default schedule, (lo, hi) ∈ {(0, 1), (3, 2)}; errors under
+    ``k8_band``, ``k8_split3_band`` and ``k11_band``."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_spd_batch,
+        make_square_batch,
+    )
+
+    def draws(batch, n, seed):
+        rng = np.random.default_rng(seed)
+        spd, gen = (torch.tensor(f(batch, n, rng), dtype=torch.float32,
+                                 device=dev)
+                    for f in (make_spd_batch, make_square_batch))
+        g = make_gp_batch(batch, n, rng)
+        return spd, gen, {k: torch.tensor(g[k], dtype=torch.float32,
+                                          device=dev) for k in "abcde"}
+
+    for n in BAND_N:
+        for batch in (1, 7, 100):
+            seed = 7000 * n + batch
+            bad = batch // 2 if batch > 1 else None
+            spd, gen, g = draws(batch, n, seed)
+            _k8_vs_plain(spd, gen, bad, seed, err, torch, suffix="_band")
+            _k11_vs_plain(g, bad, seed, err, torch, key="k11_band")
+    spd = torch.tensor(make_spd_batch(1600, 224, np.random.default_rng(
+        7001)), dtype=torch.float32, device=dev)
+    _k8_vs_plain(spd, None, 800, 7001, err, torch, suffix="_band")
+    for lo, hi in ((0, 1), (3, 2)):
+        seed = 7100 + 10 * lo + hi
+        spd, gen, g = draws(7, 160, seed)
+        _k8_vs_plain(spd, gen, 3, seed, err, torch, lo=lo, hi=hi,
+                     suffix="_band")
+        _k11_vs_plain(g, 3, seed, err, torch, lo=lo, hi=hi, key="k11_band")
 
 
 def _fit_data(batch, n, seed):
@@ -606,6 +685,9 @@ def _kernel_bounds(batch: int, n: int, sched_spd10, sched_spd):
     f1, b1 = ns(sched_spd10)
     f6, b6 = ns(sched_spd)
     f8, b8 = _ns_products(2, 1, False)
+    # split3's polish residual is fp64 past n = 128, counted at the fp64
+    # tensor cores' peak, which is PEAK_FP32 (67 TFLOP/s)
+    f8s, b8s = _ns_products(2, 1, True)
     per = {
         "k1": (f1 * cube, b1 * cube, 2 * mat),
         "k2": (cube, 0.0, 2 * mat + vec),
@@ -615,6 +697,7 @@ def _kernel_bounds(batch: int, n: int, sched_spd10, sched_spd):
         "k6": (f6 * cube + 4 * n * n, b6 * cube, mat + 3 * vec + 12),
         "k7": (cube, 0.0, 2 * mat),
         "k8": (f8 * cube, b8 * cube, 3 * mat),
+        "k8_split3": (f8s * cube, b8s * cube, 3 * mat),
         "k10": (2 * n ** 3 / 3 + 4 * n * n, 0.0, 2 * mat + 3 * vec + 8),
         "k11": (f8 * cube + 4 * n * n, b8 * cube, 3 * mat + 3 * vec + 12),
     }
@@ -622,14 +705,15 @@ def _kernel_bounds(batch: int, n: int, sched_spd10, sched_spd):
             for k, (f, b, m) in per.items()}
 
 
-def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
+def _time_new_kernels(dev, dev_cases, squares, gp_dev, timing, library,
+                      card, torch):
     """Phase 5 for K7, K8, K10 and K11 at 100×128 and 1600×128: each
     kernel beside its plain version and the library call, the warm lanes
     beside the cold ones, one fit step of each method, and one engine
-    request NumPy in and out.  Fills ``timing`` and ``library`` under
+    request NumPy in and out.  ``squares`` holds the general batches by
+    the SPD case of the same batch.  Fills ``timing`` and ``library`` under
     (key, case) with case the SPD inversion case of the same batch."""
     from cuda_matrix_inversion_tpu_torch import GPEngine, InversionEngine
-    from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
     from cuda_matrix_inversion_tpu_torch.models import gp, gp_fit
     from cuda_matrix_inversion_tpu_torch.ops import (
         cuda_gauss_jordan,
@@ -643,10 +727,6 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
         print(json.dumps({"timing": what, "case": case, **ms, **card}),
               flush=True)
 
-    squares = {"spd_100x128": dev_cases["square_100x128"],
-               "spd_1600x128": torch.tensor(make_square_batch(
-                   1600, 128, np.random.default_rng(2028)),
-                   dtype=torch.float32, device=dev)}
     for batch, case, gp_case in ((100, "spd_100x128", "gp_100x128"),
                                  (1600, "spd_1600x128", "gp_1600x128")):
         sq = squares[case]
@@ -758,6 +838,181 @@ def _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch):
             times.append(1e3 * (time.perf_counter() - t0))
         show("engine_request", "100x128 numpy in/out", request=what,
              ms=statistics.median(times))
+
+
+def _warm_band_path(dev, torch):
+    """Phase 4's warm band path: the serving entry points at 129 ≤ n ≤ 224,
+    NumPy in and out, with every warning an error (no route may solve
+    cold or warn): a spd10 engine's bf16 ``inverse_warm`` of its own cold
+    inverse after a drift at 100×n for n in BAND_ENGINE_N (buckets 160,
+    192, 224); a pan500 engine's split3 ``inverse_warm`` on the κ = 500
+    class at 100×224; ``GPEngine.mean_variance_warm`` chained over 3
+    drifting timesteps at 100×192 from a cold K⁻¹.  Every inverse through
+    the gate in fp64, every mean and var within GP_ATOL of the fp64
+    closed form.  Returns one result line per check."""
+    import warnings
+
+    from cuda_matrix_inversion_tpu_torch import GPEngine, InversionEngine
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_nonsym_cond,
+        make_spd_batch,
+    )
+
+    lines = []
+
+    def gate(what, a, x):
+        err = identity_error_inf(a, x)
+        lines.append({"phase": "warm_band_path", "check": what, "gate": err})
+        if not (x.shape == a.shape and x.dtype == np.float32
+                and np.isfinite(x).all() and err < GATE):
+            raise AssertionError(f"{what}: gate {err:.3e} ({x.shape} "
+                                 f"{x.dtype})")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng = InversionEngine(algorithm="newton_schulz_spd10_pallas",
+                              device=dev)
+        for n in BAND_ENGINE_N:
+            a = make_spd_batch(100, n, np.random.default_rng(7200 + n)
+                               ).astype(np.float32)
+            prev = eng.inverse(a)
+            a2 = _drift(torch.tensor(a), WARM_DELTA, n, True, torch).numpy()
+            gate(f"spd10 inverse_warm bf16 spd_100x{n}", a2,
+                 eng.inverse_warm(a2, prev))
+        eng = InversionEngine(algorithm="newton_schulz_pan500_pallas",
+                              device=dev)
+        a = make_nonsym_cond(100, 224, 500.0, np.random.default_rng(7224))
+        prev = eng.inverse(a)
+        a2 = _drift(torch.tensor(a), SPLIT3_DELTA, 224, False,
+                    torch).numpy()
+        gate("pan500 inverse_warm split3 nonsym500_100x224", a2,
+             eng.inverse_warm(a2, prev))
+        g = make_gp_batch(100, 192, np.random.default_rng(7192))
+        g = {k: g[k].astype(np.float32) for k in "abcde"}
+        geng = GPEngine(device=dev)
+        n = 192
+        kinv = np.linalg.inv(g["b"].astype(np.float64)
+                             + np.eye(n) * g["c"][:, :, 0][:, None, :]
+                             ).astype(np.float32)
+        b = g["b"]
+        for step in range(3):
+            b = _drift(torch.tensor(b), WARM_DELTA, 20 + step, True,
+                       torch).numpy()
+            mean, var, kinv = geng.mean_variance_warm(g["a"], b, g["c"],
+                                                      g["d"], g["e"], kinv)
+            errs = [float(np.abs(x[:, 0, 0] - r).max()) for x, r in
+                    zip((mean, var), _gp_ref64(dict(g, b=b)))]
+            lines.append({"phase": "warm_band_path",
+                          "check": f"GPEngine mean_variance_warm gp_100x192 "
+                                   f"step {step}", "mean_abs_err": errs[0],
+                          "var_abs_err": errs[1]})
+            if not max(errs) < GP_ATOL:
+                raise AssertionError(f"mean_variance_warm step {step}: off "
+                                     f"the fp64 closed form {errs}")
+            k = b.astype(np.float64) + np.eye(n) * g["c"][:, :, 0][:, None, :]
+            gate(f"GPEngine mean_variance_warm gp_100x192 step {step} kinv",
+                 k.astype(np.float32), kinv)
+    return lines
+
+
+def _time_band(dev, bounds_at, timing, library, card, torch):
+    """Phase 5 for the warm kernels' cluster instances at BAND_TIMED: K8
+    (bf16 on the drifted SPD batch, split3 on the drifted general batch)
+    and K11 (the drifted GP batch), each beside its plain version,
+    ``torch.linalg.inv`` (a yardstick: the port never calls it), the route
+    it replaces (bf16: the cold adaptive solve; split3: the batched route
+    ``_warm_refine_split`` with its extra polish; K11: K5's Schur route for
+    mean and var plus the cold solve for K⁻¹) and its bound
+    (``bounds_at(batch, n)``).  A batch of 1600 repeats 100 draws."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_spd_batch,
+        make_square_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.models import gp
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_build,
+        cuda_gp,
+        linalg,
+        newton_schulz,
+    )
+
+    for batch, n in BAND_TIMED:
+        case = f"{batch}x{n}"
+        rng = np.random.default_rng(7300 + batch + n)
+        bounds = bounds_at(batch, n)
+        # 100 draws (drifted, inverted) repeated to the batch, as the
+        # reference's DUPS replicates its fixtures
+        reps = batch // 100
+
+        def tile(x):
+            return x.repeat(reps, *([1] * (x.ndim - 1))).contiguous()
+
+        spd, gen = (torch.tensor(f(100, n, rng), dtype=torch.float32,
+                                 device=dev)
+                    for f in (make_spd_batch, make_square_batch))
+        for key, base, delta, split3 in (
+                ("k8_band", spd, WARM_DELTA, False),
+                ("k8_split3_band", gen, SPLIT3_DELTA, True)):
+            x0 = tile(torch.linalg.inv(base.double()).float())
+            a = tile(_drift(base, delta, batch, not split3, torch))
+            ms = _median_ms(lambda: newton_schulz.ns_refine_cuda(
+                a, x0, 2, 1, split3), torch)
+            plain_ms = _median_ms(lambda: newton_schulz.ns_refine_plain(
+                a, x0, 2, 1, split3), torch)
+            if split3:
+                route, route_name = (
+                    lambda: newton_schulz._warm_refine_split(a, x0, 2, 2),
+                    "_warm_refine_split, 2 + 2 rounds")
+            else:
+                route, route_name = (
+                    lambda: newton_schulz.inverse_newton_schulz(a),
+                    "inverse_newton_schulz (cold, adaptive)")
+            route_ms = _median_ms(route, torch)
+            inv_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
+            bound = bounds["k8_split3" if split3 else "k8"]
+            timing[(key, case)] = (ms, plain_ms)
+            library[(key, case)] = inv_ms
+            timing[(key + "_bound", case)] = bound
+            print(json.dumps({
+                "timing": key.upper(), "case": case, "kernel_ms": ms,
+                "plain_ms": plain_ms, "route_before_ms": route_ms,
+                "route_before": route_name, "torch_linalg_inv_ms": inv_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], **card}),
+                flush=True)
+        g = make_gp_batch(100, n, rng)
+        ga, gb, gc, gd, ge = (tile(torch.tensor(g[k], dtype=torch.float32,
+                                                device=dev))
+                              for k in "abcde")
+        x0 = tile(torch.linalg.inv(linalg.add_diagonal(
+            gb[:100], gc[:100]).double()).float())
+        gb2 = tile(_drift(gb[:100], WARM_DELTA, batch, True, torch))
+        flat = cuda_gp._flat(ga, gb2, gc, gd, ge, max_n=cuda_build.WARM_MAX_N)
+        k2 = linalg.add_diagonal(gb2, gc)
+        ms = _median_ms(lambda: cuda_gp.gp_fused_warm_cuda(*flat, x0), torch)
+        plain_ms = _median_ms(lambda: cuda_gp.gp_fused_warm_plain(*flat, x0),
+                              torch)
+        route_ms = _median_ms(lambda: (
+            cuda_gp.gp_mean_variance_fused(ga, gb2, gc, gd, ge),
+            newton_schulz.inverse_newton_schulz(k2)), torch)
+        inv_ms = _median_ms(lambda: torch.linalg.inv(k2), torch)
+        solve_ms = _median_ms(lambda: gp.gp_mean_variance(
+            ga, gb2, gc, gd, ge, method="solve"), torch)
+        bound = bounds["k11"]
+        timing[("k11_band", case)] = (ms, plain_ms)
+        library[("k11_band", case)] = inv_ms
+        timing[("k11_band_bound", case)] = bound
+        print(json.dumps({
+            "timing": "K11_BAND", "case": case, "kernel_ms": ms,
+            "plain_ms": plain_ms, "route_before_ms": route_ms,
+            "route_before": "gp_mean_variance_fused (K5 Schur route) + "
+                            "inverse_newton_schulz (cold) for K^-1",
+            "torch_linalg_inv_ms": inv_ms, "solve_method_ms": solve_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], **card}), flush=True)
 
 
 def _k9_vs_plain(dev, err, torch):
@@ -1370,6 +1625,11 @@ def main() -> int:
     )
 
     t_start = time.monotonic()
+    seconds = {}  # each part's wall time, printed before the kernels line
+
+    def mark(what, since):
+        seconds[what] = round(time.monotonic() - since, 1)
+        return time.monotonic()
 
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1390,6 +1650,7 @@ def main() -> int:
     print(f"build: {lib_path.name} in {time.monotonic() - t0:.2f} s",
           flush=True)
 
+    t_part = time.monotonic()
     # ---- 3. each kernel against its plain version ----
     k1_lanes = [name for name in list_inverse_algorithms(cpu=False)
                 if LANES[name]["schedule"] is not None]
@@ -1465,6 +1726,7 @@ def main() -> int:
                 raise AssertionError(f"{what}: kernel vs plain {diff:.3e} "
                                      f"abs, {rel:.3e} rel")
         _new_kernels_vs_plain(batch, n, rng, dev, new_err, torch)
+    t_part = mark("phase 3 main shapes", t_part)
     for batch in (1, 7, 100):  # K6 and K11 at n = 72: zero padding to 128
         g = make_gp_batch(batch, 72, np.random.default_rng(72 + batch))
         g = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
@@ -1525,6 +1787,7 @@ def main() -> int:
     # n off a multiple of 4: scalar loads), and on small integers in
     # [-2, 2], where exact ties decide the pivots (a member may be
     # singular)
+    t_part = mark("phase 3 K1, K6, K8, K11 off the main shapes", t_part)
     for n in (1, 7, 40, 72, 127, 160, 192):
         for batch in (1, 7, 100):
             _new_kernels_vs_plain(batch, n, np.random.default_rng(
@@ -1552,7 +1815,11 @@ def main() -> int:
         ties = np.random.default_rng(5000 + n).integers(-2, 3, (batch, n, n))
         _k2_vs_plain(torch.tensor(ties, dtype=torch.float32, device=dev),
                      "ties", None, k2_err, torch)
+    t_part = mark("phase 3 K2, K7 off the main shapes", t_part)
     _k9_vs_plain(dev, new_err, torch)
+    t_part = mark("phase 3 K9", t_part)
+    _band_vs_plain(dev, new_err, torch)
+    t_part = mark("phase 3 band", t_part)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
                       "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
           flush=True)
@@ -1590,24 +1857,36 @@ def main() -> int:
     gp_ref["entry_64x128"] = _gp_ref64(entry)
     gp_dev = {case: [torch.tensor(g[k], device=dev) for k in "abcde"]
               for case, g in gp_host.items()}
-    counters = {"k1": newton_schulz.ns_iterate_cuda,
-                "k2": cuda_lu.lu_inverse_cuda,
-                "k3": cuda_cholesky.inverse_cholesky_cuda,
-                "k4": cuda_cholesky.cholesky_cuda,
-                "k5": cuda_gp.gp_fused_cuda,
-                "k6": cuda_gp.gp_fused_ns_cuda,
-                "k7": cuda_gauss_jordan.gauss_jordan_cuda,
-                "k8": newton_schulz.ns_refine_cuda,
-                "k10": cuda_gp_lml.lml_quad_logdet_cuda,
-                "k11": cuda_gp.gp_fused_warm_cuda,
-                "k9": lu_bign.lu_panel_cuda}
+    # each kernel's launch count: (wrapper, attribute); the warm kernels'
+    # cluster instances count on their own besides
+    counters = {"k1": (newton_schulz.ns_iterate_cuda, "launches"),
+                "k2": (cuda_lu.lu_inverse_cuda, "launches"),
+                "k3": (cuda_cholesky.inverse_cholesky_cuda, "launches"),
+                "k4": (cuda_cholesky.cholesky_cuda, "launches"),
+                "k5": (cuda_gp.gp_fused_cuda, "launches"),
+                "k6": (cuda_gp.gp_fused_ns_cuda, "launches"),
+                "k7": (cuda_gauss_jordan.gauss_jordan_cuda, "launches"),
+                "k8": (newton_schulz.ns_refine_cuda, "launches"),
+                "k8_band": (newton_schulz.ns_refine_cuda, "band_launches"),
+                "k10": (cuda_gp_lml.lml_quad_logdet_cuda, "launches"),
+                "k11": (cuda_gp.gp_fused_warm_cuda, "launches"),
+                "k11_band": (cuda_gp.gp_fused_warm_cuda, "band_launches"),
+                "k9": (lu_bign.lu_panel_cuda, "launches")}
     inversion_path = ("k1", "k2", "k3", "k4", "k5", "k6")
     engine_path = ("k7", "k8", "k10", "k11")
     big_n_path = ("k2", "k9")
+    warm_band_path = ("k8_band", "k11_band")
     harness_path = ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "k10")
 
-    for fn in counters.values():
-        fn.launches = 0
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {key: getattr(fn, attr)
+                for key, (fn, attr) in counters.items()}
+
+    reset_counts()
     outputs = {}
     for lane, case in runs:
         outputs[(lane, case)] = host_api.inverse_batched_device(
@@ -1631,7 +1910,7 @@ def main() -> int:
                                gp_dev["gp_100x128"][2])
     l100 = cuda_cholesky.cholesky(k100)
     torch.cuda.synchronize()
-    launches = {key: fn.launches for key, fn in counters.items()}
+    launches = read_counts()
 
     for (lane, case), out in outputs.items():
         a = cases[case]
@@ -1690,11 +1969,12 @@ def main() -> int:
                              f"{launches}")
 
     # the serving and fitting path, counted on its own
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
+    t_part = mark("phase 4 main path", t_part)
     engine_lines = _engine_path(dev, cases, gp_host, gp_ref, torch)
+    t_part = mark("phase 4 engine path", t_part)
     torch.cuda.synchronize()
-    engine_launches = {key: fn.launches for key, fn in counters.items()}
+    engine_launches = read_counts()
     for line in engine_lines:
         print(json.dumps(line), flush=True)
     print(json.dumps({"phase": "engine_path", "launches": engine_launches}),
@@ -1705,11 +1985,11 @@ def main() -> int:
 
     # the big-n and fp64 path, counted on its own
     big_cases = _big_n_cases()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     big_lines = _big_n_path(dev, big_cases, torch)
+    t_part = mark("phase 4 big-n path", t_part)
     torch.cuda.synchronize()
-    big_launches = {key: fn.launches for key, fn in counters.items()}
+    big_launches = read_counts()
     for line in big_lines:
         print(json.dumps(line), flush=True)
     print(json.dumps({"phase": "big_n_path", "launches": big_launches}),
@@ -1719,8 +1999,23 @@ def main() -> int:
                              f"{big_launches}")
     print(json.dumps(_fp32_residual_floor(dev, big_cases, torch)),
           flush=True)
+
+    # the warm band path (K8 and K11 on their cluster instances), counted
+    # on its own
+    reset_counts()
+    band_lines = _warm_band_path(dev, torch)
+    t_part = mark("phase 4 warm band path", t_part)
+    torch.cuda.synchronize()
+    band_launches = read_counts()
+    for line in band_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "warm_band_path", "launches": band_launches}),
+          flush=True)
+    if not all(band_launches[k] for k in warm_band_path):
+        raise AssertionError(f"warm band path did not launch every kernel: "
+                             f"{band_launches}")
     launches = {k: launches[k] + engine_launches[k] + big_launches[k]
-                for k in counters}
+                + band_launches[k] for k in counters}
 
     # ---- 5. timing ----
     name, limit = [s.strip() for s in smi.split(",", 1)]
@@ -1829,16 +2124,22 @@ def main() -> int:
                               "lane_ms": method_ms[method],
                               "solve_method_ms": method_ms["solve"],
                               **before, **card}), flush=True)
-    _time_new_kernels(dev, dev_cases, gp_dev, timing, library, card, torch)
+    _time_new_kernels(dev, dev_cases, k2_squares, gp_dev, timing, library,
+                      card, torch)
     _time_big_n(dev, big_cases, timing, library, card, torch)
+    scheds = (LANES["newton_schulz_spd10_pallas"]["schedule"],
+              cuda_gp.GP_NS_SCHEDULE)
+    t_part = mark("phase 5 n <= 128 and big n", t_part)
+    _time_band(dev, lambda batch, n: _kernel_bounds(batch, n, *scheds),
+               timing, library, card, torch)
+    t_part = mark("phase 5 band", t_part)
 
     # ---- 6. the reference's harness, counted on its own ----
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     t0 = time.monotonic()
     harness_lines, failures = _reference_harness(dev, phase5, card, torch)
     torch.cuda.synchronize()
-    harness_launches = {key: fn.launches for key, fn in counters.items()}
+    harness_launches = read_counts()
     for line in harness_lines:
         print(json.dumps(line), flush=True)
     print(json.dumps({"phase": "reference_harness",
@@ -1851,8 +2152,6 @@ def main() -> int:
                              f"kernel of its path: {harness_launches}")
     launches = {k: launches[k] + harness_launches[k] for k in counters}
 
-    scheds = (LANES["newton_schulz_spd10_pallas"]["schedule"],
-              cuda_gp.GP_NS_SCHEDULE)
     bounds = _kernel_bounds(100, 128, *scheds)
     print(json.dumps({"bounds_ms": {
         f"{batch}x128": {k: v[0] for k, v in
@@ -1865,7 +2164,8 @@ def main() -> int:
         err = {"k1": k1_err, "k2": k2_err, **gp_err, **new_err}[
             "k10_emit_w" if key == "k10" else key]
         ms, plain_ms = timing[ms_key]
-        bound_ms, bound_by = bounds[key]
+        bound_ms, bound_by = (timing[(key + "_bound", ms_key[1])]
+                              if key.endswith("_band") else bounds[key])
         return {"name": title, "route": "cuda",
                 "source": f"cuda_matrix_inversion_tpu_torch/csrc/{source}",
                 "replaces": f"cuda_matrix_inversion_tpu/ops/{replaces}",
@@ -1901,6 +2201,14 @@ def main() -> int:
         entry_line("k11", "K11 fused GP mean/variance, warm Newton-Schulz "
                    "(100x128)", "gp.cu", "pallas_gp.py:491",
                    ("k11", "gp_100x128")),
+        entry_line("k8_band", "K8 newton_schulz warm on a thread-block "
+                   "cluster (bf16, 2+1 rounds, drifted spd 100x224, 7 CTAs "
+                   "a matrix)", "ns_cluster_rounds.cuh",
+                   "newton_schulz.py:742", ("k8_band", "100x224")),
+        entry_line("k11_band", "K11 fused GP mean/variance, warm "
+                   "Newton-Schulz on a thread-block cluster (100x224, 7 CTAs "
+                   "a system)", "ns_cluster_rounds.cuh", "pallas_gp.py:491",
+                   ("k11_band", "100x224")),
     ]
     k9_ms, k9_plain_ms = timing[("k9", "nonsym500_100x512")]
     k9_bound_ms, k9_bound_by = timing[("k9_bound", "nonsym500_100x512")]
@@ -1916,6 +2224,8 @@ def main() -> int:
         "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_bound_ms,
         "bound_by": k9_bound_by,
         "library_ms": library[("k9", "nonsym500_100x512")]})
+    mark("phase 6", t_part)
+    print(json.dumps({"seconds": seconds}), flush=True)
     print(f"total {time.monotonic() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -253,10 +253,11 @@ def median_ms(fn, calls: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def clock_split(cdll, run) -> dict:
+def clock_split(cdll, run, phases=PHASES) -> dict:
     """Block 0's intervals between stamps, median over 5 launches of
     ``run``, in µs at the SM clock the two timers give: in order, and
-    summed by phase."""
+    summed by phase (``phases`` names the interval that ends at each
+    stamp id)."""
     fn = cdll.cmi_ns_stamps
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -280,10 +281,10 @@ def clock_split(cdll, run) -> dict:
     med = np.median(np.array([s[1] for s in seqs]), axis=0)
     by_phase = {}
     for k, us in zip(ids[1:], med):
-        by_phase[PHASES[k]] = by_phase.get(PHASES[k], 0.0) + float(us)
+        by_phase[phases[k]] = by_phase.get(phases[k], 0.0) + float(us)
     return {"sm_clock_ghz": float(np.median(ghz)),
             "block_us": float(med.sum()), "by_phase_us": by_phase,
-            "sequence_us": [[PHASES[k], float(us)]
+            "sequence_us": [[phases[k], float(us)]
                             for k, us in zip(ids[1:], med)]}
 
 

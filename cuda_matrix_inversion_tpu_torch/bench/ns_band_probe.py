@@ -1,0 +1,463 @@
+"""Probes of the warm kernels' cluster instances (K8 and K11 at
+129 ≤ n ≤ 224, ``csrc/ns_cluster_rounds.cuh``) on one card.
+
+    python -m cuda_matrix_inversion_tpu_torch.bench.ns_band_probe [BASELINE_CSRC]
+
+Prints one JSON line a probe:
+
+- ``dsmem``: one CTA copying 16-row chunks of a bf16 slab (16 × (NP + 8)
+  values, the band loop's k-chunk) into its own shared memory, 16 bytes a
+  thread and load, from a peer CTA of its cluster (``ld.shared::cluster``)
+  against the same bytes from device memory that L2 holds (``ld.global.cg``),
+  every CTA of a full grid of clusters at once; GB/s a CTA (median) and
+  for the card, and ns a chunk, at NP = 160, 192, 224 and C = NP / 32.
+- ``clusters``: ``cudaOccupancyMaxActiveClusters`` for a kernel of 256
+  threads at each cluster size 4 … 8 with the band instances' shared
+  memory (``band_smem_bytes``), and for the band kernels themselves
+  (``ns_band_kernel``, ``gp_warm_band_kernel``); with their registers,
+  local memory (``cudaFuncGetAttributes``) and ``ptxas -v``'s lines.
+- ``clock_split``: K8's cluster instance with thread 0 of block 0 (rank 0
+  of the first cluster) stamping ``clock64`` and ``%globaltimer`` after
+  each step of the band loop (:data:`BAND_PHASES`: each product over the
+  peer chunks, each store and cluster barrier, the residual); each
+  interval in µs, median of 5 launches, K8 bf16 and split3 at 100×224,
+  bf16 at 1600×224 and 100×160.
+- ``baseline`` (when ``BASELINE_CSRC``, another checkout's ``csrc/``, is
+  given): K8 (bf16, split3) and K11 of that checkout against this tree's
+  on the same inputs at 100×224, 1600×224, 100×160 and 100×192 (the
+  drifted batches of ``chip_smoke.py`` phase 5): whether the outputs are
+  bitwise equal and their largest difference (a design that sums in
+  another order differs by rounding), and bare launches timed baseline,
+  this, this, baseline.
+
+The micro-benchmark's source is written under ``build/`` and compiled with
+the kernels' flags; the band kernels' figures come from a copy of
+``csrc/`` with a reader appended (``gp_ns_probe.variant_library``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from cuda_matrix_inversion_tpu_torch.bench.gp_ns_probe import (
+    STAMP_DEFS,
+    _launcher,
+    clock_split,
+    stamped_edits,
+    variant_library,
+)
+from cuda_matrix_inversion_tpu_torch.bench.ns_probe import _ab, k8_launcher
+from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+    make_gp_batch,
+    make_spd_batch,
+    make_square_batch,
+)
+from cuda_matrix_inversion_tpu_torch.ops import cuda_build, cuda_gp, linalg
+
+BAND_NP = (160, 192, 224)
+BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
+
+# The band loop's clock split: the interval that ends at stamp id k, and
+# the patches (anchor, replacement, count) a file that place the stamps.
+BAND_PHASES = {1: "load X0, stage A", 2: "publish X0, cluster barrier",
+               3: "lo: A X over the peer chunks",
+               4: "lo: store T, cluster barrier",
+               5: "lo: X T over the peer chunks",
+               6: "lo: publish X, cluster barrier",
+               7: "hi: R = I - A X", 8: "hi: cluster barrier",
+               9: "hi: X R over the peer chunks",
+               10: "hi: publish X, cluster barrier", 11: "write X"}
+BAND_STAMPS = {
+    "ns_common.cuh": [("#pragma once\n", STAMP_DEFS, 1)],
+    "ns_cluster_rounds.cuh": [
+        ("  publish(0);\n\n  float acc[1][NT][4];\n",
+         "  publish(0);\n  ns_stamp(2);\n\n  float acc[1][NT][4];\n", 1),
+        ("      band_mma_one<NP>(acc, sm.Ah, sm.Xh, sm.ring, rank, w);\n"
+         "    tile_for_each(",
+         "      band_mma_one<NP>(acc, sm.Ah, sm.Xh, sm.ring, rank, w);\n"
+         "    ns_stamp(3);\n    tile_for_each(", 1),
+        ("    if constexpr (SPLIT3) store_tile_bf16<1, NT, true>(acc, sm.Tl, "
+         "LDB, w);\n    cluster_sync();\n",
+         "    if constexpr (SPLIT3) store_tile_bf16<1, NT, true>(acc, sm.Tl, "
+         "LDB, w);\n    cluster_sync();\n    ns_stamp(4);\n", 1),
+        ("      band_mma_one<NP>(xm, sm.Xh, sm.T, sm.ring, rank, w);\n"
+         "    publish(r + 1);\n",
+         "      band_mma_one<NP>(xm, sm.Xh, sm.T, sm.ring, rank, w);\n"
+         "    ns_stamp(5);\n    publish(r + 1);\n    ns_stamp(6);\n", 1),
+        ("      store_tile_bf16(acc, sm.T, LDB, w);\n    }\n"
+         "    cluster_sync();\n",
+         "      store_tile_bf16(acc, sm.T, LDB, w);\n    }\n"
+         "    ns_stamp(7);\n    cluster_sync();\n    ns_stamp(8);\n", 1),
+        ("        xm[0][j][q] = __fadd_rn(xm[0][j][q], acc[0][j][q]);\n"
+         "    publish(r + 1);\n",
+         "        xm[0][j][q] = __fadd_rn(xm[0][j][q], acc[0][j][q]);\n"
+         "    ns_stamp(9);\n    publish(r + 1);\n    ns_stamp(10);\n", 1),
+    ],
+    "newton_schulz.cu": [
+        ("  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
+         "  ns_stamp(0);\n  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
+         1),
+        ("  band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);\n",
+         "  ns_stamp(1);\n  band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);\n",
+         1),
+        ("  band_store_x(sm, x + base, n, rank);\n}\n",
+         "  band_store_x(sm, x + base, n, rank);\n  __syncthreads();\n"
+         "  ns_stamp(11);\n}\n", 1),
+    ],
+}
+
+# The copy micro-benchmark: each CTA fills its slab, then copies `reps`
+# chunks from its peer rank + 1 (mode 0) or from device memory (mode 1)
+# into a local buffer, one barrier a chunk, and thread 0 records the
+# globaltimer interval.
+DSMEM_SRC = r"""
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__global__ void __launch_bounds__(256, 1)
+    copy_kernel(const uint4* __restrict__ g, int vec, int reps, int mode,
+                unsigned long long* ns, unsigned* sink) {
+  extern __shared__ __align__(16) uint4 smem[];
+  uint4* slab = smem;           // 2 chunks, the peer's source
+  uint4* local = smem + 2 * vec;  // the copy's destination
+  const int tid = threadIdx.x;
+  namespace cg = cooperative_groups;
+  const unsigned rank = cg::this_cluster().block_rank();
+  const unsigned csize = cg::this_cluster().num_blocks();
+  for (int v = tid; v < 2 * vec; v += 256)
+    slab[v] = make_uint4(v, rank, v ^ rank, 7);
+  cluster_sync();
+  uint32_t peer;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(peer) : "r"(smem_u32(slab)), "r"((rank + 1) % csize));
+  const uint4* gsrc = g + static_cast<size_t>(blockIdx.x % 64) * 2 * vec;
+  unsigned x = 0;
+  __syncthreads();
+  const unsigned long long t0 = now_ns();
+  for (int r = 0; r < reps; ++r) {
+    const int off = (r & 1) * vec;
+    for (int v = tid; v < vec; v += 256) {
+      uint4 u;
+      if (mode == 0) {
+        asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+                     : "r"(peer + 16 * (off + v)));
+      } else {
+        u = __ldcg(gsrc + off + v);
+      }
+      local[v] = u;
+      x ^= u.x ^ u.w;
+    }
+    __syncthreads();
+  }
+  const unsigned long long t1 = now_ns();
+  cluster_sync();
+  if (tid == 0) ns[blockIdx.x] = t1 - t0;
+  atomicXor(sink, x);
+}
+
+}  // namespace
+
+extern "C" int probe_copy(const void* g, int vec, int reps, int mode,
+                          int csize, int clusters, void* ns, void* sink) {
+  const size_t smem = 3ull * vec * 16;
+  cudaError_t err = cudaFuncSetAttribute(
+      copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * csize);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, copy_kernel,
+                           static_cast<const uint4*>(g), vec, reps, mode,
+                           static_cast<unsigned long long*>(ns),
+                           static_cast<unsigned*>(sink));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of `csize` CTAs of 256 threads with `smem` bytes each that the
+// card holds at once.
+extern "C" int probe_max_clusters(int csize, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (csize > 8) {
+    err = cudaFuncSetAttribute(
+        copy_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize * 132);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, copy_kernel, &cfg));
+}
+"""
+
+# Appended to copies of newton_schulz.cu and gp.cu: for each band
+# instance, registers, local bytes, shared memory and the clusters the
+# card holds at once.
+BAND_READER = """
+namespace {{
+template <typename Kernel>
+int band_figures(Kernel kernel, int np, int* out) {{
+  const size_t smem = band_smem_bytes(np);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  cudaLaunchConfig_t cfg = {{}};
+  cfg.gridDim = dim3(np / kSlab * 132);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = np / kSlab;
+  la[0].val.clusterDim.y = 1;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = clusters;
+  return 0;
+}}
+}}  // namespace
+
+extern "C" int cmi_probe_band(int* out) {{
+  int err = 0;
+  {calls}
+  return err;
+}}
+"""
+NS_KERNELS = [f"ns_band_kernel<{np}, {s}>" for np in BAND_NP
+              for s in ("false", "true")]
+GP_KERNELS = [f"gp_warm_band_kernel<{np}>" for np in BAND_NP]
+
+
+def _reader(kernels) -> str:
+    calls = "\n  ".join(
+        f"if (!err) err = band_figures({k}, {k.split('<')[1].split(',')[0].rstrip('>')}, out + {4 * i});"
+        for i, k in enumerate(kernels))
+    return BAND_READER.format(calls=calls)
+
+
+def _band_figures(unit: str, kernels) -> dict:
+    lib = variant_library(f"band_{unit.split('.')[0]}",
+                          {unit: ([], _reader(kernels))}, units=(unit,),
+                          flags=("-Xptxas", "-v"))
+    fn = lib.cmi_probe_band
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (4 * len(kernels)))()
+    cuda_build.check(fn(ctypes.cast(out, ctypes.c_void_p)), "band figures")
+    lines = lib.compiler_log.splitlines()
+    ptxas = [x.strip() for i, line in enumerate(lines)
+             if "Compiling entry function" in line and "band" in line
+             for x in lines[i:i + 4] if "registers" in x or "spill" in x]
+    return {"kernels": {k: {"registers": out[4 * i],
+                            "local_bytes": out[4 * i + 1],
+                            "smem_bytes": out[4 * i + 2],
+                            "max_active_clusters": out[4 * i + 3]}
+                        for i, k in enumerate(kernels)},
+            "ptxas": ptxas}
+
+
+def _copy_lib() -> ctypes.CDLL:
+    root = cuda_build.BUILD_DIR / "probe_dsmem"
+    root.mkdir(parents=True, exist_ok=True)
+    src = root / "dsmem.cu"
+    src.write_text(DSMEM_SRC)
+    lib = root / "libdsmem.so"
+    cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o",
+           str(lib), str(src)]
+    log = subprocess.run(cmd, capture_output=True, text=True)
+    if log.returncode != 0:
+        raise RuntimeError(f"nvcc failed: {log.stdout}{log.stderr}")
+    cdll = ctypes.CDLL(str(lib))
+    cdll.probe_copy.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p, ctypes.c_void_p]
+    cdll.probe_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    for fn in (cdll.probe_copy, cdll.probe_max_clusters):
+        fn.restype = ctypes.c_int
+    return cdll
+
+
+def _band_smem(np_: int) -> int:
+    """``band_smem_bytes`` (csrc/ns_cluster_rounds.cuh) in Python."""
+    ldb, ldf = np_ + 8, np_ + 4
+    ring = max(4 * 16 * ldb * 2, 2 * 16 * ldf * 4)
+    return (2 * 32 * ldf * 4 + 4 * 32 * ldb * 2 + ring
+            + (2 * np_ + 2 * (np_ // 32)) * 4)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    lib = _copy_lib()
+
+    sizes = {}
+    for csize in range(4, 9):
+        row = {}
+        for np_ in BAND_NP:
+            out = ctypes.c_int()
+            cuda_build.check(lib.probe_max_clusters(
+                csize, _band_smem(np_), ctypes.byref(out)), "max clusters")
+            row[f"smem_{_band_smem(np_)}"] = out.value
+        sizes[str(csize)] = row
+    print(json.dumps({"probe": "clusters", "generic_256_threads": sizes,
+                      "newton_schulz.cu": _band_figures(
+                          "newton_schulz.cu", NS_KERNELS),
+                      "gp.cu": _band_figures("gp.cu", GP_KERNELS),
+                      "card": card}), flush=True)
+
+    dev = torch.device("cuda")
+    reps = 256
+    for np_ in BAND_NP:
+        csize = np_ // 32
+        vec = 16 * (np_ + 8) * 2 // 16  # 16-byte vectors a chunk
+        out = ctypes.c_int()
+        cuda_build.check(lib.probe_max_clusters(csize, 3 * vec * 16,
+                                                ctypes.byref(out)), "max")
+        clusters = out.value
+        g = torch.randint(0, 1 << 30, (64 * 2 * vec * 4,), dtype=torch.int32,
+                          device=dev)
+        sink = torch.zeros(1, dtype=torch.int32, device=dev)
+        row = {"np": np_, "cluster": csize, "clusters": clusters,
+               "chunk_bytes": 16 * vec, "reps": reps}
+        for mode, name in ((0, "peer_dsmem"), (1, "l2")):
+            ns = torch.zeros(clusters * csize, dtype=torch.int64, device=dev)
+            runs = []
+            for _ in range(5):
+                cuda_build.check(lib.probe_copy(
+                    g.data_ptr(), vec, reps, mode, csize, clusters,
+                    ns.data_ptr(), sink.data_ptr()), "copy")
+                torch.cuda.synchronize()
+                t = ns.double().cpu()
+                runs.append((float(t.median()), float(t.max())))
+            med = statistics.median(r[0] for r in runs)
+            worst = statistics.median(r[1] for r in runs)
+            nbytes = 16.0 * vec * reps
+            row[name] = {"ns_per_chunk": med / reps,
+                         "gbps_per_cta": nbytes / med,
+                         "gbps_card": nbytes * clusters * csize / worst}
+        print(json.dumps({"probe": "dsmem", **row, "card": card}),
+              flush=True)
+    stamped = variant_library(
+        "band_stamped", stamped_edits(BAND_STAMPS, "newton_schulz.cu"),
+        units=("newton_schulz.cu",))
+    for batch, n, prec in ((100, 224, "bf16"), (100, 224, "split3"),
+                           (1600, 224, "bf16"), (100, 160, "bf16")):
+        rng = np.random.default_rng(batch + n)
+        base = torch.tensor((make_spd_batch if prec == "bf16"
+                             else make_square_batch)(batch, n, rng),
+                            dtype=torch.float32, device=dev)
+        a, x0 = _drifted(base, 1e-3 if prec == "bf16" else 1e-4, batch,
+                         prec == "bf16")
+        print(json.dumps({"probe": "clock_split",
+                          "case": f"K8 {prec} {batch}x{n}",
+                          **clock_split(stamped, k8_launcher(
+                              stamped, a, x0, prec == "split3"),
+                              BAND_PHASES), "card": card}), flush=True)
+    if len(sys.argv) > 1:
+        base = variant_library("band_baseline", src=Path(sys.argv[1]),
+                               units=("newton_schulz.cu", "gp.cu"))
+        _baseline({"baseline": base, "this": cuda_build.library()}, dev,
+                  card)
+    return 0
+
+
+def _drifted(a, delta: float, seed: int, symmetric: bool):
+    """``a`` drifted by a relative 2-norm ``delta`` (symmetrised for SPD
+    input), and the exact inverse of ``a``."""
+    a64 = a.double()
+    noise = torch.tensor(np.random.default_rng(seed).standard_normal(
+        a.shape), device=a.device)
+    if symmetric:
+        noise = (noise + noise.mT) / 2
+    scale = (torch.linalg.matrix_norm(a64, ord=2)
+             / torch.linalg.matrix_norm(noise, ord=2))
+    return ((a64 + delta * scale[:, None, None] * noise).float(),
+            torch.linalg.inv(a64).float().contiguous())
+
+
+def _baseline(libs: dict, dev, card: str) -> None:
+    """K8 (bf16 and split3) and K11 of the baseline against this tree's
+    at BAND_TIMED, one line each."""
+    for batch, n in BAND_TIMED:
+        rng = np.random.default_rng(batch + n)
+        spd, gen = (torch.tensor(f(batch, n, rng), dtype=torch.float32,
+                                 device=dev)
+                    for f in (make_spd_batch, make_square_batch))
+        for prec, base, delta in (("bf16", spd, 1e-3), ("split3", gen, 1e-4)):
+            a, x0 = _drifted(base, delta, batch, prec == "bf16")
+            _ab(libs, lambda lib: k8_launcher(lib, a, x0, prec == "split3"),
+                f"K8 {prec} {batch}x{n}", card, False)
+        g = make_gp_batch(batch, n, rng)
+        t = [torch.tensor(g[k], dtype=torch.float32, device=dev)
+             for k in "abcde"]
+        x0 = torch.linalg.inv(linalg.add_diagonal(t[1], t[2]).double()
+                              ).float().contiguous()
+        flat = cuda_gp._flat(*t, max_n=cuda_build.WARM_MAX_N)
+        _ab(libs, lambda lib: _launcher(lib, flat, x0),
+            f"K11 gp_{batch}x{n}", card, False)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

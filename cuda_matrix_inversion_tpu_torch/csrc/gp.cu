@@ -61,7 +61,11 @@
 // memory, 201.5 KB at n = 128, one block an SM; X0 goes from device memory
 // straight into the accumulator fragments while B's copies are in flight.
 // Device memory sees B and X0 read and X written once; the chain of
-// products is 6 instead of K6's 16.
+// products is 6 instead of K6's 16.  Past n = 128, up to the JAX kernel's
+// 224, K11 runs as one thread-block cluster a system (gp_warm_band_kernel
+// on ns_cluster_rounds.cuh, K8's band loop): each of the C = NP / 32 CTAs
+// stages its 32-row slab of K, refines it, sums the epilogue over its rows
+// and writes its rows of K^-1; rank 0 adds the C partial sums in order.
 //
 // K10 replaces ops/pallas_gp.py::_gp_lml_kernel (pallas_call in
 // _lml_fused_quad_logdet): per system quad = d^T K^-1 d and
@@ -79,6 +83,7 @@
 #include <cuda_runtime.h>
 
 #include "cholesky_common.cuh"
+#include "ns_cluster_rounds.cuh"
 #include "ns_common.cuh"
 #include "ns_mma_rounds.cuh"
 
@@ -289,6 +294,80 @@ __global__ void __launch_bounds__(kThreads)
     ks[x] = sm.Xf[(x / n) * LD + x % n];
 }
 
+// K11 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a system, each
+// refining a 32-row slab of X (ns_cluster_rounds.cuh) from x0.  Each CTA
+// sums the epilogue over its rows, x_d[j] = sum_i d[i] X[i][j] and x_a
+// likewise (thread j), into the partials mean_s = x_d . a and
+// quad_s = x_a . a, and stores them in rank 0's shared memory; rank 0 adds
+// the C partials in rank order, so two runs give the same bits.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+    gp_warm_band_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const float* __restrict__ c,
+                        const float* __restrict__ d,
+                        const float* __restrict__ e,
+                        const float* __restrict__ x0,
+                        float* __restrict__ out, float* __restrict__ kinv,
+                        NSParams prm) {
+  using G = BandGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  __shared__ float red[kThreads / 32];
+  const BandSmem<NP, false> sm(band_smem);
+  const int n = prm.n;
+  const int tid = threadIdx.x;
+  const int rank = cluster_rank();
+  const size_t sys = blockIdx.x / G::C;
+  float* sd = sm.rest;
+  float* sa = sm.rest + NP;
+  float* partials = sm.rest + 2 * NP;
+  for (int i = tid; i < n; i += kThreads) {
+    sd[i] = d[sys * n + i];
+    sa[i] = a[sys * n + i];
+  }
+  const WarpTile w = band_warp_tile<NP>();
+  float xm[1][G::NT][4];
+  band_load_x<NP>(xm, x0 + sys * n * n, n, rank, w);
+  const float* bs = b + sys * n * n;
+  const float* cs = c + sys * n;
+  // K[i][i] = B[i][i] + c[i] as the plain version's b + eye * c rounds it
+  band_stage(sm, n, rank, [=](int i, int j) {
+    const float v = bs[i * n + j];
+    return i == j ? __fadd_rn(v, cs[i]) : v;
+  });
+
+  band_rounds<NP, false>(xm, sm, prm, w, rank);
+  const int rows = min(kSlab, n - kSlab * rank);
+  float mean_part = 0.f, quad_part = 0.f;
+  if (tid < n) {
+    float xd = 0.f, xa = 0.f;
+    for (int i = 0; i < rows; ++i) {
+      const float xij = sm.Xf[i * G::LDF + tid];
+      xd = fmaf(sd[kSlab * rank + i], xij, xd);
+      xa = fmaf(sa[kSlab * rank + i], xij, xa);
+    }
+    mean_part = __fmul_rn(xd, sa[tid]);
+    quad_part = __fmul_rn(xa, sa[tid]);
+  }
+  const float mean_s = block_sum(mean_part, red);
+  const float quad_s = block_sum(quad_part, red);
+  if (tid == 0) {
+    st_peer_f32(peer_addr(partials + 2 * rank, 0), mean_s);
+    st_peer_f32(peer_addr(partials + 2 * rank + 1, 0), quad_s);
+  }
+  cluster_sync();
+  if (rank == 0 && tid == 0) {
+    float mean = 0.f, quad = 0.f;
+    for (int r = 0; r < G::C; ++r) {
+      mean += partials[2 * r];
+      quad += partials[2 * r + 1];
+    }
+    out[2 * sys] = mean;
+    out[2 * sys + 1] = e[sys] - quad;
+  }
+  band_store_x(sm, kinv + sys * n * n, n, rank);
+}
+
 // K10.  EMIT_W = false: quad and logdet only; true: also W = L^-1 and
 // alpha = K^-1 d.
 template <bool EMIT_W>
@@ -437,21 +516,51 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
     case 1: err = launch(gp_ns_kernel<1>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 2: err = launch(gp_ns_kernel<2>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 4: err = launch(gp_ns_kernel<4>, smem, batch, s, a, b, c, d, e, out, prm); break;
-    default: err = launch(gp_ns_kernel<8>, smem, batch, s, a, b, c, d, e, out, prm); break;
+    case 8: err = launch(gp_ns_kernel<8>, smem, batch, s, a, b, c, d, e, out, prm); break;
+    default: err = cudaErrorInvalidValue; break;
   }
   return static_cast<int>(err);
 }
 
+namespace {
+
+// K11 past n = 128: one cluster a system at NP = 160, 192 or 224.
+cudaError_t launch_gp_warm_band(const NSParams& prm, int batch,
+                                cudaStream_t s, const float* a,
+                                const float* b, const float* c,
+                                const float* d, const float* e,
+                                const float* x0, float* out, float* kinv) {
+  switch (band_np(prm.n)) {
+    case 160:
+      return band_launch(gp_warm_band_kernel<160>, BandGeometry<160>::C,
+                         batch, band_smem_bytes(160), s, a, b, c, d, e, x0,
+                         out, kinv, prm);
+    case 192:
+      return band_launch(gp_warm_band_kernel<192>, BandGeometry<192>::C,
+                         batch, band_smem_bytes(192), s, a, b, c, d, e, x0,
+                         out, kinv, prm);
+    default:
+      return band_launch(gp_warm_band_kernel<224>, BandGeometry<224>::C,
+                         batch, band_smem_bytes(224), s, a, b, c, d, e, x0,
+                         out, kinv, prm);
+  }
+}
+
+}  // namespace
+
 // K11.  As cmi_gp_fused_ns, with X loaded from x0 (batch, n, n) instead of
 // seeded, `lo` unscaled bf16 rounds and `hi` polish rounds (the last
-// residual in fp32), and the refined X written to kinv (batch, n, n).
+// residual in fp32), and the refined X written to kinv (batch, n, n); 1 <=
+// n <= 224, one block a system up to 128 and one cluster past it
+// (cudaErrorInvalidValue past 224).
 extern "C" int cmi_gp_fused_warm(const float* a, const float* b,
                                  const float* c, const float* d,
                                  const float* e, float* out, int batch, int n,
                                  const float* x0, float* kinv, int lo, int hi,
                                  int device, void* stream) {
   NSParams prm;
-  if (batch < 0 || !make_warm_params(n, lo, hi, /*split3=*/0, &prm))
+  if (batch < 0 ||
+      !make_warm_params(n, lo, hi, /*split3=*/0, &prm, kBandMaxN))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -464,7 +573,8 @@ extern "C" int cmi_gp_fused_warm(const float* a, const float* b,
     case 1: err = launch(gp_warm_kernel<1>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
     case 2: err = launch(gp_warm_kernel<2>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
     case 4: err = launch(gp_warm_kernel<4>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
-    default: err = launch(gp_warm_kernel<8>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
+    case 8: err = launch(gp_warm_kernel<8>, smem, batch, s, a, b, c, d, e, x0, out, kinv, prm); break;
+    default: err = launch_gp_warm_band(prm, batch, s, a, b, c, d, e, x0, out, kinv); break;
   }
   return static_cast<int>(err);
 }

@@ -56,7 +56,16 @@
 // kappa <~ 30).  What bounds it: as K1, the serial chain of dependent
 // products (2 x 2 + 2 at the default 2 + 1 rounds against K1 spd10's 12),
 // with one more n^2 read (X0) than K1.
+//
+// Past n = 128, up to the JAX kernel's 224, K8 runs as one thread-block
+// cluster a matrix (ns_band_kernel on ns_cluster_rounds.cuh): C = NP / 32
+// CTAs (NP = 160, 192, 224) each refine a 32-row slab, reading the right
+// operand's other slabs from the peers' shared memory; the split3 schedule
+// accumulates its residuals in fp64 there.  The bound stays the operations
+// (5 bf16 and 1 fp32 product of 2 NP^3 at the default bf16 rounds); the
+// cluster adds a copy of each peer chunk and two cluster barriers a round.
 
+#include "ns_cluster_rounds.cuh"
 #include "ns_mma_rounds.cuh"
 
 namespace {
@@ -148,7 +157,49 @@ cudaError_t launch_ns(const NSParams& prm, int batch, cudaStream_t s,
     case 1: return launch_m<1, WARM>(prm, batch, s, a, x0, x);
     case 2: return launch_m<2, WARM>(prm, batch, s, a, x0, x);
     case 4: return launch_m<4, WARM>(prm, batch, s, a, x0, x);
-    default: return launch_m<8, WARM>(prm, batch, s, a, x0, x);
+    case 8: return launch_m<8, WARM>(prm, batch, s, a, x0, x);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K8 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a matrix, each
+// refining its 32-row slab (ns_cluster_rounds.cuh).
+template <int NP, bool SPLIT3>
+__global__ void __launch_bounds__(kThreads, 1)
+    ns_band_kernel(const float* __restrict__ a, const float* __restrict__ x0,
+                   float* __restrict__ x, NSParams prm) {
+  using G = BandGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  const BandSmem<NP, SPLIT3> sm(band_smem);
+  const int n = prm.n;
+  const int rank = cluster_rank();
+  const size_t base = static_cast<size_t>(blockIdx.x / G::C) * n * n;
+  const WarpTile w = band_warp_tile<NP>();
+  float xm[1][G::NT][4];
+  band_load_x<NP>(xm, x0 + base, n, rank, w);
+  const float* ab = a + base;
+  band_stage(sm, n, rank, [=](int i, int j) { return ab[i * n + j]; });
+  band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);
+  band_store_x(sm, x + base, n, rank);
+}
+
+template <int NP>
+cudaError_t launch_band_np(const NSParams& prm, int batch, cudaStream_t s,
+                           const float* a, const float* x0, float* x) {
+  constexpr int C = BandGeometry<NP>::C;
+  const size_t smem = band_smem_bytes(NP);
+  return prm.split3 ? band_launch(ns_band_kernel<NP, true>, C, batch, smem,
+                                  s, a, x0, x, prm)
+                    : band_launch(ns_band_kernel<NP, false>, C, batch, smem,
+                                  s, a, x0, x, prm);
+}
+
+cudaError_t launch_band(const NSParams& prm, int batch, cudaStream_t s,
+                        const float* a, const float* x0, float* x) {
+  switch (band_np(prm.n)) {
+    case 160: return launch_band_np<160>(prm, batch, s, a, x0, x);
+    case 192: return launch_band_np<192>(prm, batch, s, a, x0, x);
+    default: return launch_band_np<224>(prm, batch, s, a, x0, x);
   }
 }
 
@@ -172,19 +223,23 @@ extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
   return static_cast<int>(err);
 }
 
-// K8.  a, x0, x: (batch, n, n) fp32, contiguous, on `device`.  `lo` unscaled
-// rounds and `hi` polish rounds, one-pass bf16 products or (split3) the
-// 3-pass split.  Returns the CUDA error of the launch.
+// K8.  a, x0, x: (batch, n, n) fp32, contiguous, on `device`, 1 <= n <=
+// 224: one block a matrix up to 128, one cluster a matrix past it.  `lo`
+// unscaled rounds and `hi` polish rounds, one-pass bf16 products or
+// (split3) the 3-pass split.  Returns the CUDA error of the launch
+// (cudaErrorInvalidValue past 224).
 extern "C" int cmi_ns_warm(const float* a, const float* x0, float* x,
                            int batch, int n, int lo, int hi, int split3,
                            int device, void* stream) {
   NSParams prm;
-  if (batch < 0 || !make_warm_params(n, lo, hi, split3, &prm))
+  if (batch < 0 ||
+      !make_warm_params(n, lo, hi, split3, &prm, kBandMaxN))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
-  err = launch_ns<true>(prm, batch, static_cast<cudaStream_t>(stream), a,
-                         x0, x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = n <= kMaxN ? launch_ns<true>(prm, batch, s, a, x0, x)
+                   : launch_band(prm, batch, s, a, x0, x);
   return static_cast<int>(err);
 }

@@ -43,11 +43,13 @@ struct NSParams {
   float c_sq[kMaxRounds];   // fp32(c*c) per lo round
 };
 
-// Host: fill `prm`; false when an argument is out of range.
+// Host: fill `prm`; false when an argument is out of range (n past
+// `max_n`: the single-block kernels' kMaxN unless the caller serves more).
 inline bool make_ns_params(int n, int init_spd, int lo, int hi, int split3,
                            int polish_highest, const float* two_c,
-                           const float* c_sq, NSParams* prm) {
-  if (n < 1 || n > kMaxN || lo < 0 || lo > kMaxRounds || hi < 0) return false;
+                           const float* c_sq, NSParams* prm,
+                           int max_n = kMaxN) {
+  if (n < 1 || n > max_n || lo < 0 || lo > kMaxRounds || hi < 0) return false;
   *prm = NSParams{};
   prm->n = n;
   prm->init_spd = init_spd;
@@ -66,18 +68,21 @@ inline bool make_ns_params(int n, int init_spd, int lo, int hi, int split3,
 // (2c = 2, c^2 = 1 in every lo round) and always end on the fp32 residual;
 // false when an argument is out of range.
 inline bool make_warm_params(int n, int lo, int hi, int split3,
-                             NSParams* prm) {
+                             NSParams* prm, int max_n = kMaxN) {
   float two[kMaxRounds], one[kMaxRounds];
   for (int i = 0; i < kMaxRounds; ++i) {
     two[i] = 2.f;
     one[i] = 1.f;
   }
   return make_ns_params(n, /*init_spd=*/0, lo, hi, split3,
-                        /*polish_highest=*/1, two, one, prm);
+                        /*polish_highest=*/1, two, one, prm, max_n);
 }
 
-// The register tile M (16M >= n) for a matrix dimension n <= kMaxN.
-inline int ns_tile(int n) { return n <= 16 ? 1 : n <= 32 ? 2 : n <= 64 ? 4 : 8; }
+// The register tile M (16M >= n) for a matrix dimension n <= kMaxN; 0
+// past it, where no single-block instance exists.
+inline int ns_tile(int n) {
+  return n <= 16 ? 1 : n <= 32 ? 2 : n <= 64 ? 4 : n <= kMaxN ? 8 : 0;
+}
 
 // acc[r][c] = sum_k P[ty+16r][k] * Q[k][tx+16c] over k < n in fp32, P and
 // Q NP x NP (NP = 16M) fp32 blocks with the odd row stride NP + 1, so the

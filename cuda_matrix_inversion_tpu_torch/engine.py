@@ -36,7 +36,7 @@ from cuda_matrix_inversion_tpu_torch.models.gp_fit import (
     GPFitResult,
     fit_gp_scales,
 )
-from cuda_matrix_inversion_tpu_torch.ops import cuda_build, linalg
+from cuda_matrix_inversion_tpu_torch.ops import linalg
 from cuda_matrix_inversion_tpu_torch.ops.cuda_gp import (
     gp_mean_variance_fused_warm,
 )
@@ -52,10 +52,9 @@ from cuda_matrix_inversion_tpu_torch.ops.registry import get_inverse_algorithm
 # The JAX package's buckets (copies; a CPU test pins them).
 DEFAULT_DIM_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 DEFAULT_BATCH_BUCKETS = (8, 32, 128, 512, 2048)
-# Warm requests bucket against these, as in the JAX package, whose warm
-# kernels serve n <= 224.  The port's warm kernels K8 and K11 serve
-# n <= 128 (cuda_build.MAX_N); 129..224 keeps these buckets but is served by
-# the warm kernels' routes past their ceiling (see _warm_buckets_for).
+# Warm requests bucket against these, as in the JAX package: the warm
+# kernels K8 and K11 serve n <= 224 (cuda_build.WARM_MAX_N; one thread-block
+# cluster a matrix past 128).
 WARM_DIM_BUCKETS = (8, 16, 32, 64, 128, 160, 192, 224)
 
 
@@ -106,19 +105,19 @@ class _BucketedEngine:
                           served_past_ceiling: bool = False
                           ) -> Tuple[int, int]:
         """Bucketing for warm-refinement requests: the JAX package's finer
-        dim buckets up to 224, the regular buckets past it.  The warm
-        kernels serve n <= 128; above that, unless ``served_past_ceiling``
+        dim buckets up to 224, where the warm kernels serve them, the
+        regular buckets past it.  Past 224, unless ``served_past_ceiling``
         (the split3 warm route refines through batched products at any n),
         the request runs a cold solve and the previous inverse is
         discarded — warn."""
-        if n > cuda_build.MAX_N and not served_past_ceiling:
-            warnings.warn(
-                f"warm refinement serves n <= {cuda_build.MAX_N}; n={n} runs "
-                "a cold adaptive solve (prev inverse discarded)",
-                stacklevel=3)
         if n <= WARM_DIM_BUCKETS[-1]:
             return (_round_up(batch, self.batch_buckets),
                     _round_up(n, WARM_DIM_BUCKETS))
+        if not served_past_ceiling:
+            warnings.warn(
+                f"warm refinement serves n <= {WARM_DIM_BUCKETS[-1]}; n={n} "
+                "runs a cold adaptive solve (prev inverse discarded)",
+                stacklevel=3)
         return self._buckets_for(batch, n)
 
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
@@ -235,9 +234,9 @@ class InversionEngine(_BucketedEngine):
 
         Cheaper than a cold ``inverse`` while the relative change δ
         satisfies δ·κ(A) ≲ 0.3 — past that, call ``inverse`` again.  Shapes
-        must match.  Dims bucket against ``WARM_DIM_BUCKETS``; above the
-        warm kernel's n = 128 a bf16 engine warns and runs cold, a split3
-        engine refines through batched products.
+        must match.  Dims bucket against ``WARM_DIM_BUCKETS``, which the
+        warm kernel K8 serves up to n = 224; above it a bf16 engine warns
+        and runs cold, a split3 engine refines through batched products.
 
         ``check=True`` also computes ‖AX − I‖∞ on the device (one extra
         fp32 product) and raises ``LinAlgError`` when it exceeds ``tol``:

@@ -47,6 +47,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (148 KB), the JAX kernel's.  K9 keeps one n×pw panel and checks its own ceiling
 # (``lu_bign.panel_smem_bytes``).
 MAX_N = 128
+# Largest n the warm kernels K8 and K11 take, the JAX warm kernels'
+# ceiling: past MAX_N each matrix runs on one thread-block cluster of
+# NP / 32 CTAs (NP = 160, 192, 224), a 32-row slab of the matrix in each
+# CTA's shared memory (``csrc/ns_cluster_rounds.cuh``).
+WARM_MAX_N = 224
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -194,7 +199,8 @@ def check_kernel_input(a: torch.Tensor, what: str,
     if not 1 <= n <= max_n:
         raise ValueError(
             f"{what}: n = {n} is outside the kernel's range 1..{max_n} "
-            f"(the matrix must fit one thread block's shared memory)")
+            f"(the matrix must fit the shared memory of one thread block "
+            f"or cluster)")
 
 
 def launch_args(a: torch.Tensor) -> tuple[int, int]:

@@ -76,8 +76,9 @@ def gp_fused_warm_plain(a, b, c, d, e, x0, lo: int = 2, hi: int = 1,
     return torch.stack([proj[:, 0], e - proj[:, 1]], dim=-1), x
 
 
-def _gp_launch(fn_name: str, a, b, c, d, e, *extra):
-    cuda_build.check_kernel_input(b, "gp kernel")
+def _gp_launch(fn_name: str, a, b, c, d, e, *extra,
+               max_n: int = cuda_build.MAX_N):
+    cuda_build.check_kernel_input(b, "gp kernel", max_n=max_n)
     cuda_build.check_cuda_f32("gp kernel", a, b, c, d, e)
     out = torch.empty((b.shape[0], 2), dtype=torch.float32, device=b.device)
     device, stream = cuda_build.launch_args(b)
@@ -111,9 +112,14 @@ def gp_fused_ns_cuda(a, b, c, d, e):
 
 
 def gp_fused_warm_cuda(a, b, c, d, e, x0, lo: int = 2, hi: int = 1):
-    """Launch K11 on contiguous CUDA fp32 tensors in the flat layout:
-    ``(out, kinv)`` as :func:`gp_fused_warm_plain`.
-    ``gp_fused_warm_cuda.launches`` counts the launches."""
+    """Launch K11 on contiguous CUDA fp32 tensors in the flat layout,
+    n ≤ :data:`cuda_build.WARM_MAX_N` (one thread block a system up to
+    128, one thread-block cluster past it): ``(out, kinv)`` as
+    :func:`gp_fused_warm_plain`.  ``gp_fused_warm_cuda.launches`` counts
+    the launches and ``gp_fused_warm_cuda.band_launches`` those of the
+    cluster instance."""
+    cuda_build.check_kernel_input(b, "gp warm kernel",
+                                  max_n=cuda_build.WARM_MAX_N)
     cuda_build.check_cuda_f32("gp warm kernel", x0)
     if x0.shape != b.shape:
         raise ValueError(f"gp warm kernel: x0 {tuple(x0.shape)} must match "
@@ -121,19 +127,23 @@ def gp_fused_warm_cuda(a, b, c, d, e, x0, lo: int = 2, hi: int = 1):
     x0 = x0.contiguous()
     kinv = torch.empty_like(x0)
     out = _gp_launch("cmi_gp_fused_warm", a, b, c, d, e, x0.data_ptr(),
-                     kinv.data_ptr(), lo, hi)
+                     kinv.data_ptr(), lo, hi, max_n=cuda_build.WARM_MAX_N)
     gp_fused_warm_cuda.launches += 1
+    if b.shape[-1] > cuda_build.MAX_N:
+        gp_fused_warm_cuda.band_launches += 1
     return out, kinv
 
 
 gp_fused_cuda.launches = 0
 gp_fused_ns_cuda.launches = 0
 gp_fused_warm_cuda.launches = 0
+gp_fused_warm_cuda.band_launches = 0
 
 
-def _flat(a, b, c, d, e):
-    """Check the fixture layout and return the kernels' flat fp32 layout."""
-    cuda_build.check_kernel_input(b, "gp kernel")
+def _flat(a, b, c, d, e, max_n: int = cuda_build.MAX_N):
+    """Check the fixture layout (n ≤ ``max_n``) and return the kernels'
+    flat fp32 layout."""
+    cuda_build.check_kernel_input(b, "gp kernel", max_n=max_n)
     batch, n, _ = b.shape
     for name, v, shape in (("a", a, (batch, n, 1)), ("c", c, (batch, n, 1)),
                            ("d", d, (batch, n, 1)), ("e", e, (batch, 1, 1))):
@@ -191,21 +201,23 @@ def gp_mean_variance_fused_warm(a, b, c, d, e, prev_kinv, lo_iters: int = 2,
     Same shapes as :func:`gp_mean_variance_fused` plus ``prev_kinv``
     ``(batch, n, n)``; returns ``(mean, var, kinv)``, and ``kinv`` chains
     into the next call.  Valid while the drift δ of K satisfies
-    δ·κ(K) ≲ 0.3 and κ(K) ≲ 30 (K8's bf16 domain).  float64 and n > 128
-    (the JAX kernel's ceiling is 224) take the JAX package's route past its
-    kernel: mean and variance by :func:`gp_mean_variance_fused`, kinv by
+    δ·κ(K) ≲ 0.3 and κ(K) ≲ 30 (K8's bf16 domain).  K11 serves n ≤ 224,
+    the JAX kernel's ceiling: one thread block a system up to 128, one
+    thread-block cluster past it.  float64 and n > 224 take the JAX
+    package's route past its kernel: mean and variance by
+    :func:`gp_mean_variance_fused`, kinv by
     :func:`newton_schulz.inverse_newton_schulz_warm` with its default
-    rounds (which warns and solves cold past 128).
+    rounds (which warns and solves cold past 224).
     """
     if tuple(prev_kinv.shape) != tuple(b.shape):
         raise ValueError(f"prev_kinv shape {tuple(prev_kinv.shape)} must "
                          f"match b {tuple(b.shape)}")
-    if b.dtype == torch.float64 or b.shape[-1] > cuda_build.MAX_N:
+    if b.dtype == torch.float64 or b.shape[-1] > cuda_build.WARM_MAX_N:
         mean, var = gp_mean_variance_fused(a, b, c, d, e)
         kinv = newton_schulz.inverse_newton_schulz_warm(
             linalg.add_diagonal(b, c), prev_kinv)
         return mean, var, kinv
-    flat = _flat(a, b, c, d, e)
+    flat = _flat(a, b, c, d, e, max_n=cuda_build.WARM_MAX_N)
     x0 = prev_kinv.to(torch.float32).contiguous()
     out, kinv = cuda_build.on_device(b, "gp warm", gp_fused_warm_cuda,
                                      gp_fused_warm_plain, *flat, x0,

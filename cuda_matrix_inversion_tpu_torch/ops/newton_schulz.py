@@ -15,8 +15,8 @@ quadratically once ‖I − AX‖ < 1.
   (lanes ``newton_schulz``, ``newton_schulz_spd``), plain PyTorch.
 * :func:`inverse_newton_schulz_warm` — warm-start refinement of a previous
   inverse of a nearby batch, counterpart of ``inverse_newton_schulz_warm``:
-  the hand-written kernel K8 (``csrc/newton_schulz.cu``) on a CUDA tensor,
-  its plain version :func:`ns_refine_plain` on a CPU tensor.
+  the hand-written kernel K8 (``csrc/newton_schulz.cu``, n ≤ 224) on a
+  CUDA tensor, its plain version :func:`ns_refine_plain` on a CPU tensor.
 
 The schedule constants and :func:`scaled_round_coeffs` are copies of the
 JAX package's (the port cannot import it where JAX is missing); the CPU
@@ -150,7 +150,7 @@ def _seed(a: torch.Tensor, init: str) -> torch.Tensor:
 
 def _rounds(a: torch.Tensor, x: torch.Tensor, coeffs, hi_iters: int,
             split3: bool, polish_highest: bool,
-            bf16_products: bool) -> torch.Tensor:
+            bf16_products: bool, residual64: bool = False) -> torch.Tensor:
     """The lo rounds X ← X·(2cI − c²AX), one per scalar c of ``coeffs``,
     then ``hi_iters`` polish rounds X ← X + X(I − AX), from ``x`` (the
     kernels' round loops).
@@ -159,7 +159,9 @@ def _rounds(a: torch.Tensor, x: torch.Tensor, coeffs, hi_iters: int,
     one-pass products on bf16-rounded operands, the 3-pass split where the
     TPU kernel used it.  ``False`` is what the JAX reference computes in
     interpret mode on the CPU (``mid_split=False``): every product full
-    fp32, and every polish round counts as final."""
+    fp32, and every polish round counts as final.  ``residual64`` computes
+    the split3 polish residuals in float64 (:func:`linalg.residual_f64`),
+    as K8's cluster instance past n = 128 does."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     if bf16_products:
         one, dot3 = _mm_bf16, _mm_split3
@@ -171,7 +173,8 @@ def _rounds(a: torch.Tensor, x: torch.Tensor, coeffs, hi_iters: int,
         x = contract(x, t)
     for i in range(hi_iters):
         if split3:
-            x = x + dot3(x, eye - matmul(a, x))
+            r = residual_f64(a, x) if residual64 else eye - matmul(a, x)
+            x = x + dot3(x, r)
             continue
         final = ((i == hi_iters - 1) and polish_highest) or not bf16_products
         r = eye - (matmul(a, x) if final else dot3(a, x))
@@ -193,8 +196,13 @@ def ns_refine_plain(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
     """Plain PyTorch version of K8 on fp32 ``(batch, n, n)`` tensors:
     ``lo`` rounds X ← X(2I − AX) from X0 with no recentering scalar (c = 1:
     the start is already converged), then ``hi`` polish rounds, the last
-    residual in fp32 (``bf16_products`` as in :func:`_rounds`)."""
-    return _rounds(a, x0, (1.0,) * lo, hi, split3, True, bf16_products)
+    residual in fp32 (``bf16_products`` as in :func:`_rounds`).  Past
+    n = 128 (K8's cluster instance) the split3 residuals are float64: an
+    fp32 one leaves the κ = 500 class over the 1e-4 gate at n = 224."""
+    residual64 = (bf16_products and split3
+                  and a.shape[-1] > cuda_build.MAX_N)
+    return _rounds(a, x0, (1.0,) * lo, hi, split3, True, bf16_products,
+                   residual64)
 
 
 def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
@@ -312,10 +320,14 @@ def inverse_newton_schulz_pan500_batched(
 
 def ns_refine_cuda(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
                    split3: bool) -> torch.Tensor:
-    """Launch K8 (``csrc/newton_schulz.cu``) on CUDA fp32 batches.
+    """Launch K8 (``csrc/newton_schulz.cu``) on CUDA fp32 batches, n ≤
+    :data:`cuda_build.WARM_MAX_N` (one thread block a matrix up to 128, one
+    thread-block cluster past it).
 
-    ``ns_refine_cuda.launches`` counts the launches."""
-    cuda_build.check_kernel_input(a, "newton_schulz warm kernel")
+    ``ns_refine_cuda.launches`` counts the launches and
+    ``ns_refine_cuda.band_launches`` those of the cluster instance."""
+    cuda_build.check_kernel_input(a, "newton_schulz warm kernel",
+                                  max_n=cuda_build.WARM_MAX_N)
     cuda_build.check_cuda_f32("newton_schulz warm kernel", a, x0)
     if x0.shape != a.shape:
         raise ValueError(f"newton_schulz warm kernel: x0 {tuple(x0.shape)} "
@@ -331,15 +343,18 @@ def ns_refine_cuda(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
         lo, hi, int(split3), device, stream)
     cuda_build.check(err, "newton_schulz warm kernel")
     ns_refine_cuda.launches += 1
+    if a.shape[-1] > cuda_build.MAX_N:
+        ns_refine_cuda.band_launches += 1
     return x
 
 
 ns_refine_cuda.launches = 0
+ns_refine_cuda.band_launches = 0
 
 
 def _warm_refine_split(a: torch.Tensor, x0: torch.Tensor, lo: int,
                        hi: int) -> torch.Tensor:
-    """The warm rounds past the kernel's ceiling, as batched products:
+    """The warm rounds past the kernel's n = 224, as batched products:
     the counterpart of the JAX package's ``_warm_refine_split_xla`` (which
     JAX computes outside any Pallas kernel).  Every product the 3-pass bf16
     split (XLA ``HIGH``); the polish residual in float64
@@ -369,12 +384,13 @@ def inverse_newton_schulz_warm(a: torch.Tensor, x0: torch.Tensor,
     one-pass X·R update carries 2⁻⁹·κ·‖R‖).  ``precision="split3"`` runs
     every product as the 3-pass split, for κ ≲ 500.
 
-    Routes, the JAX package's own past its ceilings: float64 takes the
-    adaptive :func:`inverse_newton_schulz` (its LU route).  n above the
-    kernel's 128 (the JAX kernel's ceiling is 224) takes, for split3,
-    :func:`_warm_refine_split` with one extra polish round, as JAX does
-    past 224; for bf16 a cold adaptive solve, which discards ``x0`` and
-    warns.
+    K8 serves n ≤ 224, the JAX kernel's ceiling, in both precisions: one
+    thread block a matrix up to n = 128, one thread-block cluster past it,
+    where the split3 residuals are float64 (:func:`ns_refine_plain`).
+    Routes, the JAX package's own past its ceiling: float64 takes the
+    adaptive :func:`inverse_newton_schulz` (its LU route).  n above 224
+    takes, for split3, :func:`_warm_refine_split` with one extra polish
+    round; for bf16 a cold adaptive solve, which discards ``x0`` and warns.
     """
     if precision not in ("bf16", "split3"):
         raise ValueError(
@@ -385,18 +401,19 @@ def inverse_newton_schulz_warm(a: torch.Tensor, x0: torch.Tensor,
     if a.dtype == torch.float64:
         return inverse_newton_schulz(a)
     split3 = precision == "split3"
-    if a.shape[-1] > cuda_build.MAX_N:
+    if a.shape[-1] > cuda_build.WARM_MAX_N:
         if split3:
             out = _warm_refine_split(a.to(torch.float32),
                                      x0.to(torch.float32), lo_iters,
                                      hi_iters + 1)
             return out.to(a.dtype)
         warnings.warn(
-            f"the warm kernel serves n <= {cuda_build.MAX_N}; "
+            f"the warm kernel serves n <= {cuda_build.WARM_MAX_N}; "
             f"n={a.shape[-1]} runs a cold adaptive solve (prev inverse "
             f"discarded)", stacklevel=2)
         return inverse_newton_schulz(a)
-    cuda_build.check_kernel_input(a, "newton_schulz warm kernel")
+    cuda_build.check_kernel_input(a, "newton_schulz warm kernel",
+                                  max_n=cuda_build.WARM_MAX_N)
     a32, x32 = a.to(torch.float32), x0.to(torch.float32)
     x = cuda_build.on_device(a32, "newton_schulz warm", ns_refine_cuda,
                              ns_refine_plain, a32, x32, lo_iters, hi_iters,

@@ -2,10 +2,10 @@
 
 The behaviour tests of ``tests/test_engine.py`` on ``device="cpu"``
 (buckets, warmup, padding, singular members, the warm paths, concurrency),
-with the port's own warm band: the warm kernels K8 and K11 serve n ≤ 128,
-so a bf16 request above that warns and solves cold where JAX's kernels go
-on to 224.  ``GPEngine`` results are also held against the JAX engine on
-the same inputs.
+with JAX's warm band: the warm kernels K8 and K11 serve n ≤ 224, so a
+bf16 request warns and solves cold only past it, as JAX's engine does.
+``GPEngine`` results are also held against the JAX engine on the same
+inputs.
 """
 
 import sys
@@ -199,34 +199,46 @@ def test_engine_warm_split3_past_the_ceiling():
 
 
 def test_engine_warm_dim_buckets_and_warning_band():
-    """JAX's warm buckets, with the port's band: a bf16 engine warns from
-    n = 129 (the warm kernels' ceiling), JAX's from 225; a split3 engine
-    never warns."""
+    """JAX's warm buckets and JAX's warning band: the warm kernels serve
+    n <= 224, so a bf16 engine warns only past it, where JAX's does; a
+    split3 engine never warns."""
     eng = InversionEngine(**CPU)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        assert eng._warm_buckets_for(10, 128) == (32, 128)
+        for n, want in ((128, (32, 128)), (150, (32, 160)),
+                        (224, (32, 224))):
+            assert eng._warm_buckets_for(10, n) == want
+            assert jax_engine.InversionEngine()._warm_buckets_for(
+                10, n) == want
         assert eng._warm_buckets_for(10, 150, True) == (32, 160)
         assert eng._warm_buckets_for(10, 300, True) == (32, 512)
-    for n, want in ((150, (32, 160)), (224, (32, 224)), (300, (32, 512))):
+    for n, want in ((232, (32, 256)), (300, (32, 512))):
         with pytest.warns(UserWarning, match="cold adaptive solve"):
             assert eng._warm_buckets_for(10, n) == want
-        assert jax_engine.InversionEngine()._warm_buckets_for(
-            10, n, True) == want
+        with pytest.warns(UserWarning, match="cold adaptive solve"):
+            assert jax_engine.InversionEngine()._warm_buckets_for(
+                10, n) == want
 
 
 def test_engine_inverse_warm_160_bucket_runs_cold():
-    """A bf16 warm request at n = 140 is served from the 160 bucket, warns
-    and solves cold; the result still passes the gate."""
+    """A bf16 warm request at n = 140 is served from the 160 bucket by
+    K8's path (its plain version here), as JAX's engine serves it from its
+    kernel: no warning, no cold solve (the result is the refinement of
+    the padded previous inverse), and it passes the gate."""
     rng = np.random.default_rng(9)
     eng = InversionEngine(**CPU)
     a = make_spd_batch(4, 140, rng).astype(np.float32)
     inv1 = np.linalg.inv(a.astype(np.float64)).astype(np.float32)
     a2 = _sym_drift(a, 0.005, rng)
-    with pytest.warns(UserWarning, match="cold adaptive solve"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         inv2 = eng.inverse_warm(a2, inv1)
     assert identity_error_inf(a2, inv2) < 1e-4
     assert list(eng._compiled_warm) == [(8, 160)]
+    pa, px = (eng._pad_square(m, 8, 160) for m in (a2, inv1))
+    want = newton_schulz.ns_refine_plain(torch.tensor(pa), torch.tensor(px),
+                                         2, 1, False).numpy()
+    np.testing.assert_array_equal(inv2, want[:4, :140, :140])
 
 
 def test_engine_inverse_warm_check_divergence():

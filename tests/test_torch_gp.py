@@ -14,6 +14,7 @@ interpret-mode compile time.  Tolerances are absolute on mean and variance
 import filecmp
 import functools
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from cuda_matrix_inversion_tpu.ops import xla
 from cuda_matrix_inversion_tpu_torch.io import fixtures, mats
 from cuda_matrix_inversion_tpu_torch.models import gp
 from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_build,
     cuda_cholesky,
     cuda_gp,
     linalg,
@@ -366,17 +368,34 @@ def test_k11_plain_matches_jax(n, lo, hi):
 
 
 def test_k11_route_past_128_and_validation():
-    """n = 140: mean and var by K5's route, K⁻¹ by the warm NS route,
-    which warns and solves cold past the kernel's 128; a prev_kinv of the
-    wrong shape raises; CPU tensors launch no kernel."""
+    """n = 140 lies in K11's band (the JAX kernel's ceiling, 224, is the
+    port's): K11's path, its plain version here, with no warning and no
+    launch.  Past 224 (n = 232) the JAX package's route: mean and var by
+    K5's route, K⁻¹ by the warm NS route, which warns and solves cold.  A
+    prev_kinv of the wrong shape raises; CPU tensors launch no kernel."""
     cuda_gp.gp_fused_warm_cuda.launches = 0
     data, kinv0, means, variances = _warm_chain(140, 3)
-    with pytest.warns(UserWarning, match="cold adaptive solve"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         mean, var, kinv = _np(cuda_gp.gp_mean_variance_fused_warm(
             *_t(data, "abcde"), torch.tensor(kinv0)))
+    flat = cuda_gp._flat(*_t(data, "abcde"), max_n=cuda_build.WARM_MAX_N)
+    out, want = cuda_gp.gp_fused_warm_plain(*flat, torch.tensor(kinv0))
+    np.testing.assert_array_equal(kinv, want.numpy())
+    np.testing.assert_array_equal(mean[:, 0, 0], out[:, 0].numpy())
     assert np.abs(mean - means).max() < 1e-4
     assert np.abs(var - variances).max() < 1e-4
     assert kinv.shape == (BATCH, 140, 140)
+    big, means, variances = _system(232, 5)
+    k = big["b"].astype(np.float64) + np.eye(232) * big["c"][:, :, 0][
+        :, None, :]
+    with pytest.warns(UserWarning, match="cold adaptive solve"):
+        mean, var, kinv = _np(cuda_gp.gp_mean_variance_fused_warm(
+            *_t(big, "abcde"),
+            torch.tensor(np.linalg.inv(k).astype(np.float32))))
+    assert np.abs(mean - means).max() < 1e-4
+    assert np.abs(var - variances).max() < 1e-4
+    assert np.abs(k @ kinv - np.eye(232)).sum(-1).max() < 1e-4
     assert cuda_gp.gp_fused_warm_cuda.launches == 0
     with pytest.raises(ValueError, match="prev_kinv"):
         cuda_gp.gp_mean_variance_fused_warm(*_t(data, "abcde"),

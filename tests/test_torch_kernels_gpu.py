@@ -19,6 +19,7 @@ from cuda_matrix_inversion_tpu_torch.io.fixtures import (
     make_square_batch,
 )
 from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_build,
     cuda_cholesky,
     cuda_gauss_jordan,
     cuda_gp,
@@ -344,11 +345,12 @@ def _drifted(a, delta, rng, symmetric):
     return (a + delta * scale * noise).astype(np.float32)
 
 
-def _check_k8(cuda, n, precision, lo, hi, seed, nan_member=None):
+def _check_k8(cuda, n, precision, lo, hi, seed, nan_member=None,
+              gate=True):
     """K8 refines the inverse of a batch of 7 for its drifted copy, in one
-    launch: against its plain version and through the gate; member
-    ``nan_member`` starts from an X0 holding a NaN and alone comes out
-    non-finite."""
+    launch: against its plain version and (``gate``) through the gate;
+    member ``nan_member`` starts from an X0 holding a NaN and alone comes
+    out non-finite."""
     rng = np.random.default_rng(seed)
     split3 = precision == "split3"
     a0 = (make_square_batch if split3 else make_spd_batch)(7, n, rng)
@@ -367,7 +369,8 @@ def _check_k8(cuda, n, precision, lo, hi, seed, nan_member=None):
     assert (np.isfinite(x).all(axis=(1, 2)) == ok).all()
     assert (np.isfinite(ref).all(axis=(1, 2)) == ok).all()
     assert _rel(x[ok], ref[ok]) <= WARM_RTOL
-    assert identity_error_inf(a[ok], x[ok]) < 1e-4
+    if gate:
+        assert identity_error_inf(a[ok], x[ok]) < 1e-4
 
 
 @pytest.mark.parametrize("precision", ["bf16", "split3"])
@@ -434,7 +437,8 @@ def _check_k11(cuda, batch, n, lo, hi, seed, nan_member=None):
     g["b"] = _drifted(g["b"], 1e-3, rng, True)
     t = {k: torch.tensor(g[k], dtype=torch.float32, device=cuda)
          for k in "abcde"}
-    flat = cuda_gp._flat(*(t[k] for k in "abcde"))
+    flat = cuda_gp._flat(*(t[k] for k in "abcde"),
+                         max_n=cuda_build.WARM_MAX_N)
     x0t = torch.tensor(x0, device=cuda)
     before = cuda_gp.gp_fused_warm_cuda.launches
     out, kinv = cuda_gp.gp_fused_warm_cuda(*flat, x0t, lo, hi)
@@ -479,15 +483,72 @@ def test_k11_matches_plain_at_1600x128(cuda):
 
 def test_new_kernels_reject_past_their_ceiling(cuda):
     a = torch.eye(129, device=cuda)[None]
-    with pytest.raises(ValueError, match="128"):
-        newton_schulz.ns_refine_cuda(a, a, 2, 1, False)
     v = torch.ones(1, 129, device=cuda)
     with pytest.raises(ValueError, match="128"):
         cuda_gp_lml.lml_quad_logdet_cuda(a, v, v)
-    with pytest.raises(ValueError, match="128"):
-        cuda_gp.gp_fused_warm_cuda(v, a, v, v, torch.ones(1, device=cuda), a)
     with pytest.raises(ValueError, match="192"):
         cuda_gauss_jordan.gauss_jordan_cuda(torch.eye(193, device=cuda)[None])
+    # the warm kernels serve n <= 224 (one cluster a matrix past 128)
+    a = torch.eye(225, device=cuda)[None]
+    v = torch.ones(1, 225, device=cuda)
+    before = (newton_schulz.ns_refine_cuda.launches,
+              cuda_gp.gp_fused_warm_cuda.launches)
+    with pytest.raises(ValueError, match="224"):
+        newton_schulz.ns_refine_cuda(a, a, 2, 1, False)
+    with pytest.raises(ValueError, match="224"):
+        cuda_gp.gp_fused_warm_cuda(v, a, v, v, torch.ones(1, device=cuda), a)
+    assert (newton_schulz.ns_refine_cuda.launches,
+            cuda_gp.gp_fused_warm_cuda.launches) == before
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("n", [129, 160, 224])
+def test_k8_band_matches_plain(cuda, precision, n):
+    """K8's cluster instance (NP = 160 with 31 rows of zero padding at
+    n = 129, 160 exactly, 224 at seven CTAs a cluster) against its plain
+    version at 2 + 1 rounds; member 3's X0 holds a NaN and alone comes out
+    non-finite (no CTA reads another matrix)."""
+    _check_k8(cuda, n, precision, 2, 1, 900 + n, nan_member=3)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+@pytest.mark.parametrize("lo,hi", [(0, 1), (3, 2)])
+def test_k8_band_matches_plain_off_its_default_schedule(cuda, precision, lo,
+                                                        hi):
+    """(0, 1) is the fp32 (split3: fp64) polish round alone, (3, 2) puts
+    a split-residual polish round before it.  (0, 1) is held to its plain
+    version only: one polish round from the general class's drift
+    (δ·κ up to 0.06 at κ ≤ 4n) leaves ~3e-4 in the kernel and the plain
+    version alike, over the gate that the default 2 + 1 rounds hold."""
+    _check_k8(cuda, 160, precision, lo, hi, 950 + 10 * lo + hi,
+              nan_member=3, gate=(lo, hi) != (0, 1))
+
+
+@pytest.mark.parametrize("n,lo,hi", [(129, 2, 1), (160, 2, 1), (224, 2, 1),
+                                     (160, 0, 1), (160, 3, 2)])
+def test_k11_band_matches_plain(cuda, n, lo, hi):
+    """K11's cluster instance against its plain version and the fp64
+    closed form: mean and var from the C CTAs' partial sums, K⁻¹ from each
+    slab; member 3's X0 holds a NaN and alone comes out non-finite."""
+    _check_k11(cuda, 7, n, lo, hi, 980 + n + lo, nan_member=3)
+
+
+def test_band_launch_error_raises(cuda):
+    """A cluster launch the card refuses (a grid of batch × 7 CTAs past
+    2³¹ − 1 at n = 224) returns its CUDA error, which the wrappers' check
+    raises; the next launch runs."""
+    a = torch.eye(224, device=cuda)[None].contiguous()
+    x = torch.empty_like(a)
+    device, stream = cuda_build.launch_args(a)
+    err = cuda_build.library().cmi_ns_warm(
+        a.data_ptr(), a.data_ptr(), x.data_ptr(), (1 << 31) // 7 + 1, 224,
+        2, 1, 0, device, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_build.check(err, "newton_schulz warm kernel")
+    out = newton_schulz.ns_refine_cuda(a, a, 2, 1, False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, a)
 
 
 def _check_k9(cuda, a, pw, bad, gate=True):

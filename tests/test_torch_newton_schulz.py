@@ -379,19 +379,40 @@ def test_warm_split3_where_bf16_stalls(kappa):
 
 
 def test_warm_routes_past_128_and_f64():
-    """n = 140 > the kernel's 128: split3 refines through batched products
-    with one extra polish and no warning (JAX's route past its 224); bf16
-    warns and solves cold.  float64 takes the adaptive route."""
+    """n = 140 lies in K8's band (the JAX kernel's ceiling, 224, is the
+    port's): both precisions refine X0 through K8's path, its plain version
+    here, with no warning.  Past 224 (n = 232) the JAX package's routes:
+    split3 refines through batched products with one extra polish and no
+    warning; bf16 warns and solves cold.  float64 takes the adaptive
+    route."""
     rng = np.random.default_rng(140)
     a0 = make_square_batch(2, 140, rng).astype(np.float32)
+    x0 = np.linalg.inv(a0.astype(np.float64)).astype(np.float32)
+    a = _drifted(a0, 1e-4, rng, False)
+    spd = make_spd_batch(2, 140, rng).astype(np.float32)
+    spd_x0 = np.linalg.inv(spd.astype(np.float64)).astype(np.float32)
+    spd2 = _drifted(spd, 1e-3, rng, True)
+    for m, m_x0, precision in ((a, x0, "split3"), (spd2, spd_x0, "bf16")):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            x = ns.inverse_newton_schulz_warm(torch.tensor(m),
+                                              torch.tensor(m_x0),
+                                              precision=precision)
+        want = ns.ns_refine_plain(torch.tensor(m), torch.tensor(m_x0), 2, 1,
+                                  precision == "split3")
+        assert torch.equal(x, want)
+        assert identity_error_inf(m, x.numpy()) < 1e-4
+    a0 = make_square_batch(2, 232, rng).astype(np.float32)
     x0 = np.linalg.inv(a0.astype(np.float64)).astype(np.float32)
     a = _drifted(a0, 1e-4, rng, False)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         x = ns.inverse_newton_schulz_warm(torch.tensor(a), torch.tensor(x0),
                                           precision="split3")
+    assert torch.equal(x, ns._warm_refine_split(torch.tensor(a),
+                                                torch.tensor(x0), 2, 2))
     assert identity_error_inf(a, x.numpy()) < 1e-4
-    spd = make_spd_batch(2, 140, rng).astype(np.float32)
+    spd = make_spd_batch(2, 232, rng).astype(np.float32)
     with pytest.warns(UserWarning, match="cold adaptive solve"):
         x = ns.inverse_newton_schulz_warm(torch.tensor(spd),
                                           torch.tensor(spd))
