@@ -27,8 +27,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one member with a zero column; the factor, pivots,
    perm and triangle inverses bitwise; K8 (bf16 and split3) and K11 on
    their thread-block-cluster instances at n ∈ {129, 144, 160, 192, 200,
-   224} × batch ∈ {1, 7, 100}, K8 at 1600×224, and both at n = 160 with
-   (lo, hi) ∈ {(0, 1), (3, 2)}, each with one NaN member;
+   224} × batch ∈ {1, 7, 100}, K8 at 1600×224, both at n = 160 with
+   (lo, hi) ∈ {(0, 1), (3, 2), (33, 1)} and at n ∈ {129, 161, 193, 224}
+   on a batch of 37, each with one NaN member; K1's pan lane at 40 lo
+   rounds (n = 64, 128), K8 and K11 at 33 (n = 64);
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -84,8 +86,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    beside its bound, ``torch.linalg.inv``, the plain routine, ``lu_hiacc``
    and the panel-width ladder; at 100×224, 1600×224, 100×160 and 100×192
    K8 (bf16, split3) and K11 on their cluster instances beside their plain
-   versions, ``torch.linalg.inv``, the route each replaced and the
-   bound;
+   versions, ``torch.linalg.inv``, the route each replaced, the bound and
+   their times before the cluster loop's Hopper redesign;
 6. reference harness, with the counters reset: the port's fixture tree
    (``generate_all`` at n ∈ {8, 32, 128}, 100 matrices), the native
    LAPACK oracle's build (optional: its rows register when it loads), the
@@ -190,8 +192,24 @@ WARM_RTOL = 2e-4
 # 224), phase 4's engine requests (buckets 160, 192, 224), and phase 5's
 # shapes.
 BAND_N = (129, 144, 160, 192, 200, 224)
+# 31 rows of zero padding in the last slab at NP = 160, 192, 224, and no
+# padding at 224 (phase 3, on a batch of 37).
+BAND_PAD_N = (129, 161, 193, 224)
 BAND_ENGINE_N = (140, 192, 224)
 BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
+# The cluster instances before their Hopper redesign (each peer chunk
+# pulled through registers into a two-chunk ring, one block barrier a
+# chunk; the residual at 11 shared loads to 28 FMAs), through the wrappers
+# at BAND_TIMED, in ms (phase 5 of this script on an NVIDIA H100 80GB HBM3
+# at 700 W); None where that run timed no such case.
+BAND_BEFORE_MS = {
+    "k8_band": {"100x224": 0.434, "1600x224": 6.227, "100x160": 0.154,
+                "100x192": 0.327},
+    "k8_split3_band": {"100x224": 0.667, "1600x224": 9.680,
+                       "100x160": None, "100x192": None},
+    "k11_band": {"100x224": 0.531, "1600x224": 7.444, "100x160": 0.191,
+                 "100x192": 0.365},
+}
 # K10 vs plain: K5's factor and substitution and K3's W; the sums and
 # logarithms differ in order only.
 LML_RTOL = 1e-5
@@ -501,7 +519,8 @@ def _band_vs_plain(dev, err, torch):
     split3) and K11 at n ∈ BAND_N × batch {1, 7, 100} (member batch // 2
     starts from an X0 holding a NaN), K8 bf16 at 1600×224, both at n = 160
     off their default schedule, (lo, hi) ∈ {(0, 1), (3, 2)}; errors under
-    ``k8_band``, ``k8_split3_band`` and ``k11_band``."""
+    ``k8_band``, ``k8_split3_band`` and ``k11_band``.  Then both at 33 lo
+    rounds at n = 160, and at n ∈ BAND_PAD_N on a batch of 37."""
     from cuda_matrix_inversion_tpu_torch.io.fixtures import (
         make_gp_batch,
         make_spd_batch,
@@ -527,12 +546,19 @@ def _band_vs_plain(dev, err, torch):
     spd = torch.tensor(make_spd_batch(1600, 224, np.random.default_rng(
         7001)), dtype=torch.float32, device=dev)
     _k8_vs_plain(spd, None, 800, 7001, err, torch, suffix="_band")
-    for lo, hi in ((0, 1), (3, 2)):
+    for lo, hi in ((0, 1), (3, 2), (33, 1)):
         seed = 7100 + 10 * lo + hi
         spd, gen, g = draws(7, 160, seed)
         _k8_vs_plain(spd, gen, 3, seed, err, torch, lo=lo, hi=hi,
                      suffix="_band")
         _k11_vs_plain(g, 3, seed, err, torch, lo=lo, hi=hi, key="k11_band")
+    # 31 rows of zero padding in the last slab at each NP, on a batch of 37
+    # (no multiple of the 15 - 47 clusters the card holds at once)
+    for n in BAND_PAD_N:
+        seed = 7200 + n
+        spd, gen, g = draws(37, n, seed)
+        _k8_vs_plain(spd, gen, 18, seed, err, torch, suffix="_band")
+        _k11_vs_plain(g, 18, seed, err, torch, key="k11_band")
 
 
 def _fit_data(batch, n, seed):
@@ -927,7 +953,9 @@ def _time_band(dev, bounds_at, timing, library, card, torch):
     it replaces (bf16: the cold adaptive solve; split3: the batched route
     ``_warm_refine_split`` with its extra polish; K11: K5's Schur route for
     mean and var plus the cold solve for K⁻¹) and its bound
-    (``bounds_at(batch, n)``).  A batch of 1600 repeats 100 draws."""
+    (``bounds_at(batch, n)``), and beside its time before the Hopper
+    redesign of the cluster loop (:data:`BAND_BEFORE_MS`).  A batch of
+    1600 repeats 100 draws."""
     from cuda_matrix_inversion_tpu_torch.io.fixtures import (
         make_gp_batch,
         make_spd_batch,
@@ -980,6 +1008,7 @@ def _time_band(dev, bounds_at, timing, library, card, torch):
             timing[(key + "_bound", case)] = bound
             print(json.dumps({
                 "timing": key.upper(), "case": case, "kernel_ms": ms,
+                "before_ms": BAND_BEFORE_MS[key][case],
                 "plain_ms": plain_ms, "route_before_ms": route_ms,
                 "route_before": route_name, "torch_linalg_inv_ms": inv_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], **card}),
@@ -1008,6 +1037,7 @@ def _time_band(dev, bounds_at, timing, library, card, torch):
         timing[("k11_band_bound", case)] = bound
         print(json.dumps({
             "timing": "K11_BAND", "case": case, "kernel_ms": ms,
+            "before_ms": BAND_BEFORE_MS["k11_band"][case],
             "plain_ms": plain_ms, "route_before_ms": route_ms,
             "route_before": "gp_mean_variance_fused (K5 Schur route) + "
                             "inverse_newton_schulz (cold) for K^-1",
@@ -1782,6 +1812,22 @@ def main() -> int:
                                dtype=torch.float32, device=dev)
             _k8_vs_plain(spd, gen, 3, 8000 + n, new_err, torch, lo=lo,
                          hi=hi)
+    # any number of lo rounds (the round scalars in device memory): K1's
+    # pan lane at 40, K8 and K11 at 33 (their cluster instances in
+    # _band_vs_plain)
+    for n in (64, 128):
+        spd = torch.tensor(make_spd_batch(7, n, np.random.default_rng(
+            450 + n)), dtype=torch.float32, device=dev)
+        _k1_vs_plain(spd, newton_schulz.resolve_schedule(lo_iters=40,
+                                                         init="pan"),
+                     f"pan lo_iters=40 7x{n}", k1_err, torch)
+    rng = np.random.default_rng(8033)
+    spd, gen = (torch.tensor(f(7, 64, rng), dtype=torch.float32, device=dev)
+                for f in (make_spd_batch, make_square_batch))
+    _k8_vs_plain(spd, gen, 3, 8033, new_err, torch, lo=33)
+    g = make_gp_batch(7, 64, rng)
+    _k11_vs_plain({k: torch.tensor(g[k], dtype=torch.float32, device=dev)
+                   for k in "abcde"}, 3, 8033, new_err, torch, lo=33)
     # K7 at every instance off the shapes above (n = 1, 7: NP = 16; 40:
     # 64; 72, 127: 128, padded; 160 and the JAX kernel's ceiling 192: 192;
     # n off a multiple of 4: scalar loads), and on small integers in

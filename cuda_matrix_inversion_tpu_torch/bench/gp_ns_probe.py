@@ -43,7 +43,12 @@ import numpy as np
 import torch
 
 from cuda_matrix_inversion_tpu_torch.io.fixtures import make_gp_batch
-from cuda_matrix_inversion_tpu_torch.ops import cuda_build, cuda_gp, linalg
+from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_build,
+    cuda_gp,
+    linalg,
+    newton_schulz,
+)
 
 DIRECT = """  gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
   const WarpTile w = warp_tile<NP>();
@@ -78,25 +83,30 @@ STAGED = """  gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
 # The clock split's bookkeeping, patched into ns_common.cuh (which every
 # Newton-Schulz kernel includes first): thread 0 of block 0 records
 # (clock64, globaltimer, id) at each ns_stamp(id); id 0 restarts the
-# record.  PHASES names the interval that ends at stamp id k.
-STAMP_DEFS = """#pragma once
+# record.  The running count lives in shared memory (a stamp issues stores
+# and no global load, ~0.15 us less a stamp than a count in device
+# memory).  PHASES names the interval that ends at stamp id k.
+STAMP_CAP = 192  # stamps a launch
+STAMP_DEFS = f"""#pragma once
 
-static __device__ unsigned long long ns_probe_t[3][48];
+static __device__ unsigned long long ns_probe_t[3][{STAMP_CAP}];
 static __device__ int ns_probe_next;
-__device__ __forceinline__ void ns_stamp(int id) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    if (id == 0) ns_probe_next = 0;
-    const int k = ns_probe_next;
-    if (k < 48) {
+__device__ __forceinline__ void ns_stamp(int id) {{
+  __shared__ int next;  // the count in shared memory: no global load
+  if (blockIdx.x == 0 && threadIdx.x == 0) {{
+    if (id == 0) next = 0;
+    const int k = next;
+    if (k < {STAMP_CAP}) {{
       unsigned long long g;
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
       ns_probe_t[0][k] = clock64();
       ns_probe_t[1][k] = g;
       ns_probe_t[2][k] = id;
+      next = k + 1;
       ns_probe_next = k + 1;
-    }
-  }
-}
+    }}
+  }}
+}}
 """
 STAMP_READER = """
 extern "C" int cmi_ns_stamps(unsigned long long* host, int* count) {
@@ -193,6 +203,9 @@ def variant_library(name: str, edits=None, src: Path = cuda_build.CSRC_DIR,
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     cdll.compiler_log = log.stdout + log.stderr
+    common = variant / "ns_common.cuh"
+    cdll.device_scalars = (not common.exists()
+                           or "round_scalars(" in common.read_text())
     return cdll
 
 
@@ -217,22 +230,34 @@ def _launcher(cdll, flat, x0, fresh: bool = False):
     return run
 
 
+def scalar_args(cdll, sched, device) -> tuple:
+    """K1's and K6's ``two_c`` and ``c_sq`` arguments for ``cdll``: device
+    addresses (``newton_schulz.round_scalars``), or host arrays for a
+    library built from a ``csrc/`` that still takes them
+    (``cdll.device_scalars`` false, before any lo round count was served)."""
+    if getattr(cdll, "device_scalars", True):
+        return newton_schulz.round_scalars(sched.coeffs, device)
+    lo = max(sched.lo_iters, 1)
+    two_c = (ctypes.c_float * lo)(*[2.0 * c_ for c_ in sched.coeffs])
+    c_sq = (ctypes.c_float * lo)(*[c_ * c_ for c_ in sched.coeffs])
+    return (ctypes.cast(two_c, ctypes.c_void_p),
+            ctypes.cast(c_sq, ctypes.c_void_p))
+
+
 def _k6_launcher(cdll, flat):
     """A bare launch of K6 (``cmi_gp_fused_ns``) at its schedule."""
     a, b, c, d, e = flat
     sched = cuda_gp.GP_NS_SCHEDULE
-    lo = sched.lo_iters
-    two_c = (ctypes.c_float * lo)(*[2.0 * c_ for c_ in sched.coeffs])
-    c_sq = (ctypes.c_float * lo)(*[c_ * c_ for c_ in sched.coeffs])
+    two_c, c_sq = scalar_args(cdll, sched, b.device)
     out = torch.empty((b.shape[0], 2), device=b.device)
     device, stream = cuda_build.launch_args(b)
 
     def run():
         cuda_build.check(cdll.cmi_gp_fused_ns(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-            e.data_ptr(), out.data_ptr(), b.shape[0], b.shape[-1], lo,
-            sched.hi_iters, ctypes.cast(two_c, ctypes.c_void_p),
-            ctypes.cast(c_sq, ctypes.c_void_p), device, stream), "k6")
+            e.data_ptr(), out.data_ptr(), b.shape[0], b.shape[-1],
+            sched.lo_iters, sched.hi_iters, two_c, c_sq, device, stream),
+            "k6")
         return out
     return run
 
@@ -261,7 +286,8 @@ def clock_split(cdll, run, phases=PHASES) -> dict:
     fn = cdll.cmi_ns_stamps
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stamps = (ctypes.c_ulonglong * (3 * 48))()
+    cap = STAMP_CAP
+    stamps = (ctypes.c_ulonglong * (3 * cap))()
     count = ctypes.c_int()
     seqs, ghz = [], []
     for _ in range(5):
@@ -269,12 +295,13 @@ def clock_split(cdll, run, phases=PHASES) -> dict:
         torch.cuda.synchronize()
         cuda_build.check(fn(ctypes.cast(stamps, ctypes.c_void_p),
                             ctypes.byref(count)), "ns stamps")
-        c = min(count.value, 48)
+        c = min(count.value, cap)
         clk = np.array(stamps[:c], dtype=np.float64)
-        ns = np.array(stamps[48:48 + c], dtype=np.float64)
+        ns = np.array(stamps[cap:cap + c], dtype=np.float64)
         rate = (clk[-1] - clk[0]) / (ns[-1] - ns[0])  # clocks per ns
         ghz.append(rate)
-        seqs.append((list(stamps[96:96 + c]), np.diff(clk) / rate / 1e3))
+        seqs.append((list(stamps[2 * cap:2 * cap + c]),
+                     np.diff(clk) / rate / 1e3))
     ids = seqs[0][0]
     if any(s[0] != ids for s in seqs):
         raise RuntimeError("the stamps differ between launches")

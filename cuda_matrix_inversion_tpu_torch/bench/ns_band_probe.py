@@ -13,15 +13,20 @@ Prints one JSON line a probe:
   for the card, and ns a chunk, at NP = 160, 192, 224 and C = NP / 32.
 - ``clusters``: ``cudaOccupancyMaxActiveClusters`` for a kernel of 256
   threads at each cluster size 4 … 8 with the band instances' shared
-  memory (``band_smem_bytes``), and for the band kernels themselves
-  (``ns_band_kernel``, ``gp_warm_band_kernel``); with their registers,
-  local memory (``cudaFuncGetAttributes``) and ``ptxas -v``'s lines.
+  memory (``band_smem_bytes``, both schedules), and for the band kernels
+  themselves (``ns_band_kernel``, ``gp_warm_band_kernel``): the shared
+  memory each launch asks for, their registers, local memory
+  (``cudaFuncGetAttributes``) and ``ptxas -v``'s lines (spills).
 - ``clock_split``: K8's cluster instance with thread 0 of block 0 (rank 0
   of the first cluster) stamping ``clock64`` and ``%globaltimer`` after
-  each step of the band loop (:data:`BAND_PHASES`: each product over the
-  peer chunks, each store and cluster barrier, the residual); each
-  interval in µs, median of 5 launches, K8 bf16 and split3 at 100×224,
-  bf16 at 1600×224 and 100×160.
+  each step of the band loop (:data:`BAND_PHASES`: each store and cluster
+  barrier, and inside each walk over the peer chunks the barriers armed
+  and pushes issued, the own chunks, each wait for a peer's pushed chunks
+  and the work on them, each window's barrier; ``walks`` groups them by
+  walk, the fp32 residual being the fifth of the six walks of the
+  default 2 + 1 rounds); each interval in µs, median of 5 launches, K8 bf16 and split3
+  at 100×224, bf16 at 1600×224, 100×160 and 1×224 (one cluster on an
+  idle card: the walks without the other clusters' traffic).
 - ``baseline`` (when ``BASELINE_CSRC``, another checkout's ``csrc/``, is
   given): K8 (bf16, split3) and K11 of that checkout against this tree's
   on the same inputs at 100×224, 1600×224, 100×160 and 100×192 (the
@@ -67,31 +72,35 @@ BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
 
 # The band loop's clock split: the interval that ends at stamp id k, and
 # the patches (anchor, replacement, count) a file that place the stamps.
+# Every walk over the peer chunks (``over_chunks``) stamps the arming of
+# its barriers and the pushes issued (12), its own two chunks (13), each
+# wait for a peer's two chunks (14) and their MMAs or FMAs (15), each
+# window's cluster barrier and pushes (16), and its closing block barrier
+# (17); :func:`walks` groups them by walk.
 BAND_PHASES = {1: "load X0, stage A", 2: "publish X0, cluster barrier",
-               3: "lo: A X over the peer chunks",
                4: "lo: store T, cluster barrier",
-               5: "lo: X T over the peer chunks",
                6: "lo: publish X, cluster barrier",
-               7: "hi: R = I - A X", 8: "hi: cluster barrier",
-               9: "hi: X R over the peer chunks",
-               10: "hi: publish X, cluster barrier", 11: "write X"}
+               7: "hi: store R", 8: "hi: cluster barrier",
+               10: "hi: publish X, cluster barrier", 11: "write X",
+               12: "walk: arm, push", 13: "walk: own chunks",
+               14: "walk: wait for a peer's chunks",
+               15: "walk: a peer's chunks",
+               16: "walk: window cluster barrier, push",
+               17: "walk: closing block barrier"}
+WALK_IDS = (12, 13, 14, 15, 16, 17)
 BAND_STAMPS = {
     "ns_common.cuh": [("#pragma once\n", STAMP_DEFS, 1)],
     "ns_cluster_rounds.cuh": [
         ("  publish(0);\n\n  float acc[1][NT][4];\n",
          "  publish(0);\n  ns_stamp(2);\n\n  float acc[1][NT][4];\n", 1),
-        ("      band_mma_one<NP>(acc, sm.Ah, sm.Xh, sm.ring, rank, w);\n"
-         "    tile_for_each(",
-         "      band_mma_one<NP>(acc, sm.Ah, sm.Xh, sm.ring, rank, w);\n"
-         "    ns_stamp(3);\n    tile_for_each(", 1),
         ("    if constexpr (SPLIT3) store_tile_bf16<1, NT, true>(acc, sm.Tl, "
          "LDB, w);\n    cluster_sync();\n",
          "    if constexpr (SPLIT3) store_tile_bf16<1, NT, true>(acc, sm.Tl, "
          "LDB, w);\n    cluster_sync();\n    ns_stamp(4);\n", 1),
-        ("      band_mma_one<NP>(xm, sm.Xh, sm.T, sm.ring, rank, w);\n"
+        ("      band_mma_one<NP>(xm, sm.Xh, sm.T, sm, rank, parity, w);\n"
          "    publish(r + 1);\n",
-         "      band_mma_one<NP>(xm, sm.Xh, sm.T, sm.ring, rank, w);\n"
-         "    ns_stamp(5);\n    publish(r + 1);\n    ns_stamp(6);\n", 1),
+         "      band_mma_one<NP>(xm, sm.Xh, sm.T, sm, rank, parity, w);\n"
+         "    publish(r + 1);\n    ns_stamp(6);\n", 1),
         ("      store_tile_bf16(acc, sm.T, LDB, w);\n    }\n"
          "    cluster_sync();\n",
          "      store_tile_bf16(acc, sm.T, LDB, w);\n    }\n"
@@ -99,7 +108,18 @@ BAND_STAMPS = {
         ("        xm[0][j][q] = __fadd_rn(xm[0][j][q], acc[0][j][q]);\n"
          "    publish(r + 1);\n",
          "        xm[0][j][q] = __fadd_rn(xm[0][j][q], acc[0][j][q]);\n"
-         "    ns_stamp(9);\n    publish(r + 1);\n    ns_stamp(10);\n", 1),
+         "    publish(r + 1);\n    ns_stamp(10);\n", 1),
+        ("  push(1);\n", "  push(1);\n  ns_stamp(12);\n", 1),
+        ("        cluster_sync();\n        push(first);\n",
+         "        cluster_sync();\n        push(first);\n"
+         "        ns_stamp(16);\n", 1),
+        ("      mbar_wait(sm.bars + d - 1, parity);\n",
+         "      mbar_wait(sm.bars + d - 1, parity);\n      ns_stamp(14);\n", 1),
+        ("    body(c, chunk);\n",
+         "    body(c, chunk);\n    if (j == 1) ns_stamp(13);\n"
+         "    if (j > 1 && (j & 1)) ns_stamp(15);\n", 1),
+        ("  parity ^= 1;\n  __syncthreads();\n",
+         "  parity ^= 1;\n  __syncthreads();\n  ns_stamp(17);\n", 1),
     ],
     "newton_schulz.cu": [
         ("  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
@@ -113,6 +133,43 @@ BAND_STAMPS = {
          "  ns_stamp(11);\n}\n", 1),
     ],
 }
+
+
+def walks(sequence) -> list:
+    """A clock split's ``sequence_us`` grouped by walk over the peer chunks,
+    in order: each walk's µs arming and pushing, on its own chunks, waiting
+    for each peer's chunks, on each peer's chunks, in window barriers, in
+    its closing barrier, and in all."""
+    names = {BAND_PHASES[k]: k for k in WALK_IDS}
+    out, cur = [], None
+    for name, us in sequence:
+        k = names.get(name)
+        if k is None:
+            continue
+        if k == 12:
+            cur = {"push_us": 0.0, "own_us": 0.0, "wait_us": [],
+                   "peer_us": [], "window_us": 0.0}
+        if cur is None:
+            continue
+        if k == 12:
+            cur["push_us"] += us
+        elif k == 13:
+            cur["own_us"] += us
+        elif k == 14:
+            cur["wait_us"].append(us)
+        elif k == 15:
+            cur["peer_us"].append(us)
+        elif k == 16:
+            cur["window_us"] += us
+        else:
+            cur["close_us"] = us
+            cur["total_us"] = (cur["push_us"] + cur["own_us"]
+                               + sum(cur["wait_us"]) + sum(cur["peer_us"])
+                               + cur["window_us"] + us)
+            out.append(cur)
+            cur = None
+    return out
+
 
 # The copy micro-benchmark: each CTA fills its slab, then copies `reps`
 # chunks from its peer rank + 1 (mode 0) or from device memory (mode 1)
@@ -244,8 +301,8 @@ extern "C" int probe_max_clusters(int csize, int smem, int* out) {
 BAND_READER = """
 namespace {{
 template <typename Kernel>
-int band_figures(Kernel kernel, int np, int* out) {{
-  const size_t smem = band_smem_bytes(np);
+int band_figures(Kernel kernel, int np, bool split3, int* out) {{
+  const size_t smem = band_smem_bytes(np, split3);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -285,10 +342,19 @@ NS_KERNELS = [f"ns_band_kernel<{np}, {s}>" for np in BAND_NP
 GP_KERNELS = [f"gp_warm_band_kernel<{np}>" for np in BAND_NP]
 
 
+def _kernel_np_split3(kernel: str) -> tuple:
+    """(NP, split3) of a band kernel's name, ``ns_band_kernel<224, true>``
+    or ``gp_warm_band_kernel<160>``."""
+    args = [x.strip() for x in kernel.split("<")[1].rstrip(">").split(",")]
+    return int(args[0]), len(args) > 1 and args[1] == "true"
+
+
 def _reader(kernels) -> str:
     calls = "\n  ".join(
-        f"if (!err) err = band_figures({k}, {k.split('<')[1].split(',')[0].rstrip('>')}, out + {4 * i});"
-        for i, k in enumerate(kernels))
+        f"if (!err) err = band_figures({k}, {np_}, "
+        f"{'true' if s3 else 'false'}, out + {4 * i});"
+        for i, k in enumerate(kernels)
+        for np_, s3 in [_kernel_np_split3(k)])
     return BAND_READER.format(calls=calls)
 
 
@@ -335,12 +401,13 @@ def _copy_lib() -> ctypes.CDLL:
     return cdll
 
 
-def _band_smem(np_: int) -> int:
+def _band_smem(np_: int, split3: bool = False) -> int:
     """``band_smem_bytes`` (csrc/ns_cluster_rounds.cuh) in Python."""
     ldb, ldf = np_ + 8, np_ + 4
-    ring = max(4 * 16 * ldb * 2, 2 * 16 * ldf * 4)
-    return (2 * 32 * ldf * 4 + 4 * 32 * ldb * 2 + ring
-            + (2 * np_ + 2 * (np_ // 32)) * 4)
+    chunks = (12 if np_ == 224 else 20 if np_ == 192 else 16 if split3
+              else 4)
+    return (2 * 32 * ldf * 4 + 4 * 32 * ldb * 2 + 16 * ldb * 2 * chunks
+            + 8 * 8 + (2 * np_ + 2 * (np_ // 32)) * 4)
 
 
 def main() -> int:
@@ -356,10 +423,12 @@ def main() -> int:
     for csize in range(4, 9):
         row = {}
         for np_ in BAND_NP:
-            out = ctypes.c_int()
-            cuda_build.check(lib.probe_max_clusters(
-                csize, _band_smem(np_), ctypes.byref(out)), "max clusters")
-            row[f"smem_{_band_smem(np_)}"] = out.value
+            for split3 in (False, True):
+                smem = _band_smem(np_, split3)
+                out = ctypes.c_int()
+                cuda_build.check(lib.probe_max_clusters(
+                    csize, smem, ctypes.byref(out)), "max clusters")
+                row[f"smem_{smem}"] = out.value
         sizes[str(csize)] = row
     print(json.dumps({"probe": "clusters", "generic_256_threads": sizes,
                       "newton_schulz.cu": _band_figures(
@@ -403,18 +472,20 @@ def main() -> int:
         "band_stamped", stamped_edits(BAND_STAMPS, "newton_schulz.cu"),
         units=("newton_schulz.cu",))
     for batch, n, prec in ((100, 224, "bf16"), (100, 224, "split3"),
-                           (1600, 224, "bf16"), (100, 160, "bf16")):
+                           (1600, 224, "bf16"), (100, 160, "bf16"),
+                           (1, 224, "bf16")):
         rng = np.random.default_rng(batch + n)
         base = torch.tensor((make_spd_batch if prec == "bf16"
                              else make_square_batch)(batch, n, rng),
                             dtype=torch.float32, device=dev)
         a, x0 = _drifted(base, 1e-3 if prec == "bf16" else 1e-4, batch,
                          prec == "bf16")
+        split = clock_split(stamped, k8_launcher(
+            stamped, a, x0, prec == "split3"), BAND_PHASES)
         print(json.dumps({"probe": "clock_split",
-                          "case": f"K8 {prec} {batch}x{n}",
-                          **clock_split(stamped, k8_launcher(
-                              stamped, a, x0, prec == "split3"),
-                              BAND_PHASES), "card": card}), flush=True)
+                          "case": f"K8 {prec} {batch}x{n}", **split,
+                          "walks": walks(split["sequence_us"]),
+                          "card": card}), flush=True)
     if len(sys.argv) > 1:
         base = variant_library("band_baseline", src=Path(sys.argv[1]),
                                units=("newton_schulz.cu", "gp.cu"))

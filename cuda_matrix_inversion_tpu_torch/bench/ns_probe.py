@@ -52,6 +52,7 @@ from cuda_matrix_inversion_tpu_torch.bench.gp_ns_probe import (
     _launcher,
     clock_split,
     median_ms,
+    scalar_args,
     stamped_edits,
     variant_library,
 )
@@ -175,18 +176,16 @@ def _warm_cases(cases: dict) -> dict:
 def k1_launcher(cdll, a, sched):
     """A bare launch of ``cmi_ns_inverse`` at the lane's schedule, into
     the same output every call."""
-    lo = sched.lo_iters
-    two_c = (ctypes.c_float * max(lo, 1))(*[2.0 * c for c in sched.coeffs])
-    c_sq = (ctypes.c_float * max(lo, 1))(*[c * c for c in sched.coeffs])
+    two_c, c_sq = scalar_args(cdll, sched, a.device)
     x = torch.empty_like(a)
     device, stream = cuda_build.launch_args(a)
 
     def run():
         cuda_build.check(cdll.cmi_ns_inverse(
             a.data_ptr(), x.data_ptr(), a.shape[0], a.shape[-1],
-            int(sched.init == "spd"), lo, sched.hi_iters, int(sched.split3),
-            int(sched.polish_highest), ctypes.cast(two_c, ctypes.c_void_p),
-            ctypes.cast(c_sq, ctypes.c_void_p), device, stream), "k1")
+            int(sched.init == "spd"), sched.lo_iters, sched.hi_iters,
+            int(sched.split3), int(sched.polish_highest), two_c, c_sq,
+            device, stream), "k1")
         return x
     return run
 

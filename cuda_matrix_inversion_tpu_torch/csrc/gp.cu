@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(kThreads)
 // quad_s = x_a . a, and stores them in rank 0's shared memory; rank 0 adds
 // the C partials in rank order, so two runs give the same bits.
 template <int NP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
     gp_warm_band_kernel(const float* __restrict__ a,
                         const float* __restrict__ b,
                         const float* __restrict__ c,
@@ -493,15 +493,15 @@ extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
 }
 
 // As cmi_gp_fused, with K^-1 by the spd Newton-Schulz schedule: `lo` scaled
-// rounds with the host's fp32 scalars two_c / c_sq, then `hi` polish rounds,
-// the last residual in fp32.
+// rounds with the fp32 scalars two_c / c_sq (device arrays of `lo` floats),
+// then `hi` polish rounds, the last residual in fp32.
 extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
                                const float* d, const float* e, float* out,
                                int batch, int n, int lo, int hi,
                                const float* two_c, const float* c_sq,
                                int device, void* stream) {
   NSParams prm;
-  if (batch < 0 ||
+  if (batch < 0 || (lo > 0 && two_c == nullptr) ||
       !make_ns_params(n, /*init_spd=*/1, lo, hi, /*split3=*/0,
                       /*polish_highest=*/1, two_c, c_sq, &prm))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -533,16 +533,16 @@ cudaError_t launch_gp_warm_band(const NSParams& prm, int batch,
   switch (band_np(prm.n)) {
     case 160:
       return band_launch(gp_warm_band_kernel<160>, BandGeometry<160>::C,
-                         batch, band_smem_bytes(160), s, a, b, c, d, e, x0,
-                         out, kinv, prm);
+                         batch, band_smem_bytes(160, false), s, a, b, c, d,
+                         e, x0, out, kinv, prm);
     case 192:
       return band_launch(gp_warm_band_kernel<192>, BandGeometry<192>::C,
-                         batch, band_smem_bytes(192), s, a, b, c, d, e, x0,
-                         out, kinv, prm);
+                         batch, band_smem_bytes(192, false), s, a, b, c, d,
+                         e, x0, out, kinv, prm);
     default:
       return band_launch(gp_warm_band_kernel<224>, BandGeometry<224>::C,
-                         batch, band_smem_bytes(224), s, a, b, c, d, e, x0,
-                         out, kinv, prm);
+                         batch, band_smem_bytes(224, false), s, a, b, c, d,
+                         e, x0, out, kinv, prm);
   }
 }
 

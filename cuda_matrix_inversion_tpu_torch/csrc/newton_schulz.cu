@@ -63,7 +63,9 @@
 // operand's other slabs from the peers' shared memory; the split3 schedule
 // accumulates its residuals in fp64 there.  The bound stays the operations
 // (5 bf16 and 1 fp32 product of 2 NP^3 at the default bf16 rounds); the
-// cluster adds a copy of each peer chunk and two cluster barriers a round.
+// cluster adds a bulk copy of every peer's chunks to every CTA (87 KB a
+// CTA a bf16 product at NP = 224, over the cluster's shared-memory
+// network) and two cluster barriers a round.
 
 #include "ns_cluster_rounds.cuh"
 #include "ns_mma_rounds.cuh"
@@ -165,7 +167,7 @@ cudaError_t launch_ns(const NSParams& prm, int batch, cudaStream_t s,
 // K8 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a matrix, each
 // refining its 32-row slab (ns_cluster_rounds.cuh).
 template <int NP, bool SPLIT3>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, SPLIT3))
     ns_band_kernel(const float* __restrict__ a, const float* __restrict__ x0,
                    float* __restrict__ x, NSParams prm) {
   using G = BandGeometry<NP>;
@@ -187,11 +189,11 @@ template <int NP>
 cudaError_t launch_band_np(const NSParams& prm, int batch, cudaStream_t s,
                            const float* a, const float* x0, float* x) {
   constexpr int C = BandGeometry<NP>::C;
-  const size_t smem = band_smem_bytes(NP);
-  return prm.split3 ? band_launch(ns_band_kernel<NP, true>, C, batch, smem,
-                                  s, a, x0, x, prm)
-                    : band_launch(ns_band_kernel<NP, false>, C, batch, smem,
-                                  s, a, x0, x, prm);
+  return prm.split3
+             ? band_launch(ns_band_kernel<NP, true>, C, batch,
+                           band_smem_bytes(NP, true), s, a, x0, x, prm)
+             : band_launch(ns_band_kernel<NP, false>, C, batch,
+                           band_smem_bytes(NP, false), s, a, x0, x, prm);
 }
 
 cudaError_t launch_band(const NSParams& prm, int batch, cudaStream_t s,
@@ -205,15 +207,17 @@ cudaError_t launch_band(const NSParams& prm, int batch, cudaStream_t s,
 
 }  // namespace
 
-// a, x: (batch, n, n) fp32, contiguous, on `device`.  two_c / c_sq: host
-// arrays of `lo` fp32 scalars.  Returns the CUDA error of the launch.
+// a, x: (batch, n, n) fp32, contiguous, on `device`.  two_c / c_sq:
+// device arrays of `lo` fp32 scalars (any lo).  Returns the CUDA error of
+// the launch.
 extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
                               int init_spd, int lo, int hi, int split3,
                               int polish_highest, const float* two_c,
                               const float* c_sq, int device, void* stream) {
   NSParams prm;
-  if (batch < 0 || !make_ns_params(n, init_spd, lo, hi, split3,
-                                   polish_highest, two_c, c_sq, &prm))
+  if (batch < 0 || (lo > 0 && two_c == nullptr) ||
+      !make_ns_params(n, init_spd, lo, hi, split3, polish_highest, two_c,
+                      c_sq, &prm))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

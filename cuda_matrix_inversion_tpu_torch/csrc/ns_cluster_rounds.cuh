@@ -16,29 +16,57 @@
 // Products.  Every product is rows-of-left x whole-right: the left operand
 // is the CTA's own slab, the right one has its 16-row k-chunk c in CTA
 // c / 2's slab, at the same offset in every CTA.  ldmatrix cannot address
-// a peer's shared memory, so each peer chunk is copied (ld.shared::cluster,
-// 16 bytes a thread and load) into a local ring of two chunks, one chunk
-// ahead of the MMAs that read the other, one barrier a chunk; a chunk the
-// CTA owns is read in place.  Each CTA starts the walk at its own slab, so
-// no two CTAs read one owner at once.  The MMAs are ns_mma.cuh's fragments,
-// unchanged.  The fp32 residual R = I - A X runs on CUDA cores over chunks
-// of X in fp32 through the same ring; the split3 schedule accumulates it
-// in fp64, as linalg.residual_f64 does on the routes past the kernels:
-// past n = 128 an fp32 residual leaves the kappa = 500 class over the
-// 1e-4 gate (1.05e-4 at n = 224 in the plain version).
+// a peer's shared memory and a chunk pulled through registers exposes its
+// whole latency (~0.5 us, from a peer as from L2), so the owners push:
+// right after the cluster barrier that published a right operand, warp 0
+// of each CTA issues one bulk copy a part (cp.async.bulk shared::cluster:
+// its slab's two contiguous 16-row chunks, 10.5 - 29.2 KB) into every
+// peer's staging area, completing on an mbarrier in that peer, one a peer
+// slab, which the peer arms with the bytes it expects.  Many chunks are in
+// flight at once; the CTA's walk starts at its own two chunks, read in
+// place, which hide the first arrival, and then waits on each peer's
+// barrier just before the MMAs that read its chunks.  The walk visits the
+// slabs in the order rank, rank + 1, ... (mod C), so no two CTAs read one
+// owner at once, and every sum runs over k in that order whatever carries
+// the chunks.
+// The MMAs are ns_mma.cuh's fragments, unchanged.  The staging area holds
+// the most that fits beside the slab tiles (band_stage_bytes): the whole
+// bf16 walk at every NP, and every walk at NP = 192 and at 160 for split3;
+// where a walk's chunks do not fit (the split's two-part chunks and the
+// residual's fp32 chunks at 224, and all but the bf16 walk at 160, where
+// the bf16 instance keeps two CTAs an SM), the walk goes in windows of as
+// many peers as fit, one cluster barrier between two windows: the barrier
+// proves that no CTA still reads the slots the next window's pushes fill.
+//
+// The fp32 residual R = I - A X runs on CUDA cores over chunks of X in
+// fp32 pushed the same way; the split3 schedule accumulates it in fp64, as
+// linalg.residual_f64 does on the routes past the kernels: past n = 128 an
+// fp32 residual leaves the kappa = 500 class over the 1e-4 gate (1.05e-4 at
+// n = 224 in the plain version).  Each thread owns 4 adjacent rows and NT
+// columns of one column half: one 16-byte load of A feeds 4 k steps and X
+// comes in one 16-, one 8- and one 4-byte load, 4 + 3 loads a k step where
+// a tile of rows 8 apart took 4 + 7.  A warp's load still costs one
+// shared-memory wavefront a 4-byte value a lane, 11 a k step against 28
+// FMAs, so the shared-memory pipe paces the residual, not the FMA pipe.
+// Each sum runs over k in the walk's order.
 //
 // Barriers.  A publish (X into the slab tiles) and a T/R store end in a
-// cluster barrier (barrier.cluster.arrive.release / wait.acquire), two a
-// round; every peer read of a buffer lies between the barrier that
-// published it and the next barrier of the CTA that overwrites it.  The
-// last publish is that barrier for the final X, so no CTA exits while a
-// peer may still read its slab.
+// cluster barrier (fence.proxy.async, then barrier.cluster.arrive.release
+// / wait.acquire), two a round, plus the walks' window barriers; every
+// push of a buffer lies between the barrier that published it and the next
+// barrier of the CTA that overwrites it, and every CTA waits for all its
+// chunks before it arrives at the next barrier, so a barrier also proves
+// that every earlier push has landed.  The last publish is that barrier
+// for the final X, so no CTA exits while a peer may still read its slab or
+// a copy is in flight.
 //
 // Shared memory a CTA (LDF = NP + 4 fp32, LDB = NP + 8 bf16 a row): A and
 // Xf in fp32 (32 x LDF each), four bf16 slab tiles (as ns_mma_rounds.cuh:
-// bf16 Ah, Xh, T, Xl; split3 Tl, Xh, T, Xl), the ring (two chunks of two
-// bf16 parts, or of fp32 X), then K11's [d a] and the cluster's partial
-// sums: 105.3 / 125.5 / 145.8 KB at NP = 160 / 192 / 224.
+// bf16 Ah, Xh, T, Xl; split3 Tl, Xh, T, Xl), the staging area, eight
+// mbarriers, then K11's [d a] and the cluster's partial sums: 203.9 /
+// 225.6 / 105.4 KB (split3 168.4) at NP = 224 / 192 / 160, one CTA an SM
+// (two at NP = 160 bf16); the staging area is 12 bf16 chunks (87.0 KB) at
+// 224, 20 (125 KB) at 192, 4 (21 KB; split3 16) at 160.
 
 #pragma once
 
@@ -54,29 +82,45 @@ namespace {
 
 constexpr int kBandMaxN = 224;  // the JAX warm kernels' ceiling
 constexpr int kSlab = 32;       // rows a CTA owns
+constexpr int kBandBars = 8;    // mbarriers reserved a CTA (C - 1 used)
 
 // NP for 129 <= n <= 224.
 inline int band_np(int n) { return n <= 160 ? 160 : n <= 192 ? 192 : 224; }
+
+// Bytes of the staging area at NP = np: whole 16-row bf16 chunks (16 x
+// (np + 8) x 2 bytes), as many as fit beside the rest (band_smem_bytes)
+// in a CTA's 227 KB, but at NP = 160 for the bf16 schedules only 4, so
+// that two CTAs of 105.4 KB share an SM.
+__host__ __device__ constexpr size_t band_stage_bytes(size_t np,
+                                                  bool split3) {
+  return 16 * (np + 8) * 2 *
+         (np == 224 ? 12 : np == 192 ? 20 : split3 ? 16 : 4);
+}
+
+// CTAs an SM the band kernels are built for (__launch_bounds__): two at
+// NP = 160 for the bf16 schedules (105.4 KB, at most 128 registers a
+// thread), else one.
+__host__ __device__ constexpr int band_ctas_per_sm(int np, bool split3) {
+  return np == 160 && !split3 ? 2 : 1;
+}
 
 template <int NP>
 struct BandGeometry {
   static_assert(NP % kSlab == 0 && NP <= kBandMaxN, "NP = 32 C");
   static constexpr int C = NP / kSlab;  // CTAs a cluster
+  static_assert(C - 1 <= kBandBars, "an mbarrier a peer");
   static constexpr int NT = NP / 32;    // n8 tiles a warp
   static constexpr int LDB = NP + 8;    // bf16 row stride
   static constexpr int LDF = NP + 4;    // fp32 row stride
   static constexpr int kChunks = NP / 16;
   static constexpr int kTile = kSlab * LDB;  // bf16 slab tile, elements
   static constexpr int kSlabF = kSlab * LDF;  // fp32 slab, elements
-  static constexpr size_t kRingBytes =
-      2 * 16 * LDB * sizeof(bf16) * 2 > 2 * 16 * LDF * sizeof(float)
-          ? 2 * 16 * LDB * sizeof(bf16) * 2
-          : 2 * 16 * LDF * sizeof(float);
 };
 
 template <int NP, bool SPLIT3>
 struct BandSmem {
   using G = BandGeometry<NP>;
+  static constexpr size_t kStage = band_stage_bytes(NP, SPLIT3);
   float* A;
   float* Xf;
   bf16* Ah;  // bf16 only
@@ -84,7 +128,8 @@ struct BandSmem {
   bf16* T;
   bf16* Xl;
   bf16* Tl;  // split3 only
-  unsigned char* ring;
+  unsigned char* stage;  // the peers' chunks of the walk's current window
+  uint64_t* bars;        // bars[d - 1]: the chunks of the peer rank + d
   float* rest;  // K11: d at [0, NP), a at [NP, 2 NP), partials past them
   __device__ explicit BandSmem(unsigned char* base)
       : A(reinterpret_cast<float*>(base)),
@@ -94,24 +139,27 @@ struct BandSmem {
         T(tile(2)),
         Xl(tile(3)),
         Tl(SPLIT3 ? tile(0) : nullptr),
-        ring(reinterpret_cast<unsigned char*>(tile(4))),
-        rest(reinterpret_cast<float*>(ring + G::kRingBytes)) {}
+        stage(reinterpret_cast<unsigned char*>(tile(4))),
+        bars(reinterpret_cast<uint64_t*>(stage + kStage)),
+        rest(reinterpret_cast<float*>(bars + kBandBars)) {}
   __device__ bf16* tile(int k) const {
     return reinterpret_cast<bf16*>(A + 2 * G::kSlabF) + k * G::kTile;
   }
 };
 
 // Bytes of BandSmem for NP = np (the launches' size).
-inline constexpr size_t band_smem_bytes(size_t np) {
+inline constexpr size_t band_smem_bytes(size_t np, bool split3) {
   const size_t ldb = np + 8, ldf = np + 4;
-  const size_t ring = 4 * 16 * ldb * 2 > 2 * 16 * ldf * 4 ? 4 * 16 * ldb * 2
-                                                          : 2 * 16 * ldf * 4;
   return 2 * kSlab * ldf * sizeof(float) + 4 * kSlab * ldb * sizeof(bf16) +
-         ring + (2 * np + 2 * (np / kSlab)) * sizeof(float);
+         band_stage_bytes(np, split3) + kBandBars * sizeof(uint64_t) +
+         (2 * np + 2 * (np / kSlab)) * sizeof(float);
 }
 
+// The CTA's generic-proxy shared-memory writes made visible to the bulk
+// copies issued after the barrier, then the cluster barrier.
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
+      "fence.proxy.async.shared::cta;\n"
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::
           : "memory");
@@ -131,17 +179,56 @@ __device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
   return out;
 }
 
-__device__ __forceinline__ uint4 ld_peer16(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-
 __device__ __forceinline__ void st_peer_f32(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
                : "memory");
+}
+
+// An mbarrier of one arrival; the initialisation made visible to the
+// cluster (the next cluster barrier orders it before any peer's copy).
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The barrier's one arrival of this phase, expecting `bytes` of copies.
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` of the barrier to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16) of this CTA's shared memory at `src` to
+// the shared::cluster address `dst`, completing on the mbarrier at the
+// shared::cluster address `bar` in the destination CTA.
+__device__ __forceinline__ void push_bulk(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // The calling warp's tile of the slab's 32 x NP output: rows
@@ -156,173 +243,240 @@ __device__ __forceinline__ WarpTile band_warp_tile() {
 // buffers of element type E, EPC elements a chunk) have chunk c at
 // parts[p] + (c & 1) * EPC in CTA c / 2: body(c, chunk) with chunk[p] a
 // local pointer to part p of chunk c (in place when this CTA owns it,
-// else in the ring).  CTA `rank` takes the chunks in the order
-// c = 2 rank + j (mod kChunks), its own two first: at every step the
-// cluster's CTAs read from distinct owners.  The copy of the next chunk is
-// in flight while body runs on this one; one barrier a chunk, and the
-// block has passed a barrier since the last body when it returns.
-template <int NP, int NPARTS, int EPC, class E, class Body>
+// else in the staging area).  The cluster has passed a barrier since the
+// parts were written, and every peer has finished its previous walk.  CTA
+// `rank` takes the chunks in the order c = 2 rank + j (mod kChunks), its
+// own two first, then the peer rank + d's two for d = 1 .. C - 1.  At the
+// start (and at each further window) this CTA pushes its two chunks to the
+// peers that read them next, and lane d - 1 of warp 0 arms the barrier of
+// peer slab d with the bytes of its two chunks; `parity` is the barriers'
+// phase, one a walk.  The block has passed a barrier since the last body
+// when it returns.
+template <int NP, bool SPLIT3, int NPARTS, int EPC, class E, class Body>
 __device__ __forceinline__ void over_chunks(E* const (&parts)[NPARTS],
-                                            unsigned char* ring, int rank,
+                                            const BandSmem<NP, SPLIT3>& sm,
+                                            int rank, uint32_t& parity,
                                             Body body) {
   using G = BandGeometry<NP>;
-  constexpr int kVec = EPC * static_cast<int>(sizeof(E)) / 16;  // a part
-  static_assert(EPC * sizeof(E) % 16 == 0, "16-byte copies");
-  constexpr int kPer = (NPARTS * kVec + kThreads - 1) / kThreads;
-  static_assert(2 * NPARTS * EPC * sizeof(E) <= G::kRingBytes, "ring");
-  E* slots = reinterpret_cast<E*>(ring);
+  constexpr int C = G::C;
+  constexpr uint32_t kPart = EPC * sizeof(E);      // a part of a chunk
+  constexpr uint32_t kPeer = 2 * NPARTS * kPart;  // a peer's two chunks
+  static_assert(kPart % 16 == 0, "16-byte bulk copies");
+  constexpr int kFit = static_cast<int>(BandSmem<NP, SPLIT3>::kStage / kPeer);
+  static_assert(kFit >= 1, "a peer's chunks fit the staging area");
+  constexpr int kWindow = kFit < C - 1 ? kFit : C - 1;  // peers a window
+  static_assert(NPARTS * kWindow <= 32, "a copy a lane of warp 0");
+  static_assert(NPARTS <= 2, "one or two parts");
   const int tid = threadIdx.x;
-  auto chunk_at = [&](int j) { return (2 * rank + j) % G::kChunks; };
-  uint4 buf[kPer];
-  // the j-th chunk of the walk into registers, then into ring slot j & 1
-  auto fetch = [&](int j) {
-    const int c = chunk_at(j), owner = c >> 1;
-    if (owner == rank) return;
-    uint32_t src[NPARTS];
-#pragma unroll
-    for (int p = 0; p < NPARTS; ++p)
-      src[p] = peer_addr(parts[p] + (c & 1) * EPC, owner);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int v = tid + i * kThreads;
-      if (v < NPARTS * kVec)
-        buf[i] = ld_peer16(src[v / kVec] + 16 * (v % kVec));
+  // warp 0: this CTA's two chunks of each part, contiguous in its slab
+  // tile, in one copy a part to each peer that sees it at distance
+  // d = first .. first + kWindow - 1, into the slot part p of d's place
+  auto push = [&](int first) {
+    const int i = tid;
+    if (i < NPARTS * kWindow) {
+      const int d = first + i / NPARTS, p = i % NPARTS;
+      if (d < C) {
+        const int peer = (rank - d + C) % C;
+        // parts[p] without a run-time index (no local-memory copy)
+        E* const part = p == 0 ? parts[0] : parts[NPARTS - 1];
+        push_bulk(peer_addr(sm.stage + (d - first) * kPeer + 2 * p * kPart,
+                            peer),
+                  part, 2 * kPart, peer_addr(sm.bars + d - 1, peer));
+      }
     }
   };
-  auto stash = [&](int j) {
-    if ((chunk_at(j) >> 1) == rank) return;
-    uint4* dst = reinterpret_cast<uint4*>(slots + (j & 1) * NPARTS * EPC);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int v = tid + i * kThreads;
-      if (v < NPARTS * kVec) dst[v] = buf[i];
-    }
-  };
-  fetch(0);
-  stash(0);
-  __syncthreads();
+  if (tid < C - 1) mbar_arm(sm.bars + tid, kPeer);
+  push(1);
 #pragma unroll 1
   for (int j = 0; j < G::kChunks; ++j) {
-    if (j + 1 < G::kChunks) fetch(j + 1);
-    const int c = chunk_at(j);
+    const int d = j >> 1;  // the walk's owner: rank + d
+    const int first = d > 0 ? 1 + (d - 1) / kWindow * kWindow : 0;
+    if (d > 0 && (j & 1) == 0) {
+      if (d == first && d > 1) {  // a new window: its slots are free
+        cluster_sync();
+        push(first);
+      }
+      mbar_wait(sm.bars + d - 1, parity);
+    }
+    const int c = (2 * rank + j) % G::kChunks;
     const E* chunk[NPARTS];
-    const bool own = (c >> 1) == rank;
 #pragma unroll
     for (int p = 0; p < NPARTS; ++p)
-      chunk[p] = own ? parts[p] + (c & 1) * EPC
-                     : slots + ((j & 1) * NPARTS + p) * EPC;
+      chunk[p] = (d == 0 ? parts[p]
+                         : reinterpret_cast<const E*>(
+                               sm.stage + (d - first) * kPeer) +
+                               2 * p * EPC) +
+                 (j & 1) * EPC;
     body(c, chunk);
-    if (j + 1 < G::kChunks) stash(j + 1);
-    __syncthreads();
   }
+  parity ^= 1;
+  __syncthreads();
 }
 
-// acc[0][j] += a B[0:16, col0 + 8j : col0 + 8j + 8] for j < NT, B a bf16
-// chunk (16 rows of stride LDB) stored [k][n]; an odd NT ends on one
-// ldmatrix.x2.
+// The right operand's fragments of a bf16 chunk B (16 rows of stride LDB,
+// stored [k][n]) for the warp's NT n8 tiles from col0: b[j] for tile j, an
+// odd NT ending on one ldmatrix.x2.  Every load is issued before any MMA
+// that reads it, so one load latency a chunk is exposed, not one a pair of
+// tiles.
 template <int NP>
-__device__ __forceinline__ void band_mma_k16(
-    float (&acc)[1][BandGeometry<NP>::NT][4], const uint32_t (&a)[4],
-    const bf16* B, int col0) {
+__device__ __forceinline__ void band_frag_b(
+    uint32_t (&b)[BandGeometry<NP>::NT][2], const bf16* B, int col0) {
   using G = BandGeometry<NP>;
   const int lane = threadIdx.x & 31;
   const bf16* p = B + (lane & 15) * G::LDB + col0;
 #pragma unroll
   for (int j = 0; j + 1 < G::NT; j += 2) {
-    uint32_t b[4];
-    ldsm_x4_trans(b, p + 8 * j + (lane >> 4) * 8);
-    mma_bf16(acc[0][j], a, b[0], b[1]);
-    mma_bf16(acc[0][j + 1], a, b[2], b[3]);
+    uint32_t r[4];
+    ldsm_x4_trans(r, p + 8 * j + (lane >> 4) * 8);
+    b[j][0] = r[0];
+    b[j][1] = r[1];
+    b[j + 1][0] = r[2];
+    b[j + 1][1] = r[3];
   }
-  if constexpr (G::NT % 2 == 1) {
-    uint32_t b[2];
-    ldsm_x2_trans(b, p + 8 * (G::NT - 1));
-    mma_bf16(acc[0][G::NT - 1], a, b[0], b[1]);
-  }
+  if constexpr (G::NT % 2 == 1)
+    ldsm_x2_trans(b[G::NT - 1], p + 8 * (G::NT - 1));
+}
+
+// acc[0][j] += a b[j] for j < NT.
+template <int NP>
+__device__ __forceinline__ void band_mma_k16(
+    float (&acc)[1][BandGeometry<NP>::NT][4], const uint32_t (&a)[4],
+    const uint32_t (&b)[BandGeometry<NP>::NT][2]) {
+#pragma unroll
+  for (int j = 0; j < BandGeometry<NP>::NT; ++j)
+    mma_bf16(acc[0][j], a, b[j][0], b[j][1]);
 }
 
 // acc = L R over k < NP in one pass: L the CTA's bf16 slab tile, R a bf16
 // operand in the cluster's slab tiles at `right`.
-template <int NP>
+template <int NP, bool SPLIT3>
 __device__ __forceinline__ void band_mma_one(
     float (&acc)[1][BandGeometry<NP>::NT][4], const bf16* L, bf16* right,
-    unsigned char* ring, int rank, WarpTile w) {
+    const BandSmem<NP, SPLIT3>& sm, int rank, uint32_t& parity,
+    WarpTile w) {
   using G = BandGeometry<NP>;
   zero_tile(acc);
   bf16* const parts[1] = {right};
-  over_chunks<NP, 1, 16 * G::LDB>(
-      parts, ring, rank, [&](int c, const bf16* const (&chunk)[1]) {
-        uint32_t a[4];
+  over_chunks<NP, SPLIT3, 1, 16 * G::LDB>(
+      parts, sm, rank, parity, [&](int c, const bf16* const (&chunk)[1]) {
+        uint32_t a[4], b[G::NT][2];
         frag_a_bf16(a, L, G::LDB, w.row0, 16 * c);
-        band_mma_k16<NP>(acc, a, chunk[0], w.col0);
+        band_frag_b<NP>(b, chunk[0], w.col0);
+        band_mma_k16<NP>(acc, a, b);
       });
 }
 
 // The 3-pass split acc = hi(L) hi(Y) + lo(L) hi(Y) + hi(L) lo(Y): the
 // left operand's two parts at (row0, k0) from load_l(hi, lo, row0, k0),
-// Y's halves in the cluster's slab tiles Yh and Yl.
-template <int NP, class LoadL>
+// Y's halves in the cluster's slab tiles Yh and Yl.  Each chunk's
+// fragments load once; lo(Y)'s while the first MMAs run.
+template <int NP, bool SPLIT3, class LoadL>
 __device__ __forceinline__ void band_mma_split3(
     float (&acc)[1][BandGeometry<NP>::NT][4], LoadL load_l, bf16* Yh,
-    bf16* Yl, unsigned char* ring, int rank, WarpTile w) {
+    bf16* Yl, const BandSmem<NP, SPLIT3>& sm, int rank, uint32_t& parity,
+    WarpTile w) {
   using G = BandGeometry<NP>;
   zero_tile(acc);
   bf16* const parts[2] = {Yh, Yl};
-  over_chunks<NP, 2, 16 * G::LDB>(
-      parts, ring, rank, [&](int c, const bf16* const (&chunk)[2]) {
-        uint32_t hi[4], lo[4];
+  over_chunks<NP, SPLIT3, 2, 16 * G::LDB>(
+      parts, sm, rank, parity, [&](int c, const bf16* const (&chunk)[2]) {
+        uint32_t hi[4], lo[4], bh[G::NT][2], bl[G::NT][2];
         load_l(hi, lo, w.row0, 16 * c);
-        band_mma_k16<NP>(acc, hi, chunk[0], w.col0);
-        band_mma_k16<NP>(acc, lo, chunk[0], w.col0);
-        band_mma_k16<NP>(acc, hi, chunk[1], w.col0);
+        band_frag_b<NP>(bh, chunk[0], w.col0);
+        band_mma_k16<NP>(acc, hi, bh);
+        band_frag_b<NP>(bl, chunk[1], w.col0);
+        band_mma_k16<NP>(acc, lo, bh);
+        band_mma_k16<NP>(acc, hi, bl);
       });
+}
+
+// Component u of v.
+__device__ __forceinline__ float f4_at(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
 // R = I - A X for the CTA's slab on CUDA cores, A from the local fp32
 // slab, X from the cluster's fp32 slabs Xf; accumulated in fp64 for the
 // split3 schedule (fp32 for bf16), each sum in the walk's order over k,
-// and rounded to fp32.  Thread (ty, tx) = (warp, lane) owns rows ty + 8p
-// (p < 4), columns tx + 32q (q < NT).  R goes into T as bf16 (and its lo
-// part into Tl when SPLIT3).
+// and rounded to fp32.  Warp w takes rows [8 (w / 2), 8 (w / 2) + 8) and
+// the column half h = w % 2 (NH = NP / 2 columns); lane (s, l) = (lane /
+// 16, lane % 16) owns rows 8 (w / 2) + 4 s + p (p < 4) and NT columns of
+// the half: 4 l + q (q < 4), then 64 + 2 l + q' (q' < 2) where the half
+// has 96 or 112 columns, and 64 + l (NH = 80) or 96 + l (NH = 112).  A
+// comes 4 k steps a 16-byte load, X a row as one 16-, one 8- and one
+// 4-byte load.  R goes into T as bf16 (and its lo part into Tl when
+// SPLIT3).
 template <int NP, bool SPLIT3>
 __device__ __forceinline__ void band_residual(const BandSmem<NP, SPLIT3>& sm,
-                                              int n, int rank) {
+                                              int n, int rank,
+                                              uint32_t& parity) {
   using G = BandGeometry<NP>;
   using Acc = std::conditional_t<SPLIT3, double, float>;
   constexpr int NQ = G::NT;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  constexpr int NH = NP / 2;
+  constexpr int kTail = NH - 64;  // 16, 32 or 48 columns past the float4s
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = 8 * (warp >> 1) + 4 * (lane >> 4);
+  const int col0 = (warp & 1) * NH;
+  const int l = lane & 15;
+  auto column = [&](int q) {
+    return col0 + (q < 4               ? 4 * l + q
+                   : kTail == 16       ? 64 + l
+                   : q < 6             ? 64 + 2 * l + (q - 4)
+                                       : 96 + l);
+  };
   Acc acc[4][NQ];
 #pragma unroll
   for (int p = 0; p < 4; ++p)
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[p][q] = 0;
   float* const parts[1] = {sm.Xf};
-  over_chunks<NP, 1, 16 * G::LDF>(
-      parts, sm.ring, rank, [&](int c, const float* const (&chunk)[1]) {
-#pragma unroll 4
-        for (int kk = 0; kk < 16; ++kk) {
-          const int k = 16 * c + kk;
-          Acc a[4], x[NQ];
+  over_chunks<NP, SPLIT3, 1, 16 * G::LDF>(
+      parts, sm, rank, parity, [&](int c, const float* const (&chunk)[1]) {
 #pragma unroll
-          for (int p = 0; p < 4; ++p) a[p] = sm.A[(ty + 8 * p) * G::LDF + k];
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) x[q] = chunk[0][kk * G::LDF + tx + 32 * q];
+        for (int k4 = 0; k4 < 16; k4 += 4) {
+          float4 a4[4];
 #pragma unroll
           for (int p = 0; p < 4; ++p)
+            a4[p] = *reinterpret_cast<const float4*>(
+                sm.A + (row0 + p) * G::LDF + 16 * c + k4);
 #pragma unroll
-            for (int q = 0; q < NQ; ++q) {
-              if constexpr (SPLIT3)
-                acc[p][q] = __fma_rn(a[p], x[q], acc[p][q]);
-              else
-                acc[p][q] = fmaf(a[p], x[q], acc[p][q]);
+          for (int u = 0; u < 4; ++u) {
+            const float* xr = chunk[0] + (k4 + u) * G::LDF + col0;
+            float x[NQ];
+            const float4 x4 = *reinterpret_cast<const float4*>(xr + 4 * l);
+            x[0] = x4.x;
+            x[1] = x4.y;
+            x[2] = x4.z;
+            x[3] = x4.w;
+            if constexpr (kTail == 16) {
+              x[4] = xr[64 + l];
+            } else {
+              const float2 x2 =
+                  *reinterpret_cast<const float2*>(xr + 64 + 2 * l);
+              x[4] = x2.x;
+              x[5] = x2.y;
+              if constexpr (kTail == 48) x[6] = xr[96 + l];
             }
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              const Acc a = f4_at(a4[p], u);
+#pragma unroll
+              for (int q = 0; q < NQ; ++q) {
+                if constexpr (SPLIT3)
+                  acc[p][q] = __fma_rn(a, static_cast<Acc>(x[q]), acc[p][q]);
+                else
+                  acc[p][q] = fmaf(a, x[q], acc[p][q]);
+              }
+            }
+          }
         }
       });
 #pragma unroll
   for (int p = 0; p < 4; ++p)
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      const int i = ty + 8 * p, j = tx + 32 * q;
+      const int i = row0 + p, j = column(q);
       const int gi = kSlab * rank + i;
       float v = 0.f;
       if (gi < n && j < n) {
@@ -338,11 +492,14 @@ __device__ __forceinline__ void band_residual(const BandSmem<NP, SPLIT3>& sm,
 
 // A[i][j] = f(gi, j) for the slab's rows gi = 32 rank + i and j < n, zero
 // padded to NP, in fp32 (sm.A) and, for the bf16 schedules, bf16 (sm.Ah).
-// The next cluster barrier orders it before the loop's reads.
+// The loop unrolls, so a thread's NP / 8 loads are in flight at once.  The
+// next cluster barrier orders it before the loop's reads.
 template <int NP, bool SPLIT3, class F>
 __device__ __forceinline__ void band_stage(const BandSmem<NP, SPLIT3>& sm,
                                            int n, int rank, F f) {
   using G = BandGeometry<NP>;
+  static_assert(kSlab * NP % kThreads == 0, "whole passes");
+#pragma unroll
   for (int x = threadIdx.x; x < kSlab * NP; x += kThreads) {
     const int i = x / NP, j = x % NP;
     const int gi = kSlab * rank + i;
@@ -389,6 +546,13 @@ __device__ __forceinline__ void band_rounds(
   constexpr int LDB = G::LDB;
   constexpr int LDF = G::LDF;
   const int n = prm.n;
+  // the barriers the peers' pushes complete on; the first publish's
+  // cluster barrier orders their initialisation before any push
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < G::C - 1; ++d) mbar_init(sm.bars + d);
+    mbar_init_fence();
+  }
+  uint32_t parity = 0;  // the barriers' phase: one a walk
   auto a_parts = [&](uint32_t (&hi)[4], uint32_t (&lo)[4], int row0,
                      int k0) {
     if constexpr (SPLIT3) {
@@ -428,11 +592,12 @@ __device__ __forceinline__ void band_rounds(
   float acc[1][NT][4];
   for (int r = 0; r < prm.lo; ++r) {
     // T = 2c I - c^2 (A X), then X = X T
-    const float tc = prm.two_c[r], c2 = prm.c_sq[r];
+    float tc, c2;
+    round_scalars(prm, r, tc, c2);
     if constexpr (SPLIT3)
-      band_mma_split3<NP>(acc, a_parts, sm.Xh, sm.Xl, sm.ring, rank, w);
+      band_mma_split3<NP>(acc, a_parts, sm.Xh, sm.Xl, sm, rank, parity, w);
     else
-      band_mma_one<NP>(acc, sm.Ah, sm.Xh, sm.ring, rank, w);
+      band_mma_one<NP>(acc, sm.Ah, sm.Xh, sm, rank, parity, w);
     tile_for_each(acc, w, [&](int i, int j, float& v) {
       v = keep(i, j, __fmul_rn(c2, v), tc);
     });
@@ -440,18 +605,18 @@ __device__ __forceinline__ void band_rounds(
     if constexpr (SPLIT3) store_tile_bf16<1, NT, true>(acc, sm.Tl, LDB, w);
     cluster_sync();
     if constexpr (SPLIT3)
-      band_mma_split3<NP>(xm, x_parts, sm.T, sm.Tl, sm.ring, rank, w);
+      band_mma_split3<NP>(xm, x_parts, sm.T, sm.Tl, sm, rank, parity, w);
     else
-      band_mma_one<NP>(xm, sm.Xh, sm.T, sm.ring, rank, w);
+      band_mma_one<NP>(xm, sm.Xh, sm.T, sm, rank, parity, w);
     publish(r + 1);
   }
   for (int r = prm.lo; r < rounds; ++r) {
     // R = I - A X (fp32 or fp64 on CUDA cores, or the 3-pass split),
     // then X = X + X R
     if (f32_round(r)) {
-      band_residual<NP, SPLIT3>(sm, n, rank);
+      band_residual<NP, SPLIT3>(sm, n, rank, parity);
     } else {
-      band_mma_split3<NP>(acc, a_parts, sm.Xh, sm.Xl, sm.ring, rank, w);
+      band_mma_split3<NP>(acc, a_parts, sm.Xh, sm.Xl, sm, rank, parity, w);
       tile_for_each(acc, w, [&](int i, int j, float& v) {
         v = keep(i, j, v, 1.f);
       });
@@ -459,9 +624,9 @@ __device__ __forceinline__ void band_rounds(
     }
     cluster_sync();
     if constexpr (SPLIT3)
-      band_mma_split3<NP>(acc, x_parts, sm.T, sm.Tl, sm.ring, rank, w);
+      band_mma_split3<NP>(acc, x_parts, sm.T, sm.Tl, sm, rank, parity, w);
     else
-      band_mma_one<NP>(acc, sm.Xh, sm.T, sm.ring, rank, w);
+      band_mma_one<NP>(acc, sm.Xh, sm.T, sm, rank, parity, w);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll

@@ -20,7 +20,9 @@
 // computes; dot3(x, y) = hi(x)hi(y) + lo(x)hi(y) + hi(x)lo(y) with
 // lo(x) = bf16(x - hi(x)).  Never TF32: the schedules are calibrated for
 // bf16 rounding.  The per-round scalars 2c and c^2 come from the host
-// (scaled_round_coeffs, computed in double and rounded to fp32).
+// (scaled_round_coeffs, computed in double and rounded to fp32) in a
+// device buffer the wrapper fills, so a schedule may take any number of lo
+// rounds; the warm kernels pass none and run 2c = 2, c^2 = 1.
 
 #pragma once
 
@@ -29,7 +31,6 @@
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 thread grid over the output
-constexpr int kMaxRounds = 32;
 constexpr int kMaxN = 128;
 
 struct NSParams {
@@ -39,28 +40,22 @@ struct NSParams {
   int hi;
   int split3;
   int polish_highest;
-  float two_c[kMaxRounds];  // fp32(2c) per lo round
-  float c_sq[kMaxRounds];   // fp32(c*c) per lo round
+  const float* two_c;  // device: fp32(2c) per lo round; null: 2 every round
+  const float* c_sq;   // device: fp32(c*c) per lo round; null: 1 every round
 };
 
 // Host: fill `prm`; false when an argument is out of range (n past
 // `max_n`: the single-block kernels' kMaxN unless the caller serves more).
+// two_c and c_sq are device arrays of `lo` floats, or both null for the
+// unscaled rounds.
 inline bool make_ns_params(int n, int init_spd, int lo, int hi, int split3,
                            int polish_highest, const float* two_c,
                            const float* c_sq, NSParams* prm,
                            int max_n = kMaxN) {
-  if (n < 1 || n > max_n || lo < 0 || lo > kMaxRounds || hi < 0) return false;
-  *prm = NSParams{};
-  prm->n = n;
-  prm->init_spd = init_spd;
-  prm->lo = lo;
-  prm->hi = hi;
-  prm->split3 = split3;
-  prm->polish_highest = polish_highest;
-  for (int i = 0; i < lo; ++i) {
-    prm->two_c[i] = two_c[i];
-    prm->c_sq[i] = c_sq[i];
-  }
+  if (n < 1 || n > max_n || lo < 0 || hi < 0 ||
+      (two_c == nullptr) != (c_sq == nullptr))
+    return false;
+  *prm = NSParams{n, init_spd, lo, hi, split3, polish_highest, two_c, c_sq};
   return true;
 }
 
@@ -69,13 +64,15 @@ inline bool make_ns_params(int n, int init_spd, int lo, int hi, int split3,
 // false when an argument is out of range.
 inline bool make_warm_params(int n, int lo, int hi, int split3,
                              NSParams* prm, int max_n = kMaxN) {
-  float two[kMaxRounds], one[kMaxRounds];
-  for (int i = 0; i < kMaxRounds; ++i) {
-    two[i] = 2.f;
-    one[i] = 1.f;
-  }
   return make_ns_params(n, /*init_spd=*/0, lo, hi, split3,
-                        /*polish_highest=*/1, two, one, prm, max_n);
+                        /*polish_highest=*/1, nullptr, nullptr, prm, max_n);
+}
+
+// Device: lo round r's scalars fp32(2c) and fp32(c^2).
+__device__ __forceinline__ void round_scalars(const NSParams& prm, int r,
+                                              float& two_c, float& c_sq) {
+  two_c = prm.two_c ? __ldg(prm.two_c + r) : 2.f;
+  c_sq = prm.c_sq ? __ldg(prm.c_sq + r) : 1.f;
 }
 
 // The register tile M (16M >= n) for a matrix dimension n <= kMaxN; 0

@@ -170,7 +170,8 @@ __device__ __forceinline__ void ns_mma_rounds(
   float acc[MT][NT][4];
   for (int r = 0; r < prm.lo; ++r) {
     // T = 2c I - c^2 (A X), then X = X T (the fp32 master is replaced)
-    const float tc = prm.two_c[r], c2 = prm.c_sq[r];
+    float tc, c2;
+    round_scalars(prm, r, tc, c2);
     if (w.active) {
       if constexpr (SPLIT3)
         mma_split3<NP>(acc, a_parts, sXh, sXl, w);

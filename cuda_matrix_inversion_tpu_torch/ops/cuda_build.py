@@ -58,7 +58,7 @@ _I = ctypes.c_int
 # C signatures of the entry points (all return cudaError_t as int).
 _SIGNATURES = {
     # a, x, batch, n, init_spd, lo, hi, split3, polish_highest,
-    # two_c (host float*), c_sq (host float*), device, stream
+    # two_c (device float*), c_sq (device float*), device, stream
     "cmi_ns_inverse": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP, _I,
                        _VP],
     # a, inv, ipiv, batch, n, device, stream
@@ -69,8 +69,8 @@ _SIGNATURES = {
     "cmi_chol_inverse": [_VP, _VP, _I, _I, _I, _VP],
     # a, b, c, d, e, out, batch, n, device, stream
     "cmi_gp_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    # a, b, c, d, e, out, batch, n, lo, hi, two_c (host float*),
-    # c_sq (host float*), device, stream
+    # a, b, c, d, e, out, batch, n, lo, hi, two_c (device float*),
+    # c_sq (device float*), device, stream
     "cmi_gp_fused_ns": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
                         _VP, _I, _VP],
     # a, inv, batch, n, device, stream

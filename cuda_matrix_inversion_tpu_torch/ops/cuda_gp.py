@@ -20,8 +20,6 @@ the public functions take the fixture layout.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from cuda_matrix_inversion_tpu_torch.ops import (
@@ -101,12 +99,9 @@ def gp_fused_ns_cuda(a, b, c, d, e):
     """Launch K6 on contiguous CUDA fp32 tensors in the flat layout;
     ``gp_fused_ns_cuda.launches`` counts the launches."""
     sched = GP_NS_SCHEDULE
-    lo = sched.lo_iters
-    two_c = (ctypes.c_float * lo)(*[2.0 * c_ for c_ in sched.coeffs])
-    c_sq = (ctypes.c_float * lo)(*[c_ * c_ for c_ in sched.coeffs])
-    out = _gp_launch("cmi_gp_fused_ns", a, b, c, d, e, lo, sched.hi_iters,
-                     ctypes.cast(two_c, ctypes.c_void_p),
-                     ctypes.cast(c_sq, ctypes.c_void_p))
+    two_c, c_sq = newton_schulz.round_scalars(sched.coeffs, b.device)
+    out = _gp_launch("cmi_gp_fused_ns", a, b, c, d, e, sched.lo_iters,
+                     sched.hi_iters, two_c, c_sq)
     gp_fused_ns_cuda.launches += 1
     return out
 

@@ -57,14 +57,17 @@ def refine_f64(a: torch.Tensor, x0: torch.Tensor, iters: int | None = None,
 
 
 def inverse_hiacc(a: torch.Tensor, algorithm: str = "lu_pallas",
-                  iters: int | None = None) -> torch.Tensor:
+                  iters: int | None = None, **kw) -> torch.Tensor:
     """fp64-class batched inverse (lane ``lu_hiacc``): the registry lane
-    ``algorithm`` inverts the fp32 copy of ``a``, then :func:`refine_f64`
+    ``algorithm`` inverts the fp32 copy of ``a`` with the keywords ``kw``
+    (say ``lo_iters`` for a Newton-Schulz seed, ``pw`` for
+    ``lu_bign_pallas``, ``polish`` for ``gauss_pallas``), as the JAX
+    package's ``inverse_hiacc`` forwards them, then :func:`refine_f64`
     refines against ``a`` itself.  Returns ``a``'s dtype: float64 input
     keeps the ~1e-12 accuracy, float32 input rounds it to fp32."""
     from cuda_matrix_inversion_tpu_torch.ops.registry import (
         get_inverse_algorithm,
     )
 
-    x0 = get_inverse_algorithm(algorithm)(a.to(torch.float32))
+    x0 = get_inverse_algorithm(algorithm)(a.to(torch.float32), **kw)
     return refine_f64(a, x0, iters=iters).to(a.dtype)

@@ -27,7 +27,6 @@ accumulate in fp32; ``HIGHEST`` is full fp32.  Never TF32.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import warnings
@@ -54,8 +53,6 @@ SPLIT3_NOISE_FLOOR = 2e-4
 # pan µ = σ²/(‖A‖₁‖A‖∞).
 MU_MIN_SPD = 0.01
 MU_MIN_PAN = 2e-5
-# Per-round scalars K1 takes as kernel parameters (kMaxRounds in the source).
-MAX_LO_ROUNDS = 32
 
 
 def scaled_round_coeffs(mu_min: float, rounds: int,
@@ -205,26 +202,47 @@ def ns_refine_plain(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
                    residual64)
 
 
+# round_scalars' buffers by (coeffs, device), filled once each.
+_ROUND_SCALARS: dict = {}
+
+
+def round_scalars(coeffs: tuple, device: torch.device) -> tuple:
+    """The per-round scalars K1 and K6 read from device memory, for a
+    schedule's ``coeffs`` (:func:`scaled_round_coeffs`): the addresses of
+    fp32(2c) and fp32(c²) a lo round, each computed in double and rounded
+    once to fp32, in a ``(2, lo)`` tensor on ``device``; ``(None, None)``
+    for no lo round.  Any number of rounds.  The buffer is filled once a
+    schedule and device and kept, so a launch copies nothing."""
+    if not coeffs:
+        return None, None
+    key = (coeffs, device)
+    if key not in _ROUND_SCALARS:
+        buf = torch.empty((2, len(coeffs)), dtype=torch.float32,
+                          device=device)
+        buf.copy_(torch.tensor([[2.0 * c for c in coeffs],
+                                [c * c for c in coeffs]],
+                               dtype=torch.float32))
+        _ROUND_SCALARS[key] = buf
+    buf = _ROUND_SCALARS[key]
+    return buf[0].data_ptr(), buf[1].data_ptr()
+
+
 def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
-    """Launch K1 (``csrc/newton_schulz.cu``) on a CUDA fp32 batch.
+    """Launch K1 (``csrc/newton_schulz.cu``) on a CUDA fp32 batch, any
+    number of lo rounds.
 
     ``ns_iterate_cuda.launches`` counts the launches."""
     cuda_build.check_kernel_input(a, "newton_schulz kernel")
     cuda_build.check_cuda_f32("newton_schulz kernel", a)
-    lo = sched.lo_iters
-    if lo > MAX_LO_ROUNDS:
-        raise ValueError(f"newton_schulz kernel: lo_iters = {lo} exceeds "
-                         f"the kernel's {MAX_LO_ROUNDS} rounds")
     a = a.contiguous()
     x = torch.empty_like(a)
-    two_c = (ctypes.c_float * max(lo, 1))(*[2.0 * c for c in sched.coeffs])
-    c_sq = (ctypes.c_float * max(lo, 1))(*[c * c for c in sched.coeffs])
+    two_c, c_sq = round_scalars(sched.coeffs, a.device)
     device, stream = cuda_build.launch_args(a)
     err = cuda_build.library().cmi_ns_inverse(
         a.data_ptr(), x.data_ptr(), a.shape[0], a.shape[-1],
-        int(sched.init == "spd"), lo, sched.hi_iters, int(sched.split3),
-        int(sched.polish_highest), ctypes.cast(two_c, ctypes.c_void_p),
-        ctypes.cast(c_sq, ctypes.c_void_p), device, stream)
+        int(sched.init == "spd"), sched.lo_iters, sched.hi_iters,
+        int(sched.split3), int(sched.polish_highest), two_c, c_sq, device,
+        stream)
     cuda_build.check(err, "newton_schulz kernel")
     ns_iterate_cuda.launches += 1
     return x
@@ -322,7 +340,7 @@ def ns_refine_cuda(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
                    split3: bool) -> torch.Tensor:
     """Launch K8 (``csrc/newton_schulz.cu``) on CUDA fp32 batches, n ≤
     :data:`cuda_build.WARM_MAX_N` (one thread block a matrix up to 128, one
-    thread-block cluster past it).
+    thread-block cluster past it), any number of rounds.
 
     ``ns_refine_cuda.launches`` counts the launches and
     ``ns_refine_cuda.band_launches`` those of the cluster instance."""
@@ -332,9 +350,6 @@ def ns_refine_cuda(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
     if x0.shape != a.shape:
         raise ValueError(f"newton_schulz warm kernel: x0 {tuple(x0.shape)} "
                          f"must match a {tuple(a.shape)}")
-    if lo > MAX_LO_ROUNDS:
-        raise ValueError(f"newton_schulz warm kernel: lo_iters = {lo} "
-                         f"exceeds the kernel's {MAX_LO_ROUNDS} rounds")
     a, x0 = a.contiguous(), x0.contiguous()
     x = torch.empty_like(a)
     device, stream = cuda_build.launch_args(a)

@@ -14,6 +14,9 @@ import pytest
 import torch
 
 from cuda_matrix_inversion_tpu.ops import double_single as jax_ds
+from cuda_matrix_inversion_tpu.ops.registry import (
+    get_inverse_algorithm as jax_get_inverse_algorithm,
+)
 from cuda_matrix_inversion_tpu_torch.io import fixtures
 from cuda_matrix_inversion_tpu_torch.ops import double_single as ds
 from cuda_matrix_inversion_tpu_torch.ops.registry import get_inverse_algorithm
@@ -40,6 +43,27 @@ def test_matches_jax_hiacc_f64_kappa500():
     assert _resid(a, x).max() <= 1e-11
     assert _resid(a, ref).max() <= 1e-11
 
+
+
+@pytest.mark.parametrize("algorithm,kw", [
+    ("newton_schulz_spd_pallas", {"lo_iters": 8}),
+    ("lu_bign_pallas", {"pw": 8}),
+    ("gauss_pallas", {"polish": 0}),
+])
+def test_lane_forwards_the_seed_keywords_as_jax_does(algorithm, kw):
+    """The lane passes keywords on to its seed lane, as the JAX package's
+    ``inverse_hiacc`` does: both lanes (JAX's seeds in interpret mode) on
+    the same float64 SPD batch at n = 16 reach the lane's 1e-11 and agree
+    to 1e-10 relative."""
+    a = fixtures.make_spd_batch(2, 16, np.random.default_rng(66)
+                                ).astype(np.float64)
+    ref = np.asarray(jax_get_inverse_algorithm("lu_hiacc")(
+        jnp.asarray(a), algorithm=algorithm, **kw))
+    x = get_inverse_algorithm("lu_hiacc")(torch.tensor(a), algorithm=algorithm,
+                                          **kw).numpy()
+    assert np.abs(x - ref).max() / np.abs(ref).max() <= 1e-10
+    assert _resid(a, x).max() <= 1e-11
+    assert _resid(a, ref).max() <= 1e-11
 
 def test_lane_contract_kappa500_n128():
     """The registry lane (3 fixed rounds) on JAX's ``lu_hiacc_kappa500_128``

@@ -113,6 +113,18 @@ def test_k1_matches_plain_at_1600x128(cuda):
         _check_k1(cuda, a, LANES[lane]["schedule"])
 
 
+@pytest.mark.parametrize("n", [64, 128])
+def test_k1_matches_plain_past_32_lo_rounds(cuda, n):
+    """The pan lane at 40 lo rounds: the kernel reads its per-round scalars
+    from device memory, so any count runs (it took 32 at most when they
+    were kernel parameters)."""
+    a = make_spd_batch(7, n, np.random.default_rng(450 + n)).astype(
+        np.float32)
+    sched = newton_schulz.resolve_schedule(lo_iters=40, init="pan")
+    assert len(sched.coeffs) == 40
+    _check_k1(cuda, a, sched)
+
+
 @pytest.mark.parametrize("init", ["spd", "pan"])
 @pytest.mark.parametrize("n", [20, 72, 128])
 def test_k1_polish_highest_false_matches_plain(cuda, init, n):
@@ -346,17 +358,17 @@ def _drifted(a, delta, rng, symmetric):
 
 
 def _check_k8(cuda, n, precision, lo, hi, seed, nan_member=None,
-              gate=True):
-    """K8 refines the inverse of a batch of 7 for its drifted copy, in one
-    launch: against its plain version and (``gate``) through the gate;
-    member ``nan_member`` starts from an X0 holding a NaN and alone comes
-    out non-finite."""
+              gate=True, batch=7):
+    """K8 refines the inverse of a batch (7 matrices) for its drifted
+    copy, in one launch: against its plain version and (``gate``) through
+    the gate; member ``nan_member`` starts from an X0 holding a NaN and
+    alone comes out non-finite."""
     rng = np.random.default_rng(seed)
     split3 = precision == "split3"
-    a0 = (make_square_batch if split3 else make_spd_batch)(7, n, rng)
+    a0 = (make_square_batch if split3 else make_spd_batch)(batch, n, rng)
     x0 = np.linalg.inv(a0).astype(np.float32)
     a = _drifted(a0, 1e-4 if split3 else 1e-3, rng, not split3)
-    ok = np.arange(7) != nan_member
+    ok = np.arange(batch) != nan_member
     if nan_member is not None:
         x0[nan_member, 0, 0] = np.nan
     at, x0t = torch.tensor(a, device=cuda), torch.tensor(x0, device=cuda)
@@ -531,6 +543,33 @@ def test_k11_band_matches_plain(cuda, n, lo, hi):
     closed form: mean and var from the C CTAs' partial sums, K⁻¹ from each
     slab; member 3's X0 holds a NaN and alone comes out non-finite."""
     _check_k11(cuda, 7, n, lo, hi, 980 + n + lo, nan_member=3)
+
+
+@pytest.mark.parametrize("n", [64, 160])
+@pytest.mark.parametrize("kernel", ["k8_bf16", "k8_split3", "k11"])
+def test_warm_kernels_match_plain_past_32_lo_rounds(cuda, kernel, n):
+    """K8 (both precisions) and K11 at 33 lo rounds, on one block (n =
+    64) and on a cluster (n = 160): the warm kernels take any count (32 at
+    most when the round scalars were kernel parameters); member 3's X0
+    holds a NaN."""
+    if kernel == "k11":
+        _check_k11(cuda, 7, n, 33, 1, 1030 + n, nan_member=3)
+    else:
+        _check_k8(cuda, n, kernel[3:], 33, 1, 1040 + n, nan_member=3)
+
+
+@pytest.mark.parametrize("n", [129, 161, 193, 224])
+@pytest.mark.parametrize("kernel", ["k8_bf16", "k8_split3", "k11"])
+def test_band_kernels_match_plain_at_37(cuda, kernel, n):
+    """The cluster instances at each NP (160, 192, 224) with 31 rows of
+    zero padding in the last slab at 129, 161 and 193, on a batch of 37,
+    which is no multiple of the clusters the card holds at once (15 - 47);
+    member 18's X0 holds a NaN."""
+    if kernel == "k11":
+        _check_k11(cuda, 37, n, 2, 1, 1100 + n, nan_member=18)
+    else:
+        _check_k8(cuda, n, kernel[3:], 2, 1, 1200 + n, nan_member=18,
+                  batch=37)
 
 
 def test_band_launch_error_raises(cuda):

@@ -95,6 +95,29 @@ def test_scaled_round_coeffs_bitwise(mu_min, rounds, floor):
         jax_ns.scaled_round_coeffs(mu_min, rounds, noise_floor=floor))
 
 
+@pytest.mark.parametrize("rounds", [0, 6, 40])
+def test_round_scalars_any_lo_count(rounds):
+    """K1 and K6 read their per-round scalars from a device buffer, so a
+    schedule takes any number of lo rounds (32 at most while they were
+    kernel parameters): fp32(2c) and fp32(c²) of the schedule's
+    coefficients, each rounded once from double as before, filled once a
+    schedule and device; no buffer for no lo round."""
+    sched = ns.resolve_schedule(lo_iters=rounds, init="pan")
+    dev = torch.device("cpu")
+    ptrs = ns.round_scalars(sched.coeffs, dev)
+    if rounds == 0:
+        assert ptrs == (None, None)
+        return
+    buf = ns._ROUND_SCALARS[(sched.coeffs, dev)]
+    assert buf.shape == (2, rounds) and buf.dtype == torch.float32
+    assert ptrs == (buf[0].data_ptr(), buf[1].data_ptr())
+    np.testing.assert_array_equal(
+        buf[0].numpy(), np.float32([2.0 * c for c in sched.coeffs]))
+    np.testing.assert_array_equal(
+        buf[1].numpy(), np.float32([c * c for c in sched.coeffs]))
+    assert ns.round_scalars(sched.coeffs, dev) == ptrs
+
+
 @pytest.mark.parametrize("lane,n", [
     ("newton_schulz_spd_pallas", 32), ("newton_schulz_spd10_pallas", 32),
     ("newton_schulz_pallas", 32), ("newton_schulz_pan500_pallas", 64)])
