@@ -30,7 +30,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    224} × batch ∈ {1, 7, 100}, K8 at 1600×224, both at n = 160 with
    (lo, hi) ∈ {(0, 1), (3, 2), (33, 1)} and at n ∈ {129, 161, 193, 224}
    on a batch of 37, each with one NaN member; K1's pan lane at 40 lo
-   rounds (n = 64, 128), K8 and K11 at 33 (n = 64);
+   rounds (n = 64, 128), K8 and K11 at 33 (n = 64); K1 (each lane) and K6
+   on their thread-block-cluster instances, K1 at n ∈ {129, 160, 192, 224}
+   × batch 100 and n ∈ {161, 193} × batch 37 (pan500 on the κ = 500
+   class) and the pan schedule at 33 lo rounds (bf16, split3), K6 at n ∈
+   {129, 160, 224} × batch 100 and against the fp64 closed form, each
+   with one member whose input holds a NaN;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -68,7 +73,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``inverse_warm`` on the κ = 500 class at 100×224 and
    ``GPEngine.mean_variance_warm`` over 3 drifting timesteps at 100×192,
    all through the gate or within 1e-4 of the fp64 closed form; the
-   cluster instances of K8 and K11 must launch in this path;
+   cluster instances of K8 and K11 must launch in this path.  Then the
+   cold band path, with the counters reset and every warning an error:
+   ``inverse_batched`` (NumPy in and out) with each fixed Newton-Schulz
+   lane at 100×160, 100×192 and 100×224 (pan500 on the κ = 500 class),
+   each through the gate, and ``gp_mean_variance_host(...,
+   method="pallas_ns")`` at 100×192 and 100×224 within 1e-4 of the fp64
+   closed form; the cluster instances of K1 and K6 must launch in this
+   path;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
@@ -87,7 +99,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and the panel-width ladder; at 100×224, 1600×224, 100×160 and 100×192
    K8 (bf16, split3) and K11 on their cluster instances beside their plain
    versions, ``torch.linalg.inv``, the route each replaced, the bound and
-   their times before the cluster loop's Hopper redesign;
+   their times before the cluster loop's Hopper redesign; at the same
+   shapes K1 (each lane) and K6 on their cluster instances beside their
+   plain versions, ``torch.linalg.inv`` (K1) or the GP ``solve`` method
+   (K6), the route each replaced (the Schur recursion on K1 at 128, the
+   batched split3 products, the adaptive loop; K5's Schur route), the
+   lane or method through its entry point, and the bound;
 6. reference harness, with the counters reset: the port's fixture tree
    (``generate_all`` at n ∈ {8, 32, 128}, 100 matrices), the native
    LAPACK oracle's build (optional: its rows register when it loads), the
@@ -210,6 +227,21 @@ BAND_BEFORE_MS = {
     "k11_band": {"100x224": 0.531, "1600x224": 7.444, "100x160": 0.191,
                  "100x192": 0.365},
 }
+# K1's and K6's cluster instances (the cold band, n = 129 … 224): phase
+# 3's dimensions for K1 (31 rows of zero padding at 129) and K6, K1's
+# padding case on a batch of 37, and phase 4's requests.
+COLD_BAND_N = (129, 160, 192, 224)
+COLD_BAND_PAD_N = (161, 193)
+K6_BAND_N = (129, 160, 224)
+COLD_BAND_PATH_N = (160, 192, 224)
+# The route each fixed Newton-Schulz lane took at 129 ≤ n ≤ 224 before K1
+# served the band (``bench/ns_band_probe.py::band_routes``).
+COLD_BAND_ROUTES = {
+    "newton_schulz_spd10_pallas": "Schur recursion on K1 at n = 128",
+    "newton_schulz_spd_pallas": "Schur recursion on K1 at n = 128",
+    "newton_schulz_pallas": "inverse_newton_schulz (adaptive loop)",
+    "newton_schulz_pan500_pallas":
+        "inverse_newton_schulz_pan500_batched (batched split3 products)"}
 # K10 vs plain: K5's factor and substitution and K3's W; the sums and
 # logarithms differ in order only.
 LML_RTOL = 1e-5
@@ -559,6 +591,216 @@ def _band_vs_plain(dev, err, torch):
         spd, gen, g = draws(37, n, seed)
         _k8_vs_plain(spd, gen, 18, seed, err, torch, suffix="_band")
         _k11_vs_plain(g, 18, seed, err, torch, key="k11_band")
+
+
+def _cold_band_vs_plain(dev, k1_lanes, err, torch):
+    """Phase 3 for K1's and K6's cluster instances: K1 in each lane at
+    n ∈ COLD_BAND_N on a batch of 100 and at n ∈ COLD_BAND_PAD_N on a
+    batch of 37 (split3 on the κ = 500 nonsymmetric class, the others on
+    the SPD class), and the pan schedule at 33 lo rounds (bf16 and split3)
+    at 7×160; K6 at n ∈ K6_BAND_N on a batch of 100, whose finite members
+    also lie within GP_ATOL of the fp64 closed form.  In each, member
+    batch // 2's A (K6: B) holds a NaN and alone must come out non-finite.
+    Errors under ``k1_band`` and ``k6_band``."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_nonsym_cond,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_build,
+        cuda_gp,
+        newton_schulz,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
+
+    def k1(sched, batch, n, seed):
+        rng = np.random.default_rng(seed)
+        a = (make_nonsym_cond(batch, n, 500.0, rng) if sched.split3
+             else make_spd_batch(batch, n, rng))
+        a = torch.tensor(a, dtype=torch.float32, device=dev)
+        bad = batch // 2
+        a[bad, n // 2, n - 1] = float("nan")
+        _compare("k1_band", newton_schulz.ns_iterate_cuda,
+                 newton_schulz.ns_iterate_plain, (a, sched), bad, K1_RTOL,
+                 err, torch)
+
+    for i, lane in enumerate(k1_lanes):
+        sched = LANES[lane]["schedule"]
+        for n in COLD_BAND_N:
+            k1(sched, 100, n, 7500 + 10 * n + i)
+        for n in COLD_BAND_PAD_N:
+            k1(sched, 37, n, 7550 + 10 * n + i)
+    for precision in ("bf16", "split3"):
+        k1(newton_schulz.resolve_schedule(lo_iters=33, init="pan",
+                                          precision=precision), 7, 160, 7533)
+    for n in K6_BAND_N:
+        g = make_gp_batch(100, n, np.random.default_rng(7600 + n))
+        t = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
+             for k in "abcde"}
+        t["b"][50, n // 2, n - 1] = float("nan")
+        flat = cuda_gp._flat(*(t[k] for k in "abcde"),
+                             max_n=cuda_build.WARM_MAX_N)
+        _compare("k6_band", cuda_gp.gp_fused_ns_cuda,
+                 cuda_gp.gp_fused_ns_plain, flat, 50, K6_RTOL, err, torch,
+                 atols=(K6_ATOL,))
+        out = cuda_gp.gp_fused_ns_cuda(*flat).cpu().numpy()
+        ok = np.arange(100) != 50
+        ref64 = _gp_ref64({k: g[k].astype(np.float32) for k in "abcde"})
+        diff = max(float(np.abs(out[ok, i] - ref64[i][ok]).max())
+                   for i in (0, 1))
+        entry = err["k6_band"]
+        entry["fp64_abs"] = max(entry.get("fp64_abs", 0.0), diff)
+        if not diff < GP_ATOL:
+            raise AssertionError(f"K6_BAND 100x{n}: {diff:.3e} off the fp64 "
+                                 f"closed form")
+
+
+def _cold_band_path(dev, k1_lanes, torch):
+    """Phase 4's cold band path: the fixed Newton-Schulz lanes and the GP
+    method ``pallas_ns`` at 129 ≤ n ≤ 224 through the entry points a user
+    calls, NumPy in and out, with every warning an error:
+    ``host_api.inverse_batched`` with each lane at 100×n for n in
+    COLD_BAND_PATH_N (pan500 on the κ = 500 class, the others on the SPD
+    class), each through the gate in fp64; ``gp_mean_variance_host(...,
+    method="pallas_ns")`` at 100×192 and 100×224, mean and var within
+    GP_ATOL of the fp64 closed form.  Returns one result line per check."""
+    import warnings
+
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_nonsym_cond,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.models import gp
+    from cuda_matrix_inversion_tpu_torch.ops import host_api
+
+    lines = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for n in COLD_BAND_PATH_N:
+            rng = np.random.default_rng(7700 + n)
+            spd = make_spd_batch(100, n, rng).astype(np.float32)
+            gen = make_nonsym_cond(100, n, 500.0, rng)
+            for lane in k1_lanes:
+                a = gen if lane == "newton_schulz_pan500_pallas" else spd
+                x = host_api.inverse_batched(a, lane, device=dev)
+                err = identity_error_inf(a, x)
+                lines.append({"phase": "cold_band_path", "lane": lane,
+                              "case": f"{'nonsym500' if a is gen else 'spd'}"
+                                      f"_100x{n}", "gate": err})
+                if not (x.shape == a.shape and x.dtype == np.float32
+                        and np.isfinite(x).all() and err < GATE):
+                    raise AssertionError(f"{lane} 100x{n}: gate {err:.3e} "
+                                         f"({x.shape} {x.dtype})")
+        for n in (192, 224):
+            g = make_gp_batch(100, n, np.random.default_rng(7800 + n))
+            g = {k: g[k].astype(np.float32) for k in "abcde"}
+            got = gp.gp_mean_variance_host(*(g[k] for k in "abcde"),
+                                           method="pallas_ns", device=dev)
+            errs = [float(np.abs(x[:, 0, 0] - r).max())
+                    for x, r in zip(got, _gp_ref64(g))]
+            lines.append({"phase": "cold_band_path",
+                          "check": f"gp_mean_variance_host pallas_ns "
+                                   f"gp_100x{n}", "mean_abs_err": errs[0],
+                          "var_abs_err": errs[1]})
+            if not (all(x.dtype == np.float32 and np.isfinite(x).all()
+                        for x in got) and max(errs) < GP_ATOL):
+                raise AssertionError(f"pallas_ns gp_100x{n}: off the fp64 "
+                                     f"closed form {errs}")
+    return lines
+
+
+def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
+    """Phase 5 for K1's and K6's cluster instances at BAND_TIMED: K1 in
+    each lane (split3 on the κ = 500 class, the others on the SPD class)
+    and K6 on GP systems, each beside its plain version, its library call
+    (``torch.linalg.inv``; the GP ``solve`` method), the route it replaced
+    (COLD_BAND_ROUTES; K6: K5's Schur route), the lane or method through
+    its entry point and its bound.  A batch of 1600 repeats 100 draws."""
+    from cuda_matrix_inversion_tpu_torch.bench.ns_band_probe import (
+        band_routes,
+    )
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_nonsym_cond,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.models import gp
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_build,
+        cuda_gp,
+        host_api,
+        newton_schulz,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
+
+    for batch, n in BAND_TIMED:
+        case = f"{batch}x{n}"
+        rng = np.random.default_rng(7900 + batch + n)
+        reps = batch // 100
+
+        def tile(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev).repeat(
+                reps, *([1] * (x.ndim - 1))).contiguous()
+
+        spd = tile(make_spd_batch(100, n, rng))
+        gen = tile(make_nonsym_cond(100, n, 500.0, rng))
+        inv_ms = {id(a): _median_ms(lambda: torch.linalg.inv(a), torch)
+                  for a in (spd, gen)}
+        routes = band_routes()
+        for lane in k1_lanes:
+            sched = LANES[lane]["schedule"]
+            a = gen if sched.split3 else spd
+            ms = _median_ms(lambda: newton_schulz.ns_iterate_cuda(a, sched),
+                            torch)
+            plain_ms = _median_ms(
+                lambda: newton_schulz.ns_iterate_plain(a, sched), torch)
+            lane_ms = _median_ms(
+                lambda: host_api.inverse_batched_device(a, lane), torch)
+            route_ms = _median_ms(lambda: routes[lane](a), torch)
+            # K1's bound for this lane's schedule (split3's fp64 residual
+            # at PEAK_FP32, as K8's band row counts it)
+            bound = _kernel_bounds(batch, n, sched,
+                                   cuda_gp.GP_NS_SCHEDULE)["k1"]
+            key = ("k1_band" if lane == "newton_schulz_spd10_pallas"
+                   else f"k1_band {lane}")
+            timing[(key, case)] = (ms, plain_ms)
+            library[(key, case)] = inv_ms[id(a)]
+            timing[(key + "_bound", case)] = bound
+            print(json.dumps({
+                "timing": "K1_BAND", "lane": lane, "case": case,
+                "kernel_ms": ms, "lane_ms": lane_ms, "plain_ms": plain_ms,
+                "route_before_ms": route_ms,
+                "route_before": COLD_BAND_ROUTES[lane],
+                "torch_linalg_inv_ms": inv_ms[id(a)], "bound_ms": bound[0],
+                "bound_by": bound[1], **card}), flush=True)
+        g = make_gp_batch(100, n, rng)
+        args = [tile(g[k]) for k in "abcde"]
+        flat = cuda_gp._flat(*args, max_n=cuda_build.WARM_MAX_N)
+        ms = _median_ms(lambda: cuda_gp.gp_fused_ns_cuda(*flat), torch)
+        plain_ms = _median_ms(lambda: cuda_gp.gp_fused_ns_plain(*flat), torch)
+        lane_ms = _median_ms(lambda: gp.gp_mean_variance(
+            *args, method="pallas_ns"), torch)
+        route_ms = _median_ms(lambda: cuda_gp.gp_mean_variance_fused(*args),
+                              torch)
+        solve_ms = _median_ms(lambda: gp.gp_mean_variance(
+            *args, method="solve"), torch)
+        bound = _kernel_bounds(batch, n, cuda_gp.GP_NS_SCHEDULE,
+                               cuda_gp.GP_NS_SCHEDULE)["k6"]
+        timing[("k6_band", case)] = (ms, plain_ms)
+        library[("k6_band", case)] = solve_ms
+        timing[("k6_band_bound", case)] = bound
+        print(json.dumps({
+            "timing": "K6_BAND", "case": case, "kernel_ms": ms,
+            "method_pallas_ns_ms": lane_ms, "plain_ms": plain_ms,
+            "route_before_ms": route_ms,
+            "route_before": "gp_mean_variance_fused (K5 Schur route)",
+            "solve_method_ms": solve_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], **card}), flush=True)
 
 
 def _fit_data(batch, n, seed):
@@ -1866,6 +2108,8 @@ def main() -> int:
     t_part = mark("phase 3 K9", t_part)
     _band_vs_plain(dev, new_err, torch)
     t_part = mark("phase 3 band", t_part)
+    _cold_band_vs_plain(dev, k1_lanes, new_err, torch)
+    t_part = mark("phase 3 cold band", t_part)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
                       "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
           flush=True)
@@ -1903,14 +2147,16 @@ def main() -> int:
     gp_ref["entry_64x128"] = _gp_ref64(entry)
     gp_dev = {case: [torch.tensor(g[k], device=dev) for k in "abcde"]
               for case, g in gp_host.items()}
-    # each kernel's launch count: (wrapper, attribute); the warm kernels'
-    # cluster instances count on their own besides
+    # each kernel's launch count: (wrapper, attribute); the Newton-Schulz
+    # kernels' cluster instances count on their own besides
     counters = {"k1": (newton_schulz.ns_iterate_cuda, "launches"),
+                "k1_band": (newton_schulz.ns_iterate_cuda, "band_launches"),
                 "k2": (cuda_lu.lu_inverse_cuda, "launches"),
                 "k3": (cuda_cholesky.inverse_cholesky_cuda, "launches"),
                 "k4": (cuda_cholesky.cholesky_cuda, "launches"),
                 "k5": (cuda_gp.gp_fused_cuda, "launches"),
                 "k6": (cuda_gp.gp_fused_ns_cuda, "launches"),
+                "k6_band": (cuda_gp.gp_fused_ns_cuda, "band_launches"),
                 "k7": (cuda_gauss_jordan.gauss_jordan_cuda, "launches"),
                 "k8": (newton_schulz.ns_refine_cuda, "launches"),
                 "k8_band": (newton_schulz.ns_refine_cuda, "band_launches"),
@@ -1922,6 +2168,7 @@ def main() -> int:
     engine_path = ("k7", "k8", "k10", "k11")
     big_n_path = ("k2", "k9")
     warm_band_path = ("k8_band", "k11_band")
+    cold_band_path = ("k1_band", "k6_band")
     harness_path = ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "k10")
 
     def reset_counts():
@@ -2060,8 +2307,23 @@ def main() -> int:
     if not all(band_launches[k] for k in warm_band_path):
         raise AssertionError(f"warm band path did not launch every kernel: "
                              f"{band_launches}")
+
+    # the cold band path (K1 and K6 on their cluster instances), counted on
+    # its own
+    reset_counts()
+    cold_lines = _cold_band_path(dev, k1_lanes, torch)
+    t_part = mark("phase 4 cold band path", t_part)
+    torch.cuda.synchronize()
+    cold_launches = read_counts()
+    for line in cold_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "cold_band_path", "launches": cold_launches}),
+          flush=True)
+    if not all(cold_launches[k] for k in cold_band_path):
+        raise AssertionError(f"cold band path did not launch every kernel: "
+                             f"{cold_launches}")
     launches = {k: launches[k] + engine_launches[k] + big_launches[k]
-                + band_launches[k] for k in counters}
+                + band_launches[k] + cold_launches[k] for k in counters}
 
     # ---- 5. timing ----
     name, limit = [s.strip() for s in smi.split(",", 1)]
@@ -2179,6 +2441,8 @@ def main() -> int:
     _time_band(dev, lambda batch, n: _kernel_bounds(batch, n, *scheds),
                timing, library, card, torch)
     t_part = mark("phase 5 band", t_part)
+    _time_cold_band(dev, k1_lanes, timing, library, card, torch)
+    t_part = mark("phase 5 cold band", t_part)
 
     # ---- 6. the reference's harness, counted on its own ----
     reset_counts()
@@ -2255,6 +2519,13 @@ def main() -> int:
                    "Newton-Schulz on a thread-block cluster (100x224, 7 CTAs "
                    "a system)", "ns_cluster_rounds.cuh", "pallas_gp.py:491",
                    ("k11_band", "100x224")),
+        entry_line("k1_band", "K1 newton_schulz on a thread-block cluster "
+                   "(spd10 schedule, 100x224, 7 CTAs a matrix)",
+                   "newton_schulz.cu", "newton_schulz.py:549",
+                   ("k1_band", "100x224")),
+        entry_line("k6_band", "K6 fused GP mean/variance, Newton-Schulz on "
+                   "a thread-block cluster (100x224, 7 CTAs a system)",
+                   "gp.cu", "pallas_gp.py:606", ("k6_band", "100x224")),
     ]
     k9_ms, k9_plain_ms = timing[("k9", "nonsym500_100x512")]
     k9_bound_ms, k9_bound_by = timing[("k9_bound", "nonsym500_100x512")]

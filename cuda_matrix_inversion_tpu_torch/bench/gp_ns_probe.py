@@ -86,7 +86,7 @@ STAGED = """  gp_ns_load_b<M>(sm, a, b + sys * n * n, d, sys, n);
 # record.  The running count lives in shared memory (a stamp issues stores
 # and no global load, ~0.15 us less a stamp than a count in device
 # memory).  PHASES names the interval that ends at stamp id k.
-STAMP_CAP = 192  # stamps a launch
+STAMP_CAP = 512  # stamps a launch
 STAMP_DEFS = f"""#pragma once
 
 static __device__ unsigned long long ns_probe_t[3][{STAMP_CAP}];

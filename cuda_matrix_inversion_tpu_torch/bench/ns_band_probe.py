@@ -1,9 +1,20 @@
-"""Probes of the warm kernels' cluster instances (K8 and K11 at
-129 ≤ n ≤ 224, ``csrc/ns_cluster_rounds.cuh``) on one card.
+"""Probes of the Newton-Schulz kernels' cluster instances (K1, K8, K6 and
+K11 at 129 ≤ n ≤ 224, ``csrc/ns_cluster_rounds.cuh``) on one card.
 
     python -m cuda_matrix_inversion_tpu_torch.bench.ns_band_probe [BASELINE_CSRC]
+    python -m cuda_matrix_inversion_tpu_torch.bench.ns_band_probe routes
 
-Prints one JSON line a probe:
+Prints one JSON line a probe (``routes`` alone with that argument):
+
+- ``routes``: the routes the fixed Newton-Schulz lanes and the GP method
+  ``pallas_ns`` took at 129 ≤ n ≤ 224 before K1 and K6 served that band,
+  timed at :data:`BAND_TIMED` (1600 = 100 draws repeated): spd10 and spd
+  through the Schur recursion down to K1 at n = 128, pan500 by batched
+  split3 products, pan by the adaptive loop, and ``pallas_ns`` by K5's
+  Schur route; beside them ``torch.linalg.inv`` and the GP ``solve``
+  method, and each route's gate (max‖AA⁻¹−I‖∞ in fp64; GP: the largest
+  error of mean and var against the fp64 closed form).  Median of 20
+  CUDA-event timings after 3 warm-up calls.
 
 - ``dsmem``: one CTA copying 16-row chunks of a bf16 slab (16 × (NP + 8)
   values, the band loop's k-chunk) into its own shared memory, 16 bytes a
@@ -14,7 +25,8 @@ Prints one JSON line a probe:
 - ``clusters``: ``cudaOccupancyMaxActiveClusters`` for a kernel of 256
   threads at each cluster size 4 … 8 with the band instances' shared
   memory (``band_smem_bytes``, both schedules), and for the band kernels
-  themselves (``ns_band_kernel``, ``gp_warm_band_kernel``): the shared
+  themselves (``ns_band_kernel`` for K8 and K1, ``gp_warm_band_kernel``,
+  ``gp_ns_band_kernel``): the shared
   memory each launch asks for, their registers, local memory
   (``cudaFuncGetAttributes``) and ``ptxas -v``'s lines (spills).
 - ``clock_split``: K8's cluster instance with thread 0 of block 0 (rank 0
@@ -26,7 +38,8 @@ Prints one JSON line a probe:
   walk, the fp32 residual being the fifth of the six walks of the
   default 2 + 1 rounds); each interval in µs, median of 5 launches, K8 bf16 and split3
   at 100×224, bf16 at 1600×224, 100×160 and 1×224 (one cluster on an
-  idle card: the walks without the other clusters' traffic).
+  idle card: the walks without the other clusters' traffic), and K1's
+  spd10 lane at 100×224 (its seed over the cluster a phase of its own).
 - ``baseline`` (when ``BASELINE_CSRC``, another checkout's ``csrc/``, is
   given): K8 (bf16, split3) and K11 of that checkout against this tree's
   on the same inputs at 100×224, 1600×224, 100×160 and 100×192 (the
@@ -43,6 +56,7 @@ the kernels' flags; the band kernels' figures come from a copy of
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -56,16 +70,31 @@ from cuda_matrix_inversion_tpu_torch.bench.gp_ns_probe import (
     STAMP_DEFS,
     _launcher,
     clock_split,
+    median_ms,
     stamped_edits,
     variant_library,
 )
-from cuda_matrix_inversion_tpu_torch.bench.ns_probe import _ab, k8_launcher
+from cuda_matrix_inversion_tpu_torch.bench.ns_probe import (
+    _ab,
+    k1_launcher,
+    k8_launcher,
+)
+from cuda_matrix_inversion_tpu_torch.bench.reporting import identity_error_inf
 from cuda_matrix_inversion_tpu_torch.io.fixtures import (
     make_gp_batch,
+    make_nonsym_cond,
     make_spd_batch,
     make_square_batch,
 )
-from cuda_matrix_inversion_tpu_torch.ops import cuda_build, cuda_gp, linalg
+from cuda_matrix_inversion_tpu_torch.models import gp
+from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_build,
+    cuda_gp,
+    linalg,
+    schur,
+)
+from cuda_matrix_inversion_tpu_torch.ops import newton_schulz as ns
+from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
 
 BAND_NP = (160, 192, 224)
 BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
@@ -77,7 +106,9 @@ BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
 # wait for a peer's two chunks (14) and their MMAs or FMAs (15), each
 # window's cluster barrier and pushes (16), and its closing block barrier
 # (17); :func:`walks` groups them by walk.
-BAND_PHASES = {1: "load X0, stage A", 2: "publish X0, cluster barrier",
+BAND_PHASES = {18: "load X0 (K8), stage A",
+               1: "seed over the cluster (K1)",
+               2: "publish X, cluster barrier",
                4: "lo: store T, cluster barrier",
                6: "lo: publish X, cluster barrier",
                7: "hi: store R", 8: "hi: cluster barrier",
@@ -122,9 +153,14 @@ BAND_STAMPS = {
          "  parity ^= 1;\n  __syncthreads();\n  ns_stamp(17);\n", 1),
     ],
     "newton_schulz.cu": [
-        ("  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
-         "  ns_stamp(0);\n  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
+        ("  if constexpr (WARM) band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
+         "  ns_stamp(0);\n"
+         "  if constexpr (WARM) band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
          1),
+        ("  band_stage(sm, n, rank, [=](int i, int j) { return ab[i * n + j]; "
+         "});\n",
+         "  band_stage(sm, n, rank, [=](int i, int j) { return ab[i * n + j]; "
+         "});\n  ns_stamp(18);\n", 1),
         ("  band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);\n",
          "  ns_stamp(1);\n  band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);\n",
          1),
@@ -337,16 +373,18 @@ extern "C" int cmi_probe_band(int* out) {{
   return err;
 }}
 """
-NS_KERNELS = [f"ns_band_kernel<{np}, {s}>" for np in BAND_NP
-              for s in ("false", "true")]
-GP_KERNELS = [f"gp_warm_band_kernel<{np}>" for np in BAND_NP]
+# K8 (WARM = true) and K1 (WARM = false); K11 and K6.
+NS_KERNELS = [f"ns_band_kernel<{np}, {w}, {s}>" for w in ("true", "false")
+              for np in BAND_NP for s in ("false", "true")]
+GP_KERNELS = [f"{k}<{np}>" for k in ("gp_warm_band_kernel",
+                                     "gp_ns_band_kernel") for np in BAND_NP]
 
 
 def _kernel_np_split3(kernel: str) -> tuple:
-    """(NP, split3) of a band kernel's name, ``ns_band_kernel<224, true>``
-    or ``gp_warm_band_kernel<160>``."""
+    """(NP, split3) of a band kernel's name, ``ns_band_kernel<224, true,
+    false>`` (NP, WARM, SPLIT3) or ``gp_warm_band_kernel<160>``."""
     args = [x.strip() for x in kernel.split("<")[1].rstrip(">").split(",")]
-    return int(args[0]), len(args) > 1 and args[1] == "true"
+    return int(args[0]), len(args) > 1 and args[-1] == "true"
 
 
 def _reader(kernels) -> str:
@@ -417,6 +455,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    if sys.argv[1:] == ["routes"]:
+        routes(dev, card)
+        return 0
     lib = _copy_lib()
 
     sizes = {}
@@ -436,7 +478,6 @@ def main() -> int:
                       "gp.cu": _band_figures("gp.cu", GP_KERNELS),
                       "card": card}), flush=True)
 
-    dev = torch.device("cuda")
     reps = 256
     for np_ in BAND_NP:
         csize = np_ // 32
@@ -486,12 +527,74 @@ def main() -> int:
                           "case": f"K8 {prec} {batch}x{n}", **split,
                           "walks": walks(split["sequence_us"]),
                           "card": card}), flush=True)
+    a = torch.tensor(make_spd_batch(100, 224, np.random.default_rng(324)),
+                     dtype=torch.float32, device=dev)
+    split = clock_split(stamped, k1_launcher(
+        stamped, a, LANES["newton_schulz_spd10_pallas"]["schedule"]),
+        BAND_PHASES)
+    print(json.dumps({"probe": "clock_split", "case": "K1 spd10 100x224",
+                      **split, "walks": walks(split["sequence_us"]),
+                      "card": card}), flush=True)
     if len(sys.argv) > 1:
         base = variant_library("band_baseline", src=Path(sys.argv[1]),
                                units=("newton_schulz.cu", "gp.cu"))
         _baseline({"baseline": base, "this": cuda_build.library()}, dev,
                   card)
     return 0
+
+
+def band_routes() -> dict:
+    """The routes of the fixed Newton-Schulz lanes at 129 ≤ n ≤ 224 before
+    K1 served the band, by lane: callables of one float32 batch."""
+    def schur_k1(lane):
+        base = functools.partial(ns.inverse_newton_schulz_fixed,
+                                 **LANES[lane]["keywords"])
+        return lambda a: schur.spd_blocked_inverse(
+            a, base, max_base_n=cuda_build.MAX_N)
+
+    return {"newton_schulz_spd10_pallas":
+                schur_k1("newton_schulz_spd10_pallas"),
+            "newton_schulz_spd_pallas": schur_k1("newton_schulz_spd_pallas"),
+            "newton_schulz_pallas": ns.inverse_newton_schulz,
+            "newton_schulz_pan500_pallas":
+                ns.inverse_newton_schulz_pan500_batched}
+
+
+def routes(dev, card: str) -> None:
+    """One line a shape of :data:`BAND_TIMED`: each band route's time and
+    gate (``routes`` in the module's docstring)."""
+    for batch, n in BAND_TIMED:
+        rng = np.random.default_rng(7400 + n)
+        reps = batch // 100
+
+        def tile(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev).repeat(
+                reps, *([1] * (x.ndim - 1))).contiguous()
+
+        spd = make_spd_batch(100, n, rng)
+        gen = make_nonsym_cond(100, n, 500.0, rng)
+        g = make_gp_batch(100, n, rng)
+        row = {"probe": "routes", "case": f"{batch}x{n}"}
+        for lane, fn in band_routes().items():
+            a = gen if lane.endswith("pan500_pallas") else spd
+            at = tile(a)
+            x = fn(at)[:100].cpu().numpy()
+            row[lane] = {"ms": median_ms(lambda: fn(at)),
+                         "gate": identity_error_inf(a, x)}
+        at = tile(spd)
+        row["torch_linalg_inv_ms"] = median_ms(lambda: torch.linalg.inv(at))
+        t = [tile(g[k]) for k in "abcde"]
+        mean, var = cuda_gp.gp_mean_variance_fused(*t)
+        row["pallas_ns"] = {
+            "ms": median_ms(lambda: cuda_gp.gp_mean_variance_fused(*t)),
+            "route": "gp_mean_variance_fused (K5 Schur route)",
+            "abs_err": max(float(np.abs(mean[:100].cpu().numpy()
+                                        - g["means"]).max()),
+                           float(np.abs(var[:100].cpu().numpy()
+                                        - g["variances"]).max()))}
+        row["gp_solve_ms"] = median_ms(lambda: gp.gp_mean_variance(
+            *t, method="solve"))
+        print(json.dumps({**row, "card": card}), flush=True)
 
 
 def _drifted(a, delta: float, seed: int, symmetric: bool):

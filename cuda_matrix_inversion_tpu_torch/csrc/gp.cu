@@ -49,7 +49,11 @@
 // products.  Shared memory at n = 128: K 66 KB, four bf16 tiles (K, X,
 // T or R, X's lo part) 34 KB each, with X in fp32 over the last two where
 // needed, then [d a]: 201.5 KB, one block an SM.  Several systems per
-// block and wgmma are later work.
+// block and wgmma are later work.  Past n = 128, up to the JAX kernel's
+// 224, K6 runs as one thread-block cluster a system (gp_ns_band_kernel on
+// ns_cluster_rounds.cuh): K11's band instance with K1's seed taken over
+// the cluster (band_seed), the spd schedule's rounds and K11's band
+// epilogue (band_gp_epilogue), without the K^-1 store.
 //
 // K11 replaces ops/pallas_gp.py::_gp_warm_kernel (pallas_call in
 // gp_mean_variance_fused_warm): K6 with X loaded from the previous
@@ -294,49 +298,48 @@ __global__ void __launch_bounds__(kThreads)
     ks[x] = sm.Xf[(x / n) * LD + x % n];
 }
 
-// K11 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a system, each
-// refining a 32-row slab of X (ns_cluster_rounds.cuh) from x0.  Each CTA
-// sums the epilogue over its rows, x_d[j] = sum_i d[i] X[i][j] and x_a
-// likewise (thread j), into the partials mean_s = x_d . a and
-// quad_s = x_a . a, and stores them in rank 0's shared memory; rank 0 adds
-// the C partials in rank order, so two runs give the same bits.
+// The band instances of K6 and K11 (129 <= n <= 224): [d a] of system
+// `sys` into sm.rest, d at [0, NP) and a at [NP, 2 NP).
 template <int NP>
-__global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
-    gp_warm_band_kernel(const float* __restrict__ a,
-                        const float* __restrict__ b,
-                        const float* __restrict__ c,
-                        const float* __restrict__ d,
-                        const float* __restrict__ e,
-                        const float* __restrict__ x0,
-                        float* __restrict__ out, float* __restrict__ kinv,
-                        NSParams prm) {
-  using G = BandGeometry<NP>;
-  extern __shared__ __align__(16) unsigned char band_smem[];
-  __shared__ float red[kThreads / 32];
-  const BandSmem<NP, false> sm(band_smem);
-  const int n = prm.n;
-  const int tid = threadIdx.x;
-  const int rank = cluster_rank();
-  const size_t sys = blockIdx.x / G::C;
-  float* sd = sm.rest;
-  float* sa = sm.rest + NP;
-  float* partials = sm.rest + 2 * NP;
-  for (int i = tid; i < n; i += kThreads) {
-    sd[i] = d[sys * n + i];
-    sa[i] = a[sys * n + i];
+__device__ __forceinline__ void band_gp_load_da(const BandSmem<NP, false>& sm,
+                                                const float* a,
+                                                const float* d, size_t sys,
+                                                int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    sm.rest[i] = d[sys * n + i];
+    sm.rest[NP + i] = a[sys * n + i];
   }
-  const WarpTile w = band_warp_tile<NP>();
-  float xm[1][G::NT][4];
-  band_load_x<NP>(xm, x0 + sys * n * n, n, rank, w);
-  const float* bs = b + sys * n * n;
-  const float* cs = c + sys * n;
-  // K[i][i] = B[i][i] + c[i] as the plain version's b + eye * c rounds it
+}
+
+// The slab of K = B + diag(c) (bs, cs: the system's B and c), with
+// K[i][i] = B[i][i] + c[i] as the plain version's b + eye * c rounds it.
+template <int NP>
+__device__ __forceinline__ void band_gp_stage_k(const BandSmem<NP, false>& sm,
+                                                const float* bs,
+                                                const float* cs, int n,
+                                                int rank) {
   band_stage(sm, n, rank, [=](int i, int j) {
     const float v = bs[i * n + j];
     return i == j ? __fadd_rn(v, cs[i]) : v;
   });
+}
 
-  band_rounds<NP, false>(xm, sm, prm, w, rank);
+// The band epilogue of K6 and K11 from the slab of X in sm.Xf and [d a] in
+// sm.rest: each CTA sums over its rows x_d[j] = sum_i d[i] X[i][j] and x_a
+// likewise (thread j) into the partials mean_s = x_d . a and
+// quad_s = x_a . a, and stores them in rank 0's partials (sm.rest at
+// 2 NP); rank 0 adds the C partials in rank order into out[0] = mean and
+// out[1] = *e - quad, so two runs give the same bits.  The cluster has
+// passed a barrier since sm.Xf was written.
+template <int NP>
+__device__ __forceinline__ void band_gp_epilogue(
+    const BandSmem<NP, false>& sm, int n, int rank, const float* e,
+    float* out, float* red) {
+  using G = BandGeometry<NP>;
+  const int tid = threadIdx.x;
+  const float* sd = sm.rest;
+  const float* sa = sm.rest + NP;
+  float* partials = sm.rest + 2 * NP;
   const int rows = min(kSlab, n - kSlab * rank);
   float mean_part = 0.f, quad_part = 0.f;
   if (tid < n) {
@@ -362,10 +365,67 @@ __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
       mean += partials[2 * r];
       quad += partials[2 * r + 1];
     }
-    out[2 * sys] = mean;
-    out[2 * sys + 1] = e[sys] - quad;
+    out[0] = mean;
+    out[1] = *e - quad;
   }
+}
+
+// K11 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a system, each
+// refining a 32-row slab of X (ns_cluster_rounds.cuh) from x0, then
+// band_gp_epilogue and the slab's rows of K^-1.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
+    gp_warm_band_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const float* __restrict__ c,
+                        const float* __restrict__ d,
+                        const float* __restrict__ e,
+                        const float* __restrict__ x0,
+                        float* __restrict__ out, float* __restrict__ kinv,
+                        NSParams prm) {
+  using G = BandGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  __shared__ float red[kThreads / 32];
+  const BandSmem<NP, false> sm(band_smem);
+  const int n = prm.n;
+  const int rank = cluster_rank();
+  const size_t sys = blockIdx.x / G::C;
+  band_gp_load_da(sm, a, d, sys, n);
+  const WarpTile w = band_warp_tile<NP>();
+  float xm[1][G::NT][4];
+  band_load_x<NP>(xm, x0 + sys * n * n, n, rank, w);
+  band_gp_stage_k(sm, b + sys * n * n, c + sys * n, n, rank);
+
+  band_rounds<NP, false>(xm, sm, prm, w, rank);
+  band_gp_epilogue(sm, n, rank, e + sys, out + 2 * sys, red);
   band_store_x(sm, kinv + sys * n * n, n, rank);
+}
+
+// K6 for 129 <= n <= 224: K11's band instance with K1's spd seed on K
+// (band_seed) in place of X0, the spd schedule's rounds and no K^-1 store.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
+    gp_ns_band_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b,
+                      const float* __restrict__ c,
+                      const float* __restrict__ d,
+                      const float* __restrict__ e, float* __restrict__ out,
+                      NSParams prm) {
+  using G = BandGeometry<NP>;
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  __shared__ float red[kThreads / 32];
+  const BandSmem<NP, false> sm(band_smem);
+  const int n = prm.n;
+  const int rank = cluster_rank();
+  const size_t sys = blockIdx.x / G::C;
+  band_gp_load_da(sm, a, d, sys, n);
+  const WarpTile w = band_warp_tile<NP>();
+  float xm[1][G::NT][4];
+  band_gp_stage_k(sm, b + sys * n * n, c + sys * n, n, rank);
+  band_seed<NP, false>(xm, sm, nullptr, n, rank, /*spd=*/true, nullptr,
+                       sm.rest + 2 * NP, red, w);
+  band_rounds<NP, false>(xm, sm, prm, w, rank);
+  band_gp_epilogue(sm, n, rank, e + sys, out + 2 * sys, red);
 }
 
 // K10.  EMIT_W = false: quad and logdet only; true: also W = L^-1 and
@@ -492,9 +552,35 @@ extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
                                  d, e, out, n));
 }
 
+namespace {
+
+// K6 past n = 128: one cluster a system at NP = 160, 192 or 224.
+cudaError_t launch_gp_ns_band(const NSParams& prm, int batch, cudaStream_t s,
+                              const float* a, const float* b, const float* c,
+                              const float* d, const float* e, float* out) {
+  switch (band_np(prm.n)) {
+    case 160:
+      return band_launch(gp_ns_band_kernel<160>, BandGeometry<160>::C,
+                         batch, band_smem_bytes(160, false), s, a, b, c, d,
+                         e, out, prm);
+    case 192:
+      return band_launch(gp_ns_band_kernel<192>, BandGeometry<192>::C,
+                         batch, band_smem_bytes(192, false), s, a, b, c, d,
+                         e, out, prm);
+    default:
+      return band_launch(gp_ns_band_kernel<224>, BandGeometry<224>::C,
+                         batch, band_smem_bytes(224, false), s, a, b, c, d,
+                         e, out, prm);
+  }
+}
+
+}  // namespace
+
 // As cmi_gp_fused, with K^-1 by the spd Newton-Schulz schedule: `lo` scaled
 // rounds with the fp32 scalars two_c / c_sq (device arrays of `lo` floats),
-// then `hi` polish rounds, the last residual in fp32.
+// then `hi` polish rounds, the last residual in fp32; 1 <= n <= 224, one
+// block a system up to 128 and one cluster past it (cudaErrorInvalidValue
+// past 224).
 extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
                                const float* d, const float* e, float* out,
                                int batch, int n, int lo, int hi,
@@ -503,7 +589,7 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
   NSParams prm;
   if (batch < 0 || (lo > 0 && two_c == nullptr) ||
       !make_ns_params(n, /*init_spd=*/1, lo, hi, /*split3=*/0,
-                      /*polish_highest=*/1, two_c, c_sq, &prm))
+                      /*polish_highest=*/1, two_c, c_sq, &prm, kBandMaxN))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -517,7 +603,7 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
     case 2: err = launch(gp_ns_kernel<2>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 4: err = launch(gp_ns_kernel<4>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 8: err = launch(gp_ns_kernel<8>, smem, batch, s, a, b, c, d, e, out, prm); break;
-    default: err = cudaErrorInvalidValue; break;
+    default: err = launch_gp_ns_band(prm, batch, s, a, b, c, d, e, out); break;
   }
   return static_cast<int>(err);
 }

@@ -57,15 +57,19 @@
 // products (2 x 2 + 2 at the default 2 + 1 rounds against K1 spd10's 12),
 // with one more n^2 read (X0) than K1.
 //
-// Past n = 128, up to the JAX kernel's 224, K8 runs as one thread-block
-// cluster a matrix (ns_band_kernel on ns_cluster_rounds.cuh): C = NP / 32
-// CTAs (NP = 160, 192, 224) each refine a 32-row slab, reading the right
-// operand's other slabs from the peers' shared memory; the split3 schedule
-// accumulates its residuals in fp64 there.  The bound stays the operations
-// (5 bf16 and 1 fp32 product of 2 NP^3 at the default bf16 rounds); the
-// cluster adds a bulk copy of every peer's chunks to every CTA (87 KB a
-// CTA a bf16 product at NP = 224, over the cluster's shared-memory
-// network) and two cluster barriers a round.
+// Past n = 128, up to the JAX kernels' 224, K1 and K8 run as one
+// thread-block cluster a matrix (ns_band_kernel on ns_cluster_rounds.cuh):
+// C = NP / 32 CTAs (NP = 160, 192, 224) each iterate a 32-row slab,
+// reading the right operand's other slabs from the peers' shared memory;
+// the split3 schedule accumulates its residuals in fp64 there.  K1's seed
+// takes its norms over the cluster (band_seed: the row sums a slab, the
+// column sums of pan added by each column's owner, the maxima exchanged
+// through the peers' shared memory, two or three cluster barriers).  The
+// bound stays the operations (K8: 5 bf16 and 1 fp32 product of 2 NP^3 at
+// the default bf16 rounds; K1 spd10: 13 bf16 and 1 fp32); the cluster adds
+// a bulk copy of every peer's chunks to every CTA (87 KB a CTA a bf16
+// product at NP = 224, over the cluster's shared-memory network) and two
+// cluster barriers a round.
 
 #include "ns_cluster_rounds.cuh"
 #include "ns_mma_rounds.cuh"
@@ -164,52 +168,60 @@ cudaError_t launch_ns(const NSParams& prm, int batch, cudaStream_t s,
   }
 }
 
-// K8 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a matrix, each
-// refining its 32-row slab (ns_cluster_rounds.cuh).
-template <int NP, bool SPLIT3>
+// K1 (WARM = false) and K8 (WARM = true) for 129 <= n <= 224: one
+// cluster of C = NP / 32 CTAs a matrix, each iterating its 32-row slab
+// (ns_cluster_rounds.cuh).  K1 seeds X over the cluster (band_seed), K8
+// loads it from x0.
+template <int NP, bool WARM, bool SPLIT3>
 __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, SPLIT3))
     ns_band_kernel(const float* __restrict__ a, const float* __restrict__ x0,
                    float* __restrict__ x, NSParams prm) {
   using G = BandGeometry<NP>;
   extern __shared__ __align__(16) unsigned char band_smem[];
+  __shared__ float red[kThreads / 32];
   const BandSmem<NP, SPLIT3> sm(band_smem);
   const int n = prm.n;
   const int rank = cluster_rank();
   const size_t base = static_cast<size_t>(blockIdx.x / G::C) * n * n;
   const WarpTile w = band_warp_tile<NP>();
   float xm[1][G::NT][4];
-  band_load_x<NP>(xm, x0 + base, n, rank, w);
+  if constexpr (WARM) band_load_x<NP>(xm, x0 + base, n, rank, w);
   const float* ab = a + base;
   band_stage(sm, n, rank, [=](int i, int j) { return ab[i * n + j]; });
+  if constexpr (!WARM)
+    band_seed<NP, SPLIT3>(xm, sm, ab, n, rank, prm.init_spd, sm.rest,
+                          sm.rest + 2 * NP, red, w);
   band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);
   band_store_x(sm, x + base, n, rank);
 }
 
-template <int NP>
+template <int NP, bool WARM>
 cudaError_t launch_band_np(const NSParams& prm, int batch, cudaStream_t s,
                            const float* a, const float* x0, float* x) {
   constexpr int C = BandGeometry<NP>::C;
   return prm.split3
-             ? band_launch(ns_band_kernel<NP, true>, C, batch,
+             ? band_launch(ns_band_kernel<NP, WARM, true>, C, batch,
                            band_smem_bytes(NP, true), s, a, x0, x, prm)
-             : band_launch(ns_band_kernel<NP, false>, C, batch,
+             : band_launch(ns_band_kernel<NP, WARM, false>, C, batch,
                            band_smem_bytes(NP, false), s, a, x0, x, prm);
 }
 
+template <bool WARM>
 cudaError_t launch_band(const NSParams& prm, int batch, cudaStream_t s,
                         const float* a, const float* x0, float* x) {
   switch (band_np(prm.n)) {
-    case 160: return launch_band_np<160>(prm, batch, s, a, x0, x);
-    case 192: return launch_band_np<192>(prm, batch, s, a, x0, x);
-    default: return launch_band_np<224>(prm, batch, s, a, x0, x);
+    case 160: return launch_band_np<160, WARM>(prm, batch, s, a, x0, x);
+    case 192: return launch_band_np<192, WARM>(prm, batch, s, a, x0, x);
+    default: return launch_band_np<224, WARM>(prm, batch, s, a, x0, x);
   }
 }
 
 }  // namespace
 
-// a, x: (batch, n, n) fp32, contiguous, on `device`.  two_c / c_sq:
-// device arrays of `lo` fp32 scalars (any lo).  Returns the CUDA error of
-// the launch.
+// K1.  a, x: (batch, n, n) fp32, contiguous, on `device`, 1 <= n <= 224:
+// one block a matrix up to 128, one cluster a matrix past it.  two_c /
+// c_sq: device arrays of `lo` fp32 scalars (any lo).  Returns the CUDA
+// error of the launch (cudaErrorInvalidValue past 224).
 extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
                               int init_spd, int lo, int hi, int split3,
                               int polish_highest, const float* two_c,
@@ -217,13 +229,14 @@ extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
   NSParams prm;
   if (batch < 0 || (lo > 0 && two_c == nullptr) ||
       !make_ns_params(n, init_spd, lo, hi, split3, polish_highest, two_c,
-                      c_sq, &prm))
+                      c_sq, &prm, kBandMaxN))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
-  err = launch_ns<false>(prm, batch, static_cast<cudaStream_t>(stream), a,
-                          nullptr, x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = n <= kMaxN ? launch_ns<false>(prm, batch, s, a, nullptr, x)
+                   : launch_band<false>(prm, batch, s, a, nullptr, x);
   return static_cast<int>(err);
 }
 
@@ -244,6 +257,6 @@ extern "C" int cmi_ns_warm(const float* a, const float* x0, float* x,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = n <= kMaxN ? launch_ns<true>(prm, batch, s, a, x0, x)
-                   : launch_band(prm, batch, s, a, x0, x);
+                   : launch_band<true>(prm, batch, s, a, x0, x);
   return static_cast<int>(err);
 }

@@ -47,10 +47,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (148 KB), the JAX kernel's.  K9 keeps one n×pw panel and checks its own ceiling
 # (``lu_bign.panel_smem_bytes``).
 MAX_N = 128
-# Largest n the warm kernels K8 and K11 take, the JAX warm kernels'
-# ceiling: past MAX_N each matrix runs on one thread-block cluster of
-# NP / 32 CTAs (NP = 160, 192, 224), a 32-row slab of the matrix in each
-# CTA's shared memory (``csrc/ns_cluster_rounds.cuh``).
+# Largest n the Newton-Schulz kernels K1, K6, K8 and K11 take, the JAX
+# kernels' ceiling (the name dates from the warm kernels K8 and K11, the
+# first to serve it): past MAX_N each matrix runs on one thread-block
+# cluster of NP / 32 CTAs (NP = 160, 192, 224), a 32-row slab of the
+# matrix in each CTA's shared memory (``csrc/ns_cluster_rounds.cuh``).
 WARM_MAX_N = 224
 
 _VP = ctypes.c_void_p

@@ -96,13 +96,19 @@ def gp_fused_cuda(a, b, c, d, e):
 
 
 def gp_fused_ns_cuda(a, b, c, d, e):
-    """Launch K6 on contiguous CUDA fp32 tensors in the flat layout;
-    ``gp_fused_ns_cuda.launches`` counts the launches."""
+    """Launch K6 on contiguous CUDA fp32 tensors in the flat layout, n ≤
+    :data:`cuda_build.WARM_MAX_N` (one thread block a system up to 128,
+    one thread-block cluster past it); ``gp_fused_ns_cuda.launches``
+    counts the launches and ``gp_fused_ns_cuda.band_launches`` those of
+    the cluster instance."""
     sched = GP_NS_SCHEDULE
     two_c, c_sq = newton_schulz.round_scalars(sched.coeffs, b.device)
     out = _gp_launch("cmi_gp_fused_ns", a, b, c, d, e, sched.lo_iters,
-                     sched.hi_iters, two_c, c_sq)
+                     sched.hi_iters, two_c, c_sq,
+                     max_n=cuda_build.WARM_MAX_N)
     gp_fused_ns_cuda.launches += 1
+    if b.shape[-1] > cuda_build.MAX_N:
+        gp_fused_ns_cuda.band_launches += 1
     return out
 
 
@@ -131,6 +137,7 @@ def gp_fused_warm_cuda(a, b, c, d, e, x0, lo: int = 2, hi: int = 1):
 
 gp_fused_cuda.launches = 0
 gp_fused_ns_cuda.launches = 0
+gp_fused_ns_cuda.band_launches = 0
 gp_fused_warm_cuda.launches = 0
 gp_fused_warm_cuda.band_launches = 0
 
@@ -180,11 +187,14 @@ def gp_mean_variance_fused(a, b, c, d, e):
 def gp_mean_variance_fused_ns(a, b, c, d, e):
     """Fused GP through Newton-Schulz, one K6 launch for the batch: the
     fastest route for diagonally dominant K (κ ≲ 30); same shapes and
-    contract as :func:`gp_mean_variance_fused`.  float64 and n > 128 (the
-    JAX package's bound is 224) go to :func:`gp_mean_variance_fused`."""
-    if b.dtype == torch.float64 or b.shape[-1] > cuda_build.MAX_N:
+    contract as :func:`gp_mean_variance_fused`.  K6 serves n ≤ 224, the
+    JAX kernel's ceiling: one thread block a system up to 128, one
+    thread-block cluster past it.  float64 and n > 224 go to
+    :func:`gp_mean_variance_fused`, as JAX's do."""
+    if b.dtype == torch.float64 or b.shape[-1] > cuda_build.WARM_MAX_N:
         return gp_mean_variance_fused(a, b, c, d, e)
-    return _run(b, gp_fused_ns_cuda, gp_fused_ns_plain, _flat(a, b, c, d, e))
+    return _run(b, gp_fused_ns_cuda, gp_fused_ns_plain,
+                _flat(a, b, c, d, e, max_n=cuda_build.WARM_MAX_N))
 
 
 def gp_mean_variance_fused_warm(a, b, c, d, e, prev_kinv, lo_iters: int = 2,

@@ -7,10 +7,12 @@ quadratically once ‖I − AX‖ < 1.
 * :func:`inverse_newton_schulz_fixed` — the fixed-schedule speed path
   (lanes ``newton_schulz{,_spd,_spd10,_pan500}_pallas``), counterpart of
   ``inverse_newton_schulz_pallas``.  On a CUDA tensor it runs the
-  hand-written kernel ``csrc/newton_schulz.cu`` (K1); on a CPU tensor its
-  plain PyTorch version :func:`ns_iterate_plain`.  Past the kernel's
-  n = 128 it takes the JAX package's routes past its ceiling (Schur,
-  :func:`inverse_newton_schulz_pan500_batched`, adaptive).
+  hand-written kernel ``csrc/newton_schulz.cu`` (K1, n ≤ 224: one thread
+  block a matrix up to 128, one thread-block cluster past it); on a CPU
+  tensor its plain PyTorch version :func:`ns_iterate_plain`.  Past the
+  JAX kernel's n = 224 it takes the JAX package's routes past that
+  ceiling (Schur, :func:`inverse_newton_schulz_pan500_batched`,
+  adaptive).
 * :func:`inverse_newton_schulz` — the adaptive, residual-monitored loop
   (lanes ``newton_schulz``, ``newton_schulz_spd``), plain PyTorch.
 * :func:`inverse_newton_schulz_warm` — warm-start refinement of a previous
@@ -158,7 +160,7 @@ def _rounds(a: torch.Tensor, x: torch.Tensor, coeffs, hi_iters: int,
     interpret mode on the CPU (``mid_split=False``): every product full
     fp32, and every polish round counts as final.  ``residual64`` computes
     the split3 polish residuals in float64 (:func:`linalg.residual_f64`),
-    as K8's cluster instance past n = 128 does."""
+    as K1's and K8's cluster instances past n = 128 do."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     if bf16_products:
         one, dot3 = _mm_bf16, _mm_split3
@@ -183,9 +185,14 @@ def ns_iterate_plain(a: torch.Tensor, sched: Schedule,
                      bf16_products: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K1 on an fp32 ``(batch, n, n)`` tensor:
     the seed, then the schedule's rounds (``bf16_products`` as in
-    :func:`_rounds`)."""
+    :func:`_rounds`).  Past n = 128 (K1's cluster instance) the split3
+    polish residuals are float64, as K8's there: an fp32 one leaves the
+    κ = 500 class at 1.05e-4 at n = 224."""
+    residual64 = (bf16_products and sched.split3
+                  and a.shape[-1] > cuda_build.MAX_N)
     return _rounds(a, _seed(a, sched.init), sched.coeffs, sched.hi_iters,
-                   sched.split3, sched.polish_highest, bf16_products)
+                   sched.split3, sched.polish_highest, bf16_products,
+                   residual64)
 
 
 def ns_refine_plain(a: torch.Tensor, x0: torch.Tensor, lo: int, hi: int,
@@ -228,11 +235,14 @@ def round_scalars(coeffs: tuple, device: torch.device) -> tuple:
 
 
 def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
-    """Launch K1 (``csrc/newton_schulz.cu``) on a CUDA fp32 batch, any
-    number of lo rounds.
+    """Launch K1 (``csrc/newton_schulz.cu``) on a CUDA fp32 batch, n ≤
+    :data:`cuda_build.WARM_MAX_N` (one thread block a matrix up to 128,
+    one thread-block cluster past it), any number of lo rounds.
 
-    ``ns_iterate_cuda.launches`` counts the launches."""
-    cuda_build.check_kernel_input(a, "newton_schulz kernel")
+    ``ns_iterate_cuda.launches`` counts the launches and
+    ``ns_iterate_cuda.band_launches`` those of the cluster instance."""
+    cuda_build.check_kernel_input(a, "newton_schulz kernel",
+                                  max_n=cuda_build.WARM_MAX_N)
     cuda_build.check_cuda_f32("newton_schulz kernel", a)
     a = a.contiguous()
     x = torch.empty_like(a)
@@ -245,10 +255,13 @@ def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
         stream)
     cuda_build.check(err, "newton_schulz kernel")
     ns_iterate_cuda.launches += 1
+    if a.shape[-1] > cuda_build.MAX_N:
+        ns_iterate_cuda.band_launches += 1
     return x
 
 
 ns_iterate_cuda.launches = 0
+ns_iterate_cuda.band_launches = 0
 
 
 def inverse_newton_schulz_fixed(
@@ -270,10 +283,12 @@ def inverse_newton_schulz_fixed(
     float64 input goes to the adaptive :func:`inverse_newton_schulz`
     (which takes the LU route), with a warning for split3.
 
-    n > 128, past the kernel's shared memory, takes the JAX package's
-    routes past its own ceiling (224 there): ``init="spd"`` the Schur
-    recursion (:func:`schur.spd_blocked_inverse`) down to this lane with
-    every schedule keyword forwarded; split3
+    K1 serves n ≤ 224, the JAX kernel's ceiling: one thread block a
+    matrix up to n = 128, one thread-block cluster past it, where the
+    split3 residuals are float64 (:func:`ns_iterate_plain`).  n > 224
+    takes the JAX package's routes past its ceiling: ``init="spd"`` the
+    Schur recursion (:func:`schur.spd_blocked_inverse`) down to this lane
+    at a base of 224, with every schedule keyword forwarded; split3
     :func:`inverse_newton_schulz_pan500_batched`; bf16 ``init="pan"`` the
     adaptive :func:`inverse_newton_schulz`.
     """
@@ -286,20 +301,21 @@ def inverse_newton_schulz_fixed(
                 "adaptive f64 Newton-Schulz path (f64 arithmetic already "
                 "exceeds the split-precision floor)", stacklevel=2)
         return inverse_newton_schulz(a, init=init)
-    if a.ndim == 3 and a.shape[-1] > cuda_build.MAX_N:
+    if a.ndim == 3 and a.shape[-1] > cuda_build.WARM_MAX_N:
         if init == "spd":
             # κ(A11), κ(S) ≤ κ(A) for SPD A, so the lane's κ domain carries
             base = functools.partial(
                 inverse_newton_schulz_fixed, lo_iters=lo_iters,
                 hi_iters=hi_iters, init="spd", polish_highest=polish_highest,
                 mu_min=mu_min)
-            return schur.spd_blocked_inverse(a, base,
-                                             max_base_n=cuda_build.MAX_N)
+            return schur.spd_blocked_inverse(
+                a, base, max_base_n=cuda_build.WARM_MAX_N)
         if sched.split3:
             return inverse_newton_schulz_pan500_batched(a, lo_iters, hi_iters,
                                                         mu_min)
         return inverse_newton_schulz(a, init=init)
-    cuda_build.check_kernel_input(a, "newton_schulz kernel")
+    cuda_build.check_kernel_input(a, "newton_schulz kernel",
+                                  max_n=cuda_build.WARM_MAX_N)
     a32 = a.to(torch.float32)
     # the plain version with bf16 products, the kernel's arithmetic
     x = cuda_build.on_device(a32, "newton_schulz", ns_iterate_cuda,

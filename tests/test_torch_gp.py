@@ -183,16 +183,28 @@ def test_host_wrappers_and_f64_route(jax_block1):
         gp.gp_mean(*(torch.tensor(x) for x in f32[:4]), method="qr")
 
 
-def test_k5_schur_route_past_128():
-    """n = 160 > 128: K = B + diag(c) solved through spd_schur_solve on
-    the K3 plain base; K6 routes to it too."""
+@pytest.mark.parametrize("route", ["k5_schur", "k6_band"])
+def test_k5_schur_route_past_128(route, monkeypatch):
+    """n = 160 > 128: K5's method solves K = B + diag(c) through
+    spd_schur_solve on the K3 plain base; K6's runs its own plain version
+    (the cluster instance's arithmetic; K6 serves n ≤ 224, as JAX's
+    kernel does) and never the Schur solve.  Both within 1e-4 of fp64."""
     data, means, variances = _system(160)
-    for fn in (cuda_gp.gp_mean_variance_fused,
-               cuda_gp.gp_mean_variance_fused_ns):
-        mean, var = _np(fn(*_t(data, "abcde")))
-        assert mean.shape == (BATCH, 1, 1)
-        assert np.abs(mean - means).max() < 1e-4
-        assert np.abs(var - variances).max() < 1e-4
+    calls = []
+    solve = cuda_gp.schur.spd_schur_solve
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape[-1])
+        return solve(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_gp.schur, "spd_schur_solve", spy)
+    fn = (cuda_gp.gp_mean_variance_fused if route == "k5_schur"
+          else cuda_gp.gp_mean_variance_fused_ns)
+    mean, var = _np(fn(*_t(data, "abcde")))
+    assert calls == ([160] if route == "k5_schur" else [])
+    assert mean.shape == (BATCH, 1, 1)
+    assert np.abs(mean - means).max() < 1e-4
+    assert np.abs(var - variances).max() < 1e-4
 
 
 def test_indefinite_system_is_confined():

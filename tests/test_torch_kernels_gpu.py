@@ -278,9 +278,9 @@ def test_k6_matches_plain_at_1600x128(cuda):
 
 
 def test_kernels_reject_n129_on_cuda(cuda):
+    """The one-block kernels reject n = 129; K1 and K6, which run one
+    thread-block cluster a matrix past 128, reject n = 225."""
     a = torch.eye(129, device=cuda)[None]
-    with pytest.raises(ValueError, match="128"):
-        newton_schulz.ns_iterate_cuda(a, LANES["newton_schulz_pallas"]["schedule"])
     with pytest.raises(ValueError, match="128"):
         cuda_lu.lu_inverse_cuda(a)
     with pytest.raises(ValueError, match="128"):
@@ -289,9 +289,14 @@ def test_kernels_reject_n129_on_cuda(cuda):
         cuda_cholesky.inverse_cholesky_cuda(a)
     v = torch.ones(1, 129, device=cuda)
     e = torch.ones(1, device=cuda)
-    for kernel in (cuda_gp.gp_fused_cuda, cuda_gp.gp_fused_ns_cuda):
-        with pytest.raises(ValueError, match="128"):
-            kernel(v, a, v, v, e)
+    with pytest.raises(ValueError, match="128"):
+        cuda_gp.gp_fused_cuda(v, a, v, v, e)
+    a = torch.eye(225, device=cuda)[None]
+    v = torch.ones(1, 225, device=cuda)
+    with pytest.raises(ValueError, match="224"):
+        newton_schulz.ns_iterate_cuda(a, LANES["newton_schulz_pallas"]["schedule"])
+    with pytest.raises(ValueError, match="224"):
+        cuda_gp.gp_fused_ns_cuda(v, a, v, v, e)
 
 
 def _check_k7(cuda, a, bad=None, gate=True):
@@ -559,17 +564,106 @@ def test_warm_kernels_match_plain_past_32_lo_rounds(cuda, kernel, n):
 
 
 @pytest.mark.parametrize("n", [129, 161, 193, 224])
-@pytest.mark.parametrize("kernel", ["k8_bf16", "k8_split3", "k11"])
+@pytest.mark.parametrize("kernel", ["k8_bf16", "k8_split3", "k11", "k1",
+                                    "k6"])
 def test_band_kernels_match_plain_at_37(cuda, kernel, n):
     """The cluster instances at each NP (160, 192, 224) with 31 rows of
     zero padding in the last slab at 129, 161 and 193, on a batch of 37,
     which is no multiple of the clusters the card holds at once (15 - 47);
-    member 18's X0 holds a NaN."""
+    member 18's X0 (K1: A; K6: B) holds a NaN.  K1 in each lane."""
     if kernel == "k11":
         _check_k11(cuda, 37, n, 2, 1, 1100 + n, nan_member=18)
+    elif kernel == "k1":
+        for lane in _K1_LANES:
+            _check_k1_band(cuda, LANES[lane]["schedule"], n, 1300 + n,
+                           batch=37, nan_member=18)
+    elif kernel == "k6":
+        _check_k6_band(cuda, 37, n, 1400 + n, nan_member=18)
     else:
         _check_k8(cuda, n, kernel[3:], 2, 1, 1200 + n, nan_member=18,
                   batch=37)
+
+
+def _check_k1_band(cuda, sched, n, seed, batch=7, nan_member=None):
+    """K1's cluster instance against its plain version in one launch
+    (counted as a band launch): the split3 schedule on the κ = 500
+    nonsymmetric class, the others on the SPD class; member
+    ``nan_member``'s A holds a NaN and alone comes out non-finite; the
+    others through the gate."""
+    rng = np.random.default_rng(seed)
+    a = (make_nonsym_cond(batch, n, 500.0, rng) if sched.split3
+         else make_spd_batch(batch, n, rng).astype(np.float32))
+    ok = np.arange(batch) != nan_member
+    if nan_member is not None:
+        a[nan_member, n // 2, n - 1] = np.nan
+    at = torch.tensor(a, device=cuda)
+    fn = newton_schulz.ns_iterate_cuda
+    before = (fn.launches, fn.band_launches)
+    x = fn(at, sched)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.band_launches) == (before[0] + 1, before[1] + 1)
+    ref = newton_schulz.ns_iterate_plain(at, sched, bf16_products=True)
+    x, ref = x.cpu().numpy(), ref.cpu().numpy()
+    assert (np.isfinite(x).all(axis=(1, 2)) == ok).all()
+    assert (np.isfinite(ref).all(axis=(1, 2)) == ok).all()
+    assert _rel(x[ok], ref[ok]) <= K1_RTOL
+    assert identity_error_inf(a[ok], x[ok]) < 1e-4
+
+
+@pytest.mark.parametrize("lane", _K1_LANES)
+@pytest.mark.parametrize("n", [129, 160, 224])
+def test_k1_band_matches_plain(cuda, lane, n):
+    """K1's cluster instance in each lane (NP = 160 with 31 rows of zero
+    padding at n = 129, 160 exactly, 224 at seven CTAs a cluster): the
+    seed's norms over the cluster (pan: the column sums added by each
+    column's owner), the schedule's rounds; member 3's A holds a NaN and
+    alone comes out non-finite (no CTA reads another matrix)."""
+    _check_k1_band(cuda, LANES[lane]["schedule"], n, 1500 + n,
+                   nan_member=3)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "split3"])
+def test_k1_band_matches_plain_past_32_lo_rounds(cuda, precision):
+    """The pan schedule at 33 lo rounds on K1's cluster instance (n = 160):
+    the round scalars come from device memory, any count."""
+    sched = newton_schulz.resolve_schedule(lo_iters=33, init="pan",
+                                           precision=precision)
+    assert len(sched.coeffs) == 33
+    _check_k1_band(cuda, sched, 160, 1533, nan_member=3)
+
+
+def _check_k6_band(cuda, batch, n, seed, nan_member=None):
+    """K6's cluster instance against its plain version and the fp64 closed
+    form in one launch (counted as a band launch); member ``nan_member``'s
+    B holds a NaN and alone comes out non-finite."""
+    g = make_gp_batch(batch, n, np.random.default_rng(seed))
+    t = {k: torch.tensor(g[k], dtype=torch.float32, device=cuda)
+         for k in "abcde"}
+    ok = np.arange(batch) != nan_member
+    if nan_member is not None:
+        t["b"][nan_member, n // 2, n - 1] = float("nan")
+    flat = cuda_gp._flat(*(t[k] for k in "abcde"),
+                         max_n=cuda_build.WARM_MAX_N)
+    fn = cuda_gp.gp_fused_ns_cuda
+    before = (fn.launches, fn.band_launches)
+    out = fn(*flat)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.band_launches) == (before[0] + 1, before[1] + 1)
+    out, ref = out.cpu().numpy(), cuda_gp.gp_fused_ns_plain(*flat).cpu().numpy()
+    ref64 = np.stack([g["means"][:, 0, 0], g["variances"][:, 0, 0]], -1)
+    assert (np.isfinite(out).all(axis=1) == ok).all()
+    assert (np.isfinite(ref).all(axis=1) == ok).all()
+    assert np.abs(out[ok] - ref[ok]).max() <= K6_ATOL
+    assert _rel(out[ok], ref[ok]) <= K6_RTOL
+    assert np.abs(out[ok] - ref64[ok]).max() < 1e-4
+
+
+@pytest.mark.parametrize("n", [129, 160, 224])
+def test_k6_band_matches_plain(cuda, n):
+    """K6's cluster instance: K1's spd seed on K = B + diag(c) over the
+    cluster, the spd schedule, and K11's band epilogue (partial sums a
+    rank, added in rank order by rank 0); member 3's B holds a NaN."""
+    _check_k6_band(cuda, 7, n, 1600 + n, nan_member=3)
 
 
 def test_band_launch_error_raises(cuda):

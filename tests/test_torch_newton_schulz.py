@@ -275,10 +275,12 @@ def test_fixed_lanes_past_128_match_jax_routes(lane):
     assert _rel(x, ref) <= 2e-4
 
 
-def test_spd10_schedule_reaches_the_schur_base(monkeypatch):
+@pytest.mark.parametrize("n,bases", [(256, [128, 128]), (320, [128, 192])])
+def test_spd10_schedule_reaches_the_schur_base(monkeypatch, n, bases):
     """Every schedule keyword of the spd10 lane (mu_min = 0.03 with 4 + 2
-    rounds) reaches the Schur base past 128; dropping one would run the
-    base on the spd defaults."""
+    rounds) reaches the Schur base past K1's 224 (a base of 224, as JAX's:
+    at n = 320 the 192 block is a base); dropping one would run the base
+    on the spd defaults."""
     seen = []
     plain = ns.ns_iterate_plain
 
@@ -287,11 +289,11 @@ def test_spd10_schedule_reaches_the_schur_base(monkeypatch):
         return plain(a, sched, bf16_products)
 
     monkeypatch.setattr(ns, "ns_iterate_plain", spy)
-    a = make_spd_batch(2, 256, np.random.default_rng(10)).astype(np.float32)
+    a = make_spd_batch(2, n, np.random.default_rng(10)).astype(np.float32)
     lane = LANES["newton_schulz_spd10_pallas"]
     x = ns.inverse_newton_schulz_fixed(torch.tensor(a), **lane["keywords"])
     assert identity_error_inf(a, x.numpy()) < 1e-4
-    assert [n for n, _ in seen] == [128, 128]
+    assert [m for m, _ in seen] == bases
     assert all(sched == lane["schedule"] for _, sched in seen)
     assert lane["schedule"] != LANES["newton_schulz_spd_pallas"]["schedule"]
 
@@ -300,8 +302,9 @@ def test_pan500_batched_is_k1s_split3_arithmetic():
     """The split3 lane's batched route repeats K1's plain split3 lo rounds
     (the JAX XLA lane runs the kernel's schedule at HIGH), then polishes
     with fp64 residuals; its κ = 500 result at n = 256 passes the gate
-    where the fp32-residual polish (K1's own) does not on this CPU.
-    float64 goes to the LU route."""
+    where the fp32-residual polish (K1's own up to n = 128) does not on
+    this CPU; past 128 K1's plain version polishes with the fp64 residual
+    too, the same bits.  float64 goes to the LU route."""
     a = _nonsym_cond(2, 24, 300.0, np.random.default_rng(11))
     sched = LANES["newton_schulz_pan500_pallas"]["schedule"]
     at = torch.tensor(a)
@@ -314,8 +317,11 @@ def test_pan500_batched_is_k1s_split3_arithmetic():
     big = _nonsym_cond(4, 256, 500.0, np.random.default_rng(41))
     x = ns.inverse_newton_schulz_pan500_batched(torch.tensor(big)).numpy()
     assert identity_error_inf(big, x) < 1e-4
-    fp32 = ns.ns_iterate_plain(torch.tensor(big), sched).numpy()
+    bt = torch.tensor(big)
+    fp32 = ns._rounds(bt, ns._seed(bt, "pan"), sched.coeffs, sched.hi_iters,
+                      True, True, True).numpy()
     assert identity_error_inf(big, fp32) > 1e-4
+    assert np.array_equal(ns.ns_iterate_plain(bt, sched).numpy(), x)
     a64 = torch.tensor(a.astype(np.float64))
     assert torch.equal(ns.inverse_newton_schulz_pan500_batched(a64),
                        ns.inverse_lu(a64))
