@@ -35,7 +35,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    × batch 100 and n ∈ {161, 193} × batch 37 (pan500 on the κ = 500
    class) and the pan schedule at 33 lo rounds (bf16, split3), K6 at n ∈
    {129, 160, 224} × batch 100 and against the fp64 closed form, each
-   with one member whose input holds a NaN;
+   with one member whose input holds a NaN; K2 on its
+   thread-block-cluster instance at 100×{136, 160, 192, 224, 256} and
+   37×256, its raw ``inv`` and ``ipiv`` equal to the plain version's on
+   every finite member, one singular member alone non-finite;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -58,7 +61,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gate or within 1e-4 of the fp64 closed form; K7, K8, K10 and K11's
    counters must move in this path.  Then the big-n and fp64 path, with the
    counters reset: ``lu_pallas`` and ``lu_bign_pallas`` at 100×512 (JAX's
-   κ = 500 ``lu_bign_512_gate`` draw), ``lu_pallas`` at 1600×256, the
+   κ = 500 ``lu_bign_512_gate`` draw), ``lu_pallas`` at 1600×256 (K2's
+   cluster instance), the
    pan500, spd10 and spd lanes at n = 256, an ``lu_pallas`` engine in its
    256 and 512 buckets, ``bucketed_inverse`` on a ragged list (5 … 512)
    with ``lu_pallas`` and ``cholesky_pallas``, the warm split3 route at
@@ -80,7 +84,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each through the gate, and ``gp_mean_variance_host(...,
    method="pallas_ns")`` at 100×192 and 100×224 within 1e-4 of the fp64
    closed form; the cluster instances of K1 and K6 must launch in this
-   path;
+   path.  Then the K2 band path, with the counters reset:
+   ``inverse_batched`` with ``lu_pallas`` at 100×{160, 192, 224, 256} (κ
+   = 500), an ``lu_pallas`` engine in its 256 bucket, ``bucketed_inverse``
+   on a ragged list with a 256 bucket, the differentiable ``lu_pallas`` at
+   7×192, all through the gate, and ``lu_hiacc`` at 100×256 within its
+   fp64 contract; K2's cluster instance must launch in this path and K9
+   must not;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
@@ -104,7 +114,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    plain versions, ``torch.linalg.inv`` (K1) or the GP ``solve`` method
    (K6), the route each replaced (the Schur recursion on K1 at 128, the
    batched split3 products, the adaptive loop; K5's Schur route), the
-   lane or method through its entry point, and the bound;
+   lane or method through its entry point, and the bound; at 100×{160,
+   192, 224, 256} and 1600×256 K2 on its cluster instance beside its plain
+   version, ``torch.linalg.inv``, the blocked route on K9 that
+   ``lu_pallas`` took there before, the lane and the bound;
 6. reference harness, with the counters reset: the port's fixture tree
    (``generate_all`` at n ∈ {8, 32, 128}, 100 matrices), the native
    LAPACK oracle's build (optional: its rows register when it loads), the
@@ -242,6 +255,15 @@ COLD_BAND_ROUTES = {
     "newton_schulz_pallas": "inverse_newton_schulz (adaptive loop)",
     "newton_schulz_pan500_pallas":
         "inverse_newton_schulz_pan500_batched (batched split3 products)"}
+# K2's cluster instance (n = 129 … 256, NP = 160, 192, 224, 256): phase
+# 3's shapes (136 pads to 160; 37 members, no multiple of the clusters the
+# card holds at once), phase 4's lu_pallas requests, and phase 5's shapes
+# (1600 = 100 draws repeated).
+K2_BAND_SHAPES = ((100, 136), (100, 160), (100, 192), (100, 224),
+                  (100, 256), (37, 256))
+K2_BAND_PATH_N = (160, 192, 224, 256)
+K2_BAND_TIMED = ((100, 160), (100, 192), (100, 224), (100, 256),
+                 (1600, 256))
 # K10 vs plain: K5's factor and substitution and K3's W; the sums and
 # logarithms differ in order only.
 LML_RTOL = 1e-5
@@ -800,6 +822,131 @@ def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
             "route_before_ms": route_ms,
             "route_before": "gp_mean_variance_fused (K5 Schur route)",
             "solve_method_ms": solve_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], **card}), flush=True)
+
+
+def _k2_band_vs_plain(dev, err, torch):
+    """Phase 3 for K2's cluster instance at K2_BAND_SHAPES on the general
+    class (``make_square_batch``), member batch // 2 singular (rank 1):
+    ``inv`` and ``ipiv`` equal (``torch.equal``) to the plain version's on
+    every finite member, the singular member alone non-finite, one band
+    launch a call; errors under ``k2_band``."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_lu
+
+    entry = err.setdefault("k2_band", {"abs": 0.0, "rel_general": 0.0,
+                                       "raw_equal_members": 0})
+    for batch, n in K2_BAND_SHAPES:
+        a = torch.tensor(make_square_batch(batch, n, np.random.default_rng(
+            8100 + batch + n)), dtype=torch.float32, device=dev)
+        a[batch // 2] = 1.0
+        before = cuda_lu.lu_inverse_cuda.band_launches
+        _k2_vs_plain(a, "band", K2_RTOL_GENERAL, entry, torch,
+                     singular=batch // 2)
+        if cuda_lu.lu_inverse_cuda.band_launches != before + 1:
+            raise AssertionError(f"K2 band {batch}x{n}: not one band launch")
+
+
+def _k2_band_path(dev, torch):
+    """Phase 4's K2 band path through the entry points a user calls, NumPy
+    in and out where the entry point takes NumPy: ``inverse_batched`` with
+    ``lu_pallas`` at 100×n for n in K2_BAND_PATH_N (the κ = 500 class), an
+    ``lu_pallas`` engine request at 100×200 (its 256 bucket),
+    ``bucketed_inverse`` on a ragged list with a 256 bucket, the
+    differentiable ``lu_pallas`` (forward and backward) at 7×192, every
+    fp32 result through the gate; ``lu_hiacc`` at 100×256 (its ``lu_pallas`` seed in
+    the band) within HIACC_TIGHT in fp64.  Returns one line per check."""
+    from cuda_matrix_inversion_tpu_torch import InversionEngine
+    from cuda_matrix_inversion_tpu_torch.bench.reporting import (
+        identity_error_inf,
+    )
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import make_nonsym_cond
+    from cuda_matrix_inversion_tpu_torch.ops import autodiff, host_api
+    from cuda_matrix_inversion_tpu_torch.ops.registry import (
+        get_inverse_algorithm,
+    )
+    from cuda_matrix_inversion_tpu_torch.parallel import bucketing
+
+    lines = []
+
+    def gate(what, a, x):
+        err = identity_error_inf(a, x)
+        lines.append({"phase": "k2_band_path", "check": what, "gate": err})
+        if not (x.shape == a.shape and x.dtype == np.float32
+                and np.isfinite(x).all() and err < GATE):
+            raise AssertionError(f"{what}: gate {err:.3e} ({x.shape} "
+                                 f"{x.dtype})")
+
+    for n in K2_BAND_PATH_N:
+        a = make_nonsym_cond(100, n, 500.0, np.random.default_rng(8300 + n))
+        gate(f"inverse_batched lu_pallas nonsym500_100x{n}", a,
+             host_api.inverse_batched(a, "lu_pallas", device=dev))
+    eng = InversionEngine(algorithm="lu_pallas", device=dev)
+    a = make_nonsym_cond(100, 200, 500.0, np.random.default_rng(8400))
+    gate("InversionEngine lu_pallas request_100x200", a, eng.inverse(a))
+    if [dim for _, dim in eng.compiled_shapes] != [256]:
+        raise AssertionError(f"engine buckets {eng.compiled_shapes}")
+    # the default buckets (8/32/128/512, JAX's) send 129 … 256 to 512: a
+    # 256 bucket puts the list in the band
+    rng = np.random.default_rng(8401)
+    ms = [make_nonsym_cond(1, n, 500.0, rng)[0] for n in (137, 200, 256)]
+    for m, x in zip(ms, bucketing.bucketed_inverse(
+            ms, algorithm="lu_pallas", buckets=(8, 32, 128, 256, 512),
+            device=dev)):
+        gate(f"bucketed_inverse lu_pallas buckets 256 n={m.shape[0]}",
+             m[None], x[None])
+    a = make_nonsym_cond(7, 192, 500.0, np.random.default_rng(8402))
+    at = torch.tensor(a, device=dev, requires_grad=True)
+    x = autodiff.differentiable("lu_pallas")(at)
+    (grad,) = torch.autograd.grad(x.sum(), at)
+    if not bool(torch.isfinite(grad).all()):
+        raise AssertionError("differentiable lu_pallas 7x192: non-finite "
+                             "gradient")
+    gate("autodiff.differentiable lu_pallas forward 7x192", a,
+         x.detach().cpu().numpy())
+    a = torch.tensor(make_nonsym_cond(100, 256, 500.0, np.random.default_rng(
+        8403)).astype(np.float64), device=dev)
+    x = get_inverse_algorithm("lu_hiacc")(a)
+    err = _max_resid64(a, x, torch)
+    lines.append({"phase": "k2_band_path", "check": "lu_hiacc "
+                  "nonsym500_100x256", "max_abs_resid_fp64": err,
+                  "bound": HIACC_TIGHT})
+    if not (x.dtype == torch.float64 and err <= HIACC_TIGHT):
+        raise AssertionError(f"lu_hiacc 100x256: {err:.3e} ({x.dtype})")
+    return lines
+
+
+def _time_k2_band(dev, bounds_at, timing, library, card, torch):
+    """Phase 5 for K2's cluster instance at K2_BAND_TIMED on the general
+    class: the kernel beside its plain version, ``torch.linalg.inv``, the
+    route ``lu_pallas`` took there before (the blocked LU on K9,
+    ``lu_bign.inverse_lu_big``), the lane through its entry point and the
+    bound (K2's: getri's 2n³ at the fp32 peak)."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_lu, host_api, lu_bign
+
+    for batch, n in K2_BAND_TIMED:
+        case = f"{batch}x{n}"
+        a = torch.tensor(make_square_batch(100, n, np.random.default_rng(
+            8200 + n)), dtype=torch.float32, device=dev).repeat(
+                batch // 100, 1, 1).contiguous()
+        ms = _median_ms(lambda: cuda_lu.lu_inverse_cuda(a), torch)
+        plain_ms = _median_ms(lambda: cuda_lu.lu_inverse_plain(a), torch,
+                              calls=5, warmup=1)
+        lane_ms = _median_ms(
+            lambda: host_api.inverse_batched_device(a, "lu_pallas"), torch)
+        route_ms = _median_ms(lambda: lu_bign.inverse_lu_big(a), torch)
+        inv_ms = _median_ms(lambda: torch.linalg.inv(a), torch)
+        bound = bounds_at(batch, n)["k2"]
+        timing[("k2_band", case)] = (ms, plain_ms)
+        library[("k2_band", case)] = inv_ms
+        timing[("k2_band_bound", case)] = bound
+        print(json.dumps({
+            "timing": "K2_BAND", "case": case, "kernel_ms": ms,
+            "lane_lu_pallas_ms": lane_ms, "plain_ms": plain_ms,
+            "route_before_ms": route_ms,
+            "route_before": "lu_bign.inverse_lu_big (blocked LU on K9)",
+            "torch_linalg_inv_ms": inv_ms, "bound_ms": bound[0],
             "bound_by": bound[1], **card}), flush=True)
 
 
@@ -2110,6 +2257,8 @@ def main() -> int:
     t_part = mark("phase 3 band", t_part)
     _cold_band_vs_plain(dev, k1_lanes, new_err, torch)
     t_part = mark("phase 3 cold band", t_part)
+    _k2_band_vs_plain(dev, new_err, torch)
+    t_part = mark("phase 3 K2 band", t_part)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
                       "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
           flush=True)
@@ -2152,6 +2301,7 @@ def main() -> int:
     counters = {"k1": (newton_schulz.ns_iterate_cuda, "launches"),
                 "k1_band": (newton_schulz.ns_iterate_cuda, "band_launches"),
                 "k2": (cuda_lu.lu_inverse_cuda, "launches"),
+                "k2_band": (cuda_lu.lu_inverse_cuda, "band_launches"),
                 "k3": (cuda_cholesky.inverse_cholesky_cuda, "launches"),
                 "k4": (cuda_cholesky.cholesky_cuda, "launches"),
                 "k5": (cuda_gp.gp_fused_cuda, "launches"),
@@ -2169,6 +2319,7 @@ def main() -> int:
     big_n_path = ("k2", "k9")
     warm_band_path = ("k8_band", "k11_band")
     cold_band_path = ("k1_band", "k6_band")
+    k2_band_path = ("k2_band",)
     harness_path = ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "k10")
 
     def reset_counts():
@@ -2322,8 +2473,26 @@ def main() -> int:
     if not all(cold_launches[k] for k in cold_band_path):
         raise AssertionError(f"cold band path did not launch every kernel: "
                              f"{cold_launches}")
+
+    # the K2 band path (lu_pallas at 129 ≤ n ≤ 256 on K2's cluster
+    # instance), counted on its own: K9 must not launch
+    reset_counts()
+    k2_band_lines = _k2_band_path(dev, torch)
+    t_part = mark("phase 4 K2 band path", t_part)
+    torch.cuda.synchronize()
+    k2_band_launches = read_counts()
+    for line in k2_band_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "k2_band_path",
+                      "launches": k2_band_launches}), flush=True)
+    if not all(k2_band_launches[k] for k in k2_band_path):
+        raise AssertionError(f"K2 band path did not launch every kernel: "
+                             f"{k2_band_launches}")
+    if k2_band_launches["k9"]:
+        raise AssertionError(f"K2 band path launched K9: {k2_band_launches}")
     launches = {k: launches[k] + engine_launches[k] + big_launches[k]
-                + band_launches[k] + cold_launches[k] for k in counters}
+                + band_launches[k] + cold_launches[k] + k2_band_launches[k]
+                for k in counters}
 
     # ---- 5. timing ----
     name, limit = [s.strip() for s in smi.split(",", 1)]
@@ -2443,6 +2612,9 @@ def main() -> int:
     t_part = mark("phase 5 band", t_part)
     _time_cold_band(dev, k1_lanes, timing, library, card, torch)
     t_part = mark("phase 5 cold band", t_part)
+    _time_k2_band(dev, lambda batch, n: _kernel_bounds(batch, n, *scheds),
+                  timing, library, card, torch)
+    t_part = mark("phase 5 K2 band", t_part)
 
     # ---- 6. the reference's harness, counted on its own ----
     reset_counts()
@@ -2526,6 +2698,10 @@ def main() -> int:
         entry_line("k6_band", "K6 fused GP mean/variance, Newton-Schulz on "
                    "a thread-block cluster (100x224, 7 CTAs a system)",
                    "gp.cu", "pallas_gp.py:606", ("k6_band", "100x224")),
+        entry_line("k2_band", "K2 lu on a thread-block cluster (pivoted "
+                   "getrf + inverse, general class 100x256, 8 CTAs a "
+                   "matrix)", "lu_band.cu", "pallas_lu.py:453",
+                   ("k2_band", "100x256")),
     ]
     k9_ms, k9_plain_ms = timing[("k9", "nonsym500_100x512")]
     k9_bound_ms, k9_bound_by = timing[("k9_bound", "nonsym500_100x512")]

@@ -172,11 +172,10 @@ STAMPS = [
     ("    float* Pg = P + (g & 1) * 4 * NP;\n    __syncthreads();\n",
      "    float* Pg = P + (g & 1) * 4 * NP;\n    __syncthreads();\n"
      "    k2_step(1);\n", 1),
-    ("          if (h < 3) key = cand_key(comp(v, h + 1), pos, s);\n        }\n"
-     "      }\n    }\n    __syncthreads();\n",
-     "          if (h < 3) key = cand_key(comp(v, h + 1), pos, s);\n        }\n"
-     "      }\n    }\n    k2_step(2);\n    __syncthreads();\n"
-     "    k2_step(3);\n", 1),
+    ("                                  s_piv_slot + k0, s_sj + k0);\n"
+     "    __syncthreads();\n",
+     "                                  s_piv_slot + k0, s_sj + k0);\n"
+     "    k2_step(2);\n    __syncthreads();\n    k2_step(3);\n", 1),
     ("    if (tid < 8) s_perm_st[tid] = s_perm[tid < 4 ? psl[tid] : k0 + tid - 4];"
      "\n    __syncthreads();\n",
      "    if (tid < 8) s_perm_st[tid] = s_perm[tid < 4 ? psl[tid] : k0 + tid - 4];"

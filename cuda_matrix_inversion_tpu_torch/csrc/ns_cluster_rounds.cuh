@@ -75,8 +75,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include <cooperative_groups.h>
-
+#include "cluster_common.cuh"
 #include "ns_common.cuh"
 #include "ns_mma.cuh"
 
@@ -157,82 +156,6 @@ inline constexpr size_t band_smem_bytes(size_t np, bool split3) {
   return 2 * kSlab * ldf * sizeof(float) + 4 * kSlab * ldb * sizeof(bf16) +
          band_stage_bytes(np, split3) + kBandBars * sizeof(uint64_t) +
          (2 * np + 2 * (np / kSlab)) * sizeof(float);
-}
-
-// The CTA's generic-proxy shared-memory writes made visible to the bulk
-// copies issued after the barrier, then the cluster barrier.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "fence.proxy.async.shared::cta;\n"
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  return static_cast<int>(cooperative_groups::this_cluster().block_rank());
-}
-
-// The shared::cluster address of `p` (a local shared address) in the
-// shared memory of the cluster's CTA `rank`.
-__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(smem_u32(p)), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void st_peer_f32(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
-               : "memory");
-}
-
-// An mbarrier of one arrival; the initialisation made visible to the
-// cluster (the next cluster barrier orders it before any peer's copy).
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// The barrier's one arrival of this phase, expecting `bytes` of copies.
-__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of parity `parity` of the barrier to complete.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Copy `bytes` (a multiple of 16) of this CTA's shared memory at `src` to
-// the shared::cluster address `dst`, completing on the mbarrier at the
-// shared::cluster address `bar` in the destination CTA.
-__device__ __forceinline__ void push_bulk(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
-      "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // The calling warp's tile of the slab's 32 x NP output: rows
@@ -742,29 +665,11 @@ __device__ __forceinline__ void band_rounds(
 
 // Launch `kernel` as batch clusters of C CTAs (kThreads threads, `smem`
 // bytes of dynamic shared memory each) on `stream`; the launch's error.
-// A cluster the SMs cannot hold fails here, and the caller raises.
 template <typename Kernel, typename... Args>
 cudaError_t band_launch(Kernel kernel, int clusters, int batch, size_t smem,
                         cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(batch) * clusters);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = clusters;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cluster_launch(kernel, clusters, batch, kThreads, smem, stream,
+                        args...);
 }
 
 }  // namespace

@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # may opt into 227 KB: K1, K8, K6 and K11 keep A (K) in fp32 and four
 # bf16 n×n tiles (200.5 KB at n = 128; K6 and K11 201.5 with [d a]); K2
 # keeps its tiles in registers and one n×ld buffer (83 KB at 128, with
-# the panel, the staged rows and the tables); K3 and K10 with ``emit_w`` two n×ld
+# the panel, the staged rows and the tables) and states its own larger
+# ceiling, LU_MAX_N; K3 and K10 with ``emit_w`` two n×ld
 # (``csrc/cholesky_common.cuh::chol_ld``, 132 at n = 128: 135 KB); K4, K5
 # and K10 one n×ld (68 KB, three blocks an SM).  K7 keeps one n×n buffer
 # too and states its own larger ceiling, GAUSS_JORDAN_MAX_N = 192
@@ -53,6 +54,11 @@ MAX_N = 128
 # cluster of NP / 32 CTAs (NP = 160, 192, 224), a 32-row slab of the
 # matrix in each CTA's shared memory (``csrc/ns_cluster_rounds.cuh``).
 WARM_MAX_N = 224
+# Largest n K2 takes, the JAX kernel's ceiling: past MAX_N each matrix runs
+# on one thread-block cluster of NP / 32 CTAs (NP = 160, 192, 224, 256),
+# a 32-column slab of the matrix and of its inverse in each CTA's shared
+# memory (``csrc/lu_band.cu``).
+LU_MAX_N = 256
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +70,9 @@ _SIGNATURES = {
                        _VP],
     # a, inv, ipiv, batch, n, device, stream
     "cmi_lu_inverse": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # a, inv, ipiv, ws (batch x NP x NP floats of scratch), batch, n,
+    # device, stream
+    "cmi_lu_inverse_band": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # a, l, batch, n, device, stream
     "cmi_chol_factor": [_VP, _VP, _I, _I, _I, _VP],
     # a, inv, batch, n, device, stream

@@ -3,10 +3,12 @@
 Counterpart of ``cuda_matrix_inversion_tpu/ops/pallas_lu.py::inverse_lu``
 (lane ``lu_pallas``), the analog of cuBLAS ``getrfBatched`` +
 ``getriBatched``.  :func:`inverse_lu` runs the hand-written kernel
-``csrc/lu.cu`` (:func:`lu_inverse_cuda`) on a CUDA tensor and its plain
-PyTorch version :func:`lu_inverse_plain`, which performs the same
-operations in the same order, on a CPU tensor; then it adds the one fp32
-Newton polish that the JAX wrapper runs outside its kernel.
+(:func:`lu_inverse_cuda`: ``csrc/lu.cu``, one thread block a matrix, up to
+n = 128; ``csrc/lu_band.cu``, one thread-block cluster a matrix, at
+129 ≤ n ≤ 256) on a CUDA tensor and its plain PyTorch version
+:func:`lu_inverse_plain`, which performs the same operations in the same
+order, on a CPU tensor; then it adds the one Newton polish that the JAX
+wrapper runs outside its kernel (past n = 128 with an fp64 residual).
 """
 
 from __future__ import annotations
@@ -57,47 +59,76 @@ def lu_inverse_plain(a: torch.Tensor):
     return y, ipiv
 
 
-def lu_inverse_cuda(a: torch.Tensor):
-    """Launch K2 (``csrc/lu.cu``) on a CUDA fp32 batch: ``(A⁻¹, ipiv)``.
+def band_np(n: int) -> int:
+    """The padded size that serves 129 ≤ n ≤ 256 on the cluster
+    (``csrc/lu_band.cu::lu_band_np``): 32 columns a CTA."""
+    return 160 if n <= 160 else 192 if n <= 192 else 224 if n <= 224 else 256
 
-    ``lu_inverse_cuda.launches`` counts the launches."""
-    cuda_build.check_kernel_input(a, "lu kernel")
+
+def lu_inverse_cuda(a: torch.Tensor):
+    """Launch K2 on a CUDA fp32 batch, n ≤ :data:`cuda_build.LU_MAX_N`:
+    ``(A⁻¹, ipiv)``.  One thread block a matrix up to n = 128
+    (``csrc/lu.cu``), one thread-block cluster of NP / 32 CTAs past it
+    (``csrc/lu_band.cu``, with a workspace of batch × NP × NP floats for
+    the back pass's U).
+
+    ``lu_inverse_cuda.launches`` counts the launches and
+    ``lu_inverse_cuda.band_launches`` those of the cluster instance."""
+    cuda_build.check_kernel_input(a, "lu kernel", max_n=cuda_build.LU_MAX_N)
     cuda_build.check_cuda_f32("lu kernel", a)
     a = a.contiguous()
+    batch, n = a.shape[0], a.shape[-1]
     inv = torch.empty_like(a)
-    ipiv = torch.empty(a.shape[:2], dtype=torch.int32, device=a.device)
+    ipiv = torch.empty((batch, n), dtype=torch.int32, device=a.device)
     device, stream = cuda_build.launch_args(a)
-    err = cuda_build.library().cmi_lu_inverse(
-        a.data_ptr(), inv.data_ptr(), ipiv.data_ptr(), a.shape[0],
-        a.shape[-1], device, stream)
+    lib = cuda_build.library()
+    band = n > cuda_build.MAX_N
+    if band:
+        ws = torch.empty((batch, band_np(n) ** 2), dtype=torch.float32,
+                         device=a.device)
+        err = lib.cmi_lu_inverse_band(a.data_ptr(), inv.data_ptr(),
+                                      ipiv.data_ptr(), ws.data_ptr(), batch,
+                                      n, device, stream)
+    else:
+        err = lib.cmi_lu_inverse(a.data_ptr(), inv.data_ptr(),
+                                 ipiv.data_ptr(), batch, n, device, stream)
     cuda_build.check(err, "lu kernel")
     lu_inverse_cuda.launches += 1
+    if band:
+        lu_inverse_cuda.band_launches += 1
     return inv, ipiv
 
 
 lu_inverse_cuda.launches = 0
+lu_inverse_cuda.band_launches = 0
 
 
 def inverse_lu(a: torch.Tensor) -> torch.Tensor:
     """Batched general-matrix inverse with partial pivoting (lane
-    ``lu_pallas``): one K2 launch, then one fp32 Newton polish
+    ``lu_pallas``): one K2 launch, then one Newton polish
     X ← X + X(I − AX).
 
     Any nonsingular batch; a singular member comes out non-finite and the
     others are unaffected.  float64 takes the library route
-    (:func:`linalg.inverse_lu`).  n > 128, past K2's shared memory, takes
-    the blocked route on K9 (:func:`lu_bign.inverse_lu_big`); the JAX
-    package takes its own from n = 257, its one-launch kernel serving
-    129..256.
+    (:func:`linalg.inverse_lu`).  Up to n = 128 the polish residual is
+    fp32, as the JAX wrapper's; at 129 ≤ n ≤ 256 K2 runs on a thread-block
+    cluster, as the JAX kernel serves that band in one launch, and the
+    residual is fp64 (:func:`linalg.residual_f64`: an fp32 one leaves the
+    κ = 500 class over the gate near n = 256 on the card).  Past 256 the
+    blocked route on K9 (:func:`lu_bign.inverse_lu_big`), as the JAX
+    package takes its own there.
     """
     if a.dtype == torch.float64:
         return linalg.inverse_lu(a)
-    if a.ndim == 3 and a.shape[-1] > cuda_build.MAX_N:
+    if a.ndim == 3 and a.shape[-1] > cuda_build.LU_MAX_N:
         return lu_bign.inverse_lu_big(a)
-    cuda_build.check_kernel_input(a, "lu kernel")
+    cuda_build.check_kernel_input(a, "lu kernel", max_n=cuda_build.LU_MAX_N)
     a32 = a.to(torch.float32)
     x, _ = cuda_build.on_device(a32, "lu", lu_inverse_cuda, lu_inverse_plain,
                                 a32)
-    eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
-    x = x + linalg.matmul(x, eye - linalg.matmul(a32, x))
+    if a.shape[-1] > cuda_build.MAX_N:
+        x = x + linalg.matmul(x, linalg.residual_f64(a32, x))
+    else:
+        eye = torch.eye(a.shape[-1], dtype=torch.float32, device=a.device)
+        x = x + linalg.matmul(x, eye - linalg.matmul(a32, x))
     return x.to(a.dtype)

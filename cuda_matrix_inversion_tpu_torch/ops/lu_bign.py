@@ -1,7 +1,7 @@
 """Batched pivoted LU inversion past the one-block kernels: kernel K9.
 
 Counterpart of ``cuda_matrix_inversion_tpu/ops/lu_bign.py`` (lane
-``lu_bign_pallas``, and ``lu_pallas`` past K2's n = 128), the analog of
+``lu_bign_pallas``, and ``lu_pallas`` past K2's n = 256), the analog of
 cuBLAS ``getrf`` + ``getri`` at any n.  The ``(batch, n, n)`` work matrix
 stays in device memory; the only hand-written kernel is the part that a
 batched product cannot do, the latency-bound per-column pivot chain of one
@@ -246,7 +246,7 @@ def inverse_lu_big(a: torch.Tensor, pw: int | None = None,
                    polish: bool = True) -> torch.Tensor:
     """Batched general-matrix inverse with partial pivoting at any n whose
     first panel fits one block (lane ``lu_bign_pallas``; ``lu_pallas``
-    past n = 128).
+    past n = 256).
 
     ``pw`` is the panel width (:func:`pick_pw` when None).  Runs in fp32
     (the polish residual in fp64) and returns ``a``'s dtype (float64

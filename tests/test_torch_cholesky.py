@@ -293,9 +293,10 @@ def test_library_path_hashes_headers(monkeypatch, tmp_path):
     before = cuda_build.library_path()
     assert cuda_build.library_path() == before
     assert [p.name for p in cuda_build._sources()] == [
-        "cholesky.cu", "gauss_jordan.cu", "gp.cu", "lu.cu", "lu_bign.cu",
-        "newton_schulz.cu"]
-    for header in ("cholesky_common.cuh", "ns_common.cuh", "ns_mma.cuh"):
+        "cholesky.cu", "gauss_jordan.cu", "gp.cu", "lu.cu", "lu_band.cu",
+        "lu_bign.cu", "newton_schulz.cu"]
+    for header in ("cholesky_common.cuh", "ns_common.cuh", "ns_mma.cuh",
+                   "lu_common.cuh", "cluster_common.cuh"):
         path = csrc / header
         text = path.read_text()
         path.write_text(text + "\n// edited\n")

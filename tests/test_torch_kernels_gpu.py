@@ -138,15 +138,19 @@ def test_k1_polish_highest_false_matches_plain(cuda, init, n):
 
 def _check_k2(cuda, a, bad=None, gate=True):
     """K2's raw outputs against :func:`cuda_lu.lu_inverse_plain` on ``a``
-    (float32 NumPy), in one launch: ``inv`` and ``ipiv`` equal
-    (``torch.equal``) on every finite member and the same members
-    non-finite (``bad``, where given); the polished inverse of the finite
-    members through the gate."""
+    (float32 NumPy), in one launch (past n = 128 counted as a launch of
+    the cluster instance): ``inv`` and ``ipiv`` equal (``torch.equal``) on
+    every finite member and the same members non-finite (``bad``, where
+    given); the ``lu_pallas`` lane on the finite members through the gate,
+    without a K9 launch."""
     at = torch.tensor(a, device=cuda)
-    before = cuda_lu.lu_inverse_cuda.launches
-    x, piv = cuda_lu.lu_inverse_cuda(at)
+    fn = cuda_lu.lu_inverse_cuda
+    before = (fn.launches, fn.band_launches)
+    x, piv = fn(at)
     torch.cuda.synchronize()
-    assert cuda_lu.lu_inverse_cuda.launches == before + 1
+    band = int(a.shape[-1] > cuda_build.MAX_N)
+    assert (fn.launches, fn.band_launches) == (before[0] + 1,
+                                               before[1] + band)
     ref, ref_piv = cuda_lu.lu_inverse_plain(at)
     finite = torch.isfinite(ref).all(dim=(1, 2))
     assert torch.equal(torch.isfinite(x).all(dim=(1, 2)), finite)
@@ -156,7 +160,9 @@ def _check_k2(cuda, a, bad=None, gate=True):
     assert torch.equal(piv[finite], ref_piv[finite])
     if gate:
         keep = finite.cpu().numpy()
-        polished = cuda_lu.inverse_lu(at).cpu().numpy()
+        before = lu_bign.lu_panel_cuda.launches
+        polished = get_inverse_algorithm("lu_pallas")(at).cpu().numpy()
+        assert lu_bign.lu_panel_cuda.launches == before
         assert identity_error_inf(a[keep], polished[keep]) < 1e-4
 
 
@@ -190,6 +196,69 @@ def test_k2_matches_plain_at_1600x128(cuda):
     a = make_square_batch(1600, 128, np.random.default_rng(1602)).astype(
         np.float32)
     _check_k2(cuda, a, bad=[])
+
+
+@pytest.mark.parametrize("kind", ["general", "singular", "nan"])
+@pytest.mark.parametrize("n", [129, 136, 160, 192, 200, 224, 255, 256])
+def test_k2_band_matches_plain(cuda, kind, n):
+    """Every cluster instance (NP = 160, 192, 224, 256: 5 to 8 CTAs), n
+    off a multiple of 4 (scalar loads and stores) and padded to NP; one
+    singular member (rank 1) or one member holding a NaN alone
+    non-finite."""
+    rng = np.random.default_rng(900 + n)
+    a = make_square_batch(7, n, rng).astype(np.float32)
+    if kind == "singular":
+        a[3] = 1.0
+    if kind == "nan":
+        a[3, n // 2, n - 1] = np.nan
+    _check_k2(cuda, a, bad=[] if kind == "general" else [3])
+
+
+@pytest.mark.parametrize("n", [129, 160, 192, 224, 256])
+def test_k2_band_matches_plain_on_ties(cuda, n):
+    """Small integers in [-2, 2]: exact ties decide the pivots (the first
+    maximum by position); a member may be singular."""
+    a = np.random.default_rng(950 + n).integers(-2, 3, (7, n, n)).astype(
+        np.float32)
+    ref = cuda_lu.lu_inverse_plain(torch.tensor(a))[0]
+    bad = (~torch.isfinite(ref).all(dim=(1, 2))).nonzero().flatten()
+    _check_k2(cuda, a, bad=bad.tolist(), gate=False)
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1600])
+def test_k2_band_matches_plain_at_256(cuda, batch):
+    """NP = 256 (clusters of 8 CTAs) on one matrix, on 37 (no multiple of
+    the clusters the card holds at once) with member 18 singular, and on
+    the main path's largest batch."""
+    a = make_square_batch(batch, 256, np.random.default_rng(980 + batch)
+                          ).astype(np.float32)
+    if batch == 37:
+        a[18] = 1.0
+    _check_k2(cuda, a, bad=[18] if batch == 37 else [])
+
+
+def test_lu_pallas_band_runs_k2(cuda):
+    """At 129 ≤ n ≤ 256 the ``lu_pallas`` lane, its engine's 256 bucket
+    and the ``lu_hiacc`` seed launch K2's cluster instance once a call,
+    never K9."""
+    from cuda_matrix_inversion_tpu_torch import InversionEngine
+
+    a = make_nonsym_cond(5, 200, 500.0, np.random.default_rng(201))
+    fn = cuda_lu.lu_inverse_cuda
+    before = (fn.band_launches, lu_bign.lu_panel_cuda.launches)
+    x = get_inverse_algorithm("lu_pallas")(torch.tensor(a, device=cuda))
+    eng = InversionEngine(algorithm="lu_pallas", device=cuda)
+    y = eng.inverse(a)
+    z = get_inverse_algorithm("lu_hiacc")(torch.tensor(
+        a.astype(np.float64), device=cuda))
+    torch.cuda.synchronize()
+    assert (fn.band_launches, lu_bign.lu_panel_cuda.launches) == (
+        before[0] + 3, before[1])
+    assert eng.compiled_shapes == [(8, 256)]
+    assert identity_error_inf(a, x.cpu().numpy()) < 1e-4
+    assert identity_error_inf(a, y) < 1e-4
+    eye = np.eye(200)
+    assert np.abs(eye - a.astype(np.float64) @ z.cpu().numpy()).max() <= 1e-11
 
 
 def _check_cholesky_kernels(cuda, batch, n, seed):
@@ -279,10 +348,11 @@ def test_k6_matches_plain_at_1600x128(cuda):
 
 def test_kernels_reject_n129_on_cuda(cuda):
     """The one-block kernels reject n = 129; K1 and K6, which run one
-    thread-block cluster a matrix past 128, reject n = 225."""
+    thread-block cluster a matrix past 128, reject n = 225, and K2, whose
+    cluster instance serves up to 256, n = 257."""
+    with pytest.raises(ValueError, match="256"):
+        cuda_lu.lu_inverse_cuda(torch.eye(257, device=cuda)[None])
     a = torch.eye(129, device=cuda)[None]
-    with pytest.raises(ValueError, match="128"):
-        cuda_lu.lu_inverse_cuda(a)
     with pytest.raises(ValueError, match="128"):
         cuda_cholesky.cholesky_cuda(a)
     with pytest.raises(ValueError, match="128"):
@@ -787,8 +857,8 @@ def test_k9_matches_plain_off_16_byte_rows(cuda, pw):
 
 @pytest.mark.parametrize("lane", ["lu_pallas", "lu_bign_pallas"])
 def test_big_n_lanes_run_k9(cuda, lane):
-    """Past 128 ``lu_pallas`` runs the blocked LU on K9, never K2."""
-    a = make_nonsym_cond(5, 200, 500.0, np.random.default_rng(200))
+    """Past 256 ``lu_pallas`` runs the blocked LU on K9, never K2."""
+    a = make_nonsym_cond(5, 300, 500.0, np.random.default_rng(200))
     before = (cuda_lu.lu_inverse_cuda.launches,
               lu_bign.lu_panel_cuda.launches)
     x = get_inverse_algorithm(lane)(torch.tensor(a, device=cuda))

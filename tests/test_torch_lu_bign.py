@@ -1,7 +1,8 @@
 """The port's blocked LU (K9's plain version and the blocked LU around it) against the
 JAX package's ``ops/lu_bign.py`` in interpret mode, at the shapes of
-``tests/test_lu_bign.py``; ``lu_pallas`` past K2's n = 128 against JAX's
-``inverse_lu``; the panel-width rule and the shared-memory ceiling.
+``tests/test_lu_bign.py``; ``lu_pallas`` past n = 128 (K2's cluster
+instance up to 256, the blocked LU past it) against JAX's ``inverse_lu``;
+the panel-width rule and the shared-memory ceiling.
 
 Inputs are NumPy draws cast to float32 explicitly (the suite runs JAX with
 x64 on).  Tolerances are max-norm relative differences.
@@ -177,12 +178,13 @@ def test_past_the_ceiling_raises():
 
 @pytest.mark.parametrize("n", [160, 300])
 def test_lu_pallas_past_128_matches_jax(n):
-    """``lu_pallas`` past K2 runs the blocked LU; JAX serves 160 with
-    its one-launch kernel and 300 with the XLA LU in interpret mode.  The
-    κ = 500 class (the κ ≈ 4n class sits on the fp32 floor at this n).
-    The port polishes with an fp64 residual and passes the gate; JAX's fp32
-    residual sits on the floor at n = 300 on the CPU (1.1e-4), so only the
-    port is gated there."""
+    """``lu_pallas`` past n = 128: at 160 K2's cluster instance (on the CPU
+    its plain version) and the fp64 polish, at 300 the blocked LU; JAX
+    serves 160 with its one-launch kernel and 300 with the XLA LU in
+    interpret mode.  The κ = 500 class (the κ ≈ 4n class sits on the fp32
+    floor at this n).  The port polishes with an fp64 residual and passes
+    the gate; JAX's fp32 residual sits on the floor at n = 300 on the CPU
+    (1.1e-4), so only the port is gated there."""
     a = fixtures.make_nonsym_cond(2, n, 500.0, np.random.default_rng(n))
     ref = np.asarray(jax_pallas_lu.inverse_lu(jnp.asarray(a), block=1,
                                               interpret=True))
@@ -190,8 +192,12 @@ def test_lu_pallas_past_128_matches_jax(n):
     x = get_inverse_algorithm("lu_pallas")(torch.tensor(a)).numpy()
     assert (cuda_lu.lu_inverse_cuda.launches,
             lu_bign.lu_panel_cuda.launches) == before
-    np.testing.assert_array_equal(
-        x, lu_bign.inverse_lu_big(torch.tensor(a)).numpy())
+    if n <= 256:
+        x0 = cuda_lu.lu_inverse_plain(torch.tensor(a))[0]
+        route = x0 + x0 @ linalg.residual_f64(torch.tensor(a), x0)
+    else:
+        route = lu_bign.inverse_lu_big(torch.tensor(a))
+    np.testing.assert_array_equal(x, route.numpy())
     assert identity_error_inf(a, x) < 1e-4
     assert identity_error_inf(a, ref) < (1e-4 if n <= 256 else 1.2e-4)
     assert _rel(x, ref) <= LU_RTOL
@@ -212,7 +218,8 @@ def test_routes_f64_and_lane():
 
 def test_engine_serves_the_256_bucket():
     """An ``lu_pallas`` engine request at n = 200 pads to the 256 bucket
-    and runs the blocked LU on the CPU."""
+    and runs K2's plain version (its cluster instance's on the card) and
+    the fp64 polish on the CPU."""
     a = fixtures.make_nonsym_cond(3, 200, 500.0, np.random.default_rng(5))
     eng = InversionEngine(algorithm="lu_pallas", device="cpu")
     x = eng.inverse(a)
