@@ -38,7 +38,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    with one member whose input holds a NaN; K2 on its
    thread-block-cluster instance at 100×{136, 160, 192, 224, 256} and
    37×256, its raw ``inv`` and ``ipiv`` equal to the plain version's on
-   every finite member, one singular member alone non-finite;
+   every finite member, one singular member alone non-finite; K4, K5 and
+   K10 (with and without W) on their packed instances at 100×{136, 160,
+   192, 200, 224, 256} and 37×256, K4's L and K10's W equal to the plain
+   versions' on every finite member, one member not positive definite
+   alone non-finite;
 4. main path: every registry lane through ``inverse_batched_device`` on
    ``make_spd_batch(100, 128, default_rng(2026))`` and a 1600×128 batch,
    ``lu_pallas`` and pan500 also on ``make_square_batch(100, 128)``, and
@@ -90,7 +94,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on a ragged list with a 256 bucket, the differentiable ``lu_pallas`` at
    7×192, all through the gate, and ``lu_hiacc`` at 100×256 within its
    fp64 contract; K2's cluster instance must launch in this path and K9
-   must not;
+   must not.  Then the Cholesky band path, with the counters reset: a
+   ``GPEngine(method="pallas")`` request at 100×200 (its 256 bucket)
+   within 1e-4 of the fp64 closed form, ``GPEngine.fit`` at 100×200
+   against the ``torch.linalg`` fit, and ``cholesky`` at 100×256; the
+   packed instances of K4, K5 and K10 (with and without W) must launch in
+   this path and K3 must not;
 5. timing: CUDA events, median of 20 calls after warm-up, for each lane,
    each GP method, and each kernel beside its plain version and the
    library (``torch.linalg.inv``; ``torch.linalg.cholesky``; the GP
@@ -117,7 +126,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    lane or method through its entry point, and the bound; at 100×{160,
    192, 224, 256} and 1600×256 K2 on its cluster instance beside its plain
    version, ``torch.linalg.inv``, the blocked route on K9 that
-   ``lu_pallas`` took there before, the lane and the bound;
+   ``lu_pallas`` took there before, the lane and the bound; at the same
+   shapes K4, K5 and K10 (with and without W) on their packed instances
+   beside their plain versions, the route each replaced
+   (``torch.linalg.cholesky_ex``, the Schur route on K3, the
+   ``torch.linalg`` fit step), the GP ``pallas`` and ``solve`` methods and
+   the bound;
 6. reference harness, with the counters reset: the port's fixture tree
    (``generate_all`` at n ∈ {8, 32, 128}, 100 matrices), the native
    LAPACK oracle's build (optional: its rows register when it loads), the
@@ -264,6 +278,17 @@ K2_BAND_SHAPES = ((100, 136), (100, 160), (100, 192), (100, 224),
 K2_BAND_PATH_N = (160, 192, 224, 256)
 K2_BAND_TIMED = ((100, 160), (100, 192), (100, 224), (100, 256),
                  (1600, 256))
+# The Cholesky kernels' packed instances (K4, K5 and K10 at 129 ≤ n ≤
+# 256, one block a matrix): phase 3's shapes (37 members at 256, one not
+# positive definite; 100×200, the fit's own shape, with a partial last row
+# tile), phase 4's requests (the GP engine's 256 bucket and the fit at n =
+# 200, the factor at 256) and phase 5's shapes (1600 = 100 draws
+# repeated).
+CHOL_BAND_SHAPES = ((100, 136), (100, 160), (100, 192), (100, 200),
+                    (100, 224), (100, 256), (37, 256))
+CHOL_BAND_PATH_N = 200
+CHOL_BAND_TIMED = ((100, 160), (100, 192), (100, 224), (100, 256),
+                   (1600, 256))
 # K10 vs plain: K5's factor and substitution and K3's W; the sums and
 # logarithms differ in order only.
 LML_RTOL = 1e-5
@@ -429,12 +454,14 @@ def _drift(a, delta: float, seed: int, symmetric: bool, torch):
     return (a64 + delta * scale[:, None, None] * noise).float()
 
 
-def _compare(key, kernel, plain, args, bad, rtol, err, torch, atols=()):
+def _compare(key, kernel, plain, args, bad, rtol, err, torch, atols=(),
+             bitwise=()):
     """Kernel against plain on the same inputs: member ``bad`` alone
     non-finite in both, and every output within ``rtol`` (max-norm
     relative, over the finite members) of the plain version's, output i
-    also within ``atols[i]`` absolute where given.  Records the worst abs
-    and rel error under ``err[key]``."""
+    also within ``atols[i]`` absolute where given and equal
+    (``torch.equal``) where i is in ``bitwise``.  Records the worst abs and
+    rel error under ``err[key]``; returns the kernel's outputs."""
     got = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -455,6 +482,10 @@ def _compare(key, kernel, plain, args, bad, rtol, err, torch, atols=()):
         if i < len(atols) and not diff <= atols[i]:
             raise AssertionError(f"{what}: kernel vs plain {diff:.3e} abs > "
                                  f"{atols[i]:g}")
+        if i in bitwise and not torch.equal(x[ok], r[ok]):
+            raise AssertionError(f"{what}: not bitwise the plain version's "
+                                 f"({diff:.3e})")
+    return got
 
 
 def _new_kernels_vs_plain(batch, n, rng, dev, err, torch, k7_only=False):
@@ -807,8 +838,7 @@ def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
         plain_ms = _median_ms(lambda: cuda_gp.gp_fused_ns_plain(*flat), torch)
         lane_ms = _median_ms(lambda: gp.gp_mean_variance(
             *args, method="pallas_ns"), torch)
-        route_ms = _median_ms(lambda: cuda_gp.gp_mean_variance_fused(*args),
-                              torch)
+        route_ms = _median_ms(lambda: cuda_gp.gp_schur_route(*args), torch)
         solve_ms = _median_ms(lambda: gp.gp_mean_variance(
             *args, method="solve"), torch)
         bound = _kernel_bounds(batch, n, cuda_gp.GP_NS_SCHEDULE,
@@ -820,7 +850,7 @@ def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
             "timing": "K6_BAND", "case": case, "kernel_ms": ms,
             "method_pallas_ns_ms": lane_ms, "plain_ms": plain_ms,
             "route_before_ms": route_ms,
-            "route_before": "gp_mean_variance_fused (K5 Schur route)",
+            "route_before": "gp_schur_route (Schur on K3)",
             "solve_method_ms": solve_ms, "bound_ms": bound[0],
             "bound_by": bound[1], **card}), flush=True)
 
@@ -948,6 +978,225 @@ def _time_k2_band(dev, bounds_at, timing, library, card, torch):
             "route_before": "lu_bign.inverse_lu_big (blocked LU on K9)",
             "torch_linalg_inv_ms": inv_ms, "bound_ms": bound[0],
             "bound_by": bound[1], **card}), flush=True)
+
+
+def _chol_band_vs_plain(dev, err, torch):
+    """Phase 3 for K4, K5 and K10 (with and without W) past 128, on the
+    packed lower triangle, at CHOL_BAND_SHAPES: K4's L and K10's W equal
+    (``torch.equal``) to the plain versions' on every finite member, K5
+    within K5_ATOL and CHOL_RTOL of its plain version and GP_ATOL of the
+    fp64 closed form, K10's quad, logdet and α within LML_RTOL; at batch 37
+    member 18 is negated, alone non-finite; one packed launch a call.
+    Errors under ``k4_band``, ``k5_band``, ``k10_band`` and
+    ``k10_band_emit_w``."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_build,
+        cuda_cholesky,
+        cuda_gp,
+        cuda_gp_lml,
+    )
+
+    lml = cuda_gp_lml.lml_quad_logdet_cuda
+    for batch, n in CHOL_BAND_SHAPES:
+        rng = np.random.default_rng(9300 + batch + n)
+        bad = batch // 2 if batch == 37 else None
+        spd = torch.tensor(make_spd_batch(batch, n, rng), dtype=torch.float32,
+                           device=dev)
+        g = make_gp_batch(batch, n, rng)
+        t = {k: torch.tensor(g[k], dtype=torch.float32, device=dev)
+             for k in "abcde"}
+        if bad is not None:
+            spd[bad] = -spd[bad]
+            t["b"][bad] = -t["b"][bad]
+        flat = cuda_gp._flat(*(t[k] for k in "abcde"),
+                             max_n=cuda_build.CHOL_MAX_N)
+        b, c, d = flat[1], flat[2], flat[3]
+        what = f"{batch}x{n}"
+        before = (cuda_cholesky.cholesky_cuda.band_launches,
+                  cuda_gp.gp_fused_cuda.band_launches, lml.band_launches,
+                  lml.band_emit_w_launches)
+        for key, kernel, plain, args, rtol, atols, bitwise in (
+                ("k4_band", cuda_cholesky.cholesky_cuda,
+                 cuda_cholesky.cholesky_plain, (spd,), CHOL_RTOL, (), (0,)),
+                ("k5_band", cuda_gp.gp_fused_cuda, cuda_gp.gp_fused_plain,
+                 flat, CHOL_RTOL, (K5_ATOL,), ()),
+                ("k10_band", lml, cuda_gp_lml.lml_quad_logdet_plain,
+                 (b, c, d), LML_RTOL, (), ()),
+                ("k10_band_emit_w", lambda *x: lml(*x, True),
+                 lambda *x: cuda_gp_lml.lml_quad_logdet_plain(*x, True),
+                 (b, c, d), LML_RTOL, (), (2,))):
+            got = _compare(key, kernel, plain, args, bad, rtol, err, torch,
+                           atols, bitwise)
+            if key == "k5_band":
+                out = got[0]
+        if (cuda_cholesky.cholesky_cuda.band_launches,
+                cuda_gp.gp_fused_cuda.band_launches, lml.band_launches,
+                lml.band_emit_w_launches) != tuple(x + 1 for x in before):
+            raise AssertionError(f"Cholesky band {what}: not one packed "
+                                 f"launch a call")
+        ok = _confined(out, bad, f"K5_BAND {what}", torch).cpu().numpy()
+        ref64 = np.stack([g["means"][:, 0, 0], g["variances"][:, 0, 0]], -1)
+        off = float(np.abs(out.cpu().numpy()[ok] - ref64[ok]).max())
+        if not off < GP_ATOL:
+            raise AssertionError(f"K5_BAND {what}: {off:.3e} off the fp64 "
+                                 f"closed form")
+
+
+def _chol_band_path(dev, torch):
+    """Phase 4's Cholesky band path through the entry points a user calls,
+    NumPy in and out: a ``GPEngine(method="pallas")`` request at
+    100×CHOL_BAND_PATH_N (its 256 bucket: K5's packed instance) within
+    GP_ATOL of the fp64 closed form; ``GPEngine.fit`` at
+    100×CHOL_BAND_PATH_N, 60 steps (K10's packed instances, with W in the
+    steps and without for the last LML) against the ``torch.linalg`` fit at
+    the CPU test's bounds; ``cuda_cholesky.cholesky`` at 100×256 against
+    the fp64 factor.  Returns one line per check."""
+    from cuda_matrix_inversion_tpu_torch import GPEngine
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.ops import cuda_cholesky
+
+    n = CHOL_BAND_PATH_N
+    lines = []
+    g = make_gp_batch(100, n, np.random.default_rng(9400))
+    args = [g[k].astype(np.float32) for k in "abcde"]
+    eng = GPEngine(method="pallas", device=dev)
+    mean, var = eng.mean_variance(*args)
+    ref = _gp_ref64(dict(zip("abcde", args)))
+    errs = [float(np.abs(mean[:, 0, 0] - ref[0]).max()),
+            float(np.abs(var[:, 0, 0] - ref[1]).max())]
+    lines.append({"phase": "chol_band_path", "check": f"GPEngine pallas "
+                  f"mean_variance gp_100x{n}", "buckets":
+                  [list(s) for s in eng.compiled_shapes],
+                  "mean_abs_err": errs[0], "var_abs_err": errs[1]})
+    if not max(errs) < GP_ATOL:
+        raise AssertionError(f"GPEngine pallas 100x{n}: off the fp64 closed "
+                             f"form {errs}")
+    data = _fit_data(100, n, 9401)
+    res = {m: GPEngine(fit_method=m, device=dev).fit(*data, steps=60)
+           for m in ("pallas", "xla")}
+    k10, lib = res["pallas"], res["xla"]
+    diffs = {"lml": float(np.abs(k10.lml - lib.lml).max()),
+             "theta": float(max(np.abs(k10.log_amp - lib.log_amp).max(),
+                                np.abs(k10.log_noise - lib.log_noise).max()))}
+    lines.append({"phase": "chol_band_path", "check": f"GPEngine.fit pallas "
+                  f"vs xla 100x{n} 60 steps", **diffs})
+    if not (np.allclose(k10.lml, lib.lml, rtol=FIT_RTOL, atol=FIT_ATOL)
+            and diffs["theta"] <= FIT_THETA_ATOL):
+        raise AssertionError(f"fit pallas vs xla 100x{n}: {diffs}")
+    a = make_spd_batch(100, 256, np.random.default_rng(9402)).astype(
+        np.float32)
+    l = cuda_cholesky.cholesky(torch.tensor(a, device=dev)).cpu().numpy()
+    l_ref = np.linalg.cholesky(a.astype(np.float64))
+    rel = float(np.abs(l - l_ref).max() / np.abs(l_ref).max())
+    lines.append({"phase": "chol_band_path", "check": "cholesky spd_100x256",
+                  "rel_vs_fp64": rel})
+    if not (np.isfinite(l).all() and rel < GATE):
+        raise AssertionError(f"cholesky 100x256: {rel:.3e} off the fp64 "
+                             f"factor")
+    return lines
+
+
+def _time_chol_band(dev, bounds_at, timing, library, card, torch):
+    """Phase 5 for the packed instances at CHOL_BAND_TIMED: K4 beside its
+    plain version and ``torch.linalg.cholesky_ex`` (the route it replaced
+    and its library call); K5 beside its plain version, the GP ``pallas``
+    method, the route it replaced (``cuda_gp.gp_schur_route``: Schur on K3)
+    and the GP ``solve`` method (its library call); K10 with and without W
+    (the fit's draw) beside their plain versions, and one fit step of each
+    method (the ``xla`` step is the route the ``pallas`` step took here);
+    each with its bound."""
+    from cuda_matrix_inversion_tpu_torch.io.fixtures import (
+        make_gp_batch,
+        make_spd_batch,
+    )
+    from cuda_matrix_inversion_tpu_torch.models import gp, gp_fit
+    from cuda_matrix_inversion_tpu_torch.ops import (
+        cuda_build,
+        cuda_cholesky,
+        cuda_gp,
+        cuda_gp_lml,
+    )
+
+    def show(what, case, **ms):
+        print(json.dumps({"timing": what, "case": case, **ms, **card}),
+              flush=True)
+
+    def keep(key, case, ms, plain_ms, lib_ms, bound):
+        timing[(key, case)] = (ms, plain_ms)
+        library[(key, case)] = lib_ms
+        timing[(key + "_bound", case)] = bound
+        return {"bound_ms": bound[0], "bound_by": bound[1]}
+
+    for batch, n in CHOL_BAND_TIMED:
+        case = f"{batch}x{n}"
+        rng = np.random.default_rng(9500 + n)
+        reps = batch // 100
+
+        def tile(x):
+            return torch.tensor(x, dtype=torch.float32, device=dev).repeat(
+                reps, *([1] * (x.ndim - 1))).contiguous()
+
+        bounds = bounds_at(batch, n)
+        a = tile(make_spd_batch(100, n, rng))
+        ms = _median_ms(lambda: cuda_cholesky.cholesky_cuda(a), torch)
+        plain_ms = _median_ms(lambda: cuda_cholesky.cholesky_plain(a), torch,
+                              calls=5, warmup=1)
+        lib_ms = _median_ms(lambda: torch.linalg.cholesky_ex(a), torch)
+        show("K4_BAND", case, kernel_ms=ms, plain_ms=plain_ms,
+             route_before="torch.linalg.cholesky_ex",
+             route_before_ms=lib_ms, cholesky_ex_ms=lib_ms,
+             **keep("k4_band", case, ms, plain_ms, lib_ms, bounds["k4"]))
+
+        g = make_gp_batch(100, n, rng)
+        args = [tile(g[k]) for k in "abcde"]
+        flat = cuda_gp._flat(*args, max_n=cuda_build.CHOL_MAX_N)
+        ms = _median_ms(lambda: cuda_gp.gp_fused_cuda(*flat), torch)
+        plain_ms = _median_ms(lambda: cuda_gp.gp_fused_plain(*flat), torch,
+                              calls=5, warmup=1)
+        method_ms = _median_ms(lambda: gp.gp_mean_variance(
+            *args, method="pallas"), torch)
+        route_ms = _median_ms(lambda: cuda_gp.gp_schur_route(*args), torch)
+        solve_ms = _median_ms(lambda: gp.gp_mean_variance(
+            *args, method="solve"), torch)
+        show("K5_BAND", case, kernel_ms=ms, plain_ms=plain_ms,
+             method_pallas_ms=method_ms, route_before_ms=route_ms,
+             route_before="gp_schur_route (Schur on K3)",
+             solve_method_ms=solve_ms,
+             **keep("k5_band", case, ms, plain_ms, solve_ms, bounds["k5"]))
+
+        b, c, d = (tile(x) for x in _fit_data(100, n, 9600 + n))
+        c2, d2 = c[..., 0].contiguous(), d[..., 0].contiguous()
+        for key, emit_w, bkey in (("k10_band", False, "k10_no_w"),
+                                  ("k10_band_emit_w", True, "k10")):
+            ms = _median_ms(lambda: cuda_gp_lml.lml_quad_logdet_cuda(
+                b, c2, d2, emit_w), torch)
+            plain_ms = _median_ms(lambda: cuda_gp_lml.lml_quad_logdet_plain(
+                b, c2, d2, emit_w), torch, calls=5, warmup=1)
+            show(key.upper(), f"fit_{case}", kernel_ms=ms, plain_ms=plain_ms,
+                 **keep(key, case, ms, plain_ms, None, bounds[bkey]))
+        step_ms = {}
+        for method in ("pallas", "xla"):
+            theta = torch.zeros((batch, 2), device=dev, requires_grad=True)
+            opt = torch.optim.Adam([theta], lr=0.05)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                loss = -gp_fit._batch_lml(theta, b, c, d,
+                                          method=method).mean()
+                loss.backward()
+                opt.step()
+
+            step_ms[method] = _median_ms(step, torch)
+        show("fit_step", f"fit_{case}", pallas_ms=step_ms["pallas"],
+             xla_ms=step_ms["xla"],
+             route_before="the xla step (torch.linalg LML, autograd)")
 
 
 def _fit_data(batch, n, seed):
@@ -1089,8 +1338,11 @@ def _bound(fp32_flops: float, bf16_flops: float, nbytes: float):
 
 def _kernel_bounds(batch: int, n: int, sched_spd10, sched_spd):
     """The bound of each kernel at (batch, n) fp32, counting each input
-    read once and each output written once."""
+    read once and each output written once.  The Cholesky kernels (K3, K4,
+    K5, K10) need only the lower triangle of their symmetric input, so
+    they count n (n + 1) / 2 elements of it read."""
     mat, vec = 4.0 * n * n, 4.0 * n
+    tri = 4.0 * n * (n + 1) / 2  # the lower triangle
     cube = 2.0 * n ** 3  # one n×n product
 
     def ns(sched):
@@ -1106,14 +1358,15 @@ def _kernel_bounds(batch: int, n: int, sched_spd10, sched_spd):
     per = {
         "k1": (f1 * cube, b1 * cube, 2 * mat),
         "k2": (cube, 0.0, 2 * mat + vec),
-        "k3": (n ** 3, 0.0, 2 * mat),
-        "k4": (n ** 3 / 3, 0.0, 2 * mat),
-        "k5": (n ** 3 / 3 + 4 * n * n, 0.0, mat + 3 * vec + 12),
+        "k3": (n ** 3, 0.0, tri + mat),
+        "k4": (n ** 3 / 3, 0.0, tri + mat),
+        "k5": (n ** 3 / 3 + 4 * n * n, 0.0, tri + 3 * vec + 12),
         "k6": (f6 * cube + 4 * n * n, b6 * cube, mat + 3 * vec + 12),
         "k7": (cube, 0.0, 2 * mat),
         "k8": (f8 * cube, b8 * cube, 3 * mat),
         "k8_split3": (f8s * cube, b8s * cube, 3 * mat),
-        "k10": (2 * n ** 3 / 3 + 4 * n * n, 0.0, 2 * mat + 3 * vec + 8),
+        "k10": (2 * n ** 3 / 3 + 4 * n * n, 0.0, tri + mat + 3 * vec + 8),
+        "k10_no_w": (n ** 3 / 3 + 2 * n * n, 0.0, tri + 2 * vec + 8),
         "k11": (f8 * cube + 4 * n * n, b8 * cube, 3 * mat + 3 * vec + 12),
     }
     return {k: _bound(batch * f, batch * b, batch * m)
@@ -1415,7 +1668,7 @@ def _time_band(dev, bounds_at, timing, library, card, torch):
         plain_ms = _median_ms(lambda: cuda_gp.gp_fused_warm_plain(*flat, x0),
                               torch)
         route_ms = _median_ms(lambda: (
-            cuda_gp.gp_mean_variance_fused(ga, gb2, gc, gd, ge),
+            cuda_gp.gp_schur_route(ga, gb2, gc, gd, ge),
             newton_schulz.inverse_newton_schulz(k2)), torch)
         inv_ms = _median_ms(lambda: torch.linalg.inv(k2), torch)
         solve_ms = _median_ms(lambda: gp.gp_mean_variance(
@@ -1428,7 +1681,7 @@ def _time_band(dev, bounds_at, timing, library, card, torch):
             "timing": "K11_BAND", "case": case, "kernel_ms": ms,
             "before_ms": BAND_BEFORE_MS["k11_band"][case],
             "plain_ms": plain_ms, "route_before_ms": route_ms,
-            "route_before": "gp_mean_variance_fused (K5 Schur route) + "
+            "route_before": "gp_schur_route (Schur on K3) + "
                             "inverse_newton_schulz (cold) for K^-1",
             "torch_linalg_inv_ms": inv_ms, "solve_method_ms": solve_ms,
             "bound_ms": bound[0], "bound_by": bound[1], **card}), flush=True)
@@ -2259,6 +2512,8 @@ def main() -> int:
     t_part = mark("phase 3 cold band", t_part)
     _k2_band_vs_plain(dev, new_err, torch)
     t_part = mark("phase 3 K2 band", t_part)
+    _chol_band_vs_plain(dev, new_err, torch)
+    t_part = mark("phase 3 Cholesky band", t_part)
     print(json.dumps({"phase": "kernels_vs_plain", "shapes": len(shapes),
                       "k1": k1_err, "k2": k2_err, **gp_err, **new_err}),
           flush=True)
@@ -2313,13 +2568,20 @@ def main() -> int:
                 "k10": (cuda_gp_lml.lml_quad_logdet_cuda, "launches"),
                 "k11": (cuda_gp.gp_fused_warm_cuda, "launches"),
                 "k11_band": (cuda_gp.gp_fused_warm_cuda, "band_launches"),
-                "k9": (lu_bign.lu_panel_cuda, "launches")}
+                "k9": (lu_bign.lu_panel_cuda, "launches"),
+                "k4_band": (cuda_cholesky.cholesky_cuda, "band_launches"),
+                "k5_band": (cuda_gp.gp_fused_cuda, "band_launches"),
+                "k10_band": (cuda_gp_lml.lml_quad_logdet_cuda,
+                             "band_launches"),
+                "k10_band_emit_w": (cuda_gp_lml.lml_quad_logdet_cuda,
+                                    "band_emit_w_launches")}
     inversion_path = ("k1", "k2", "k3", "k4", "k5", "k6")
     engine_path = ("k7", "k8", "k10", "k11")
     big_n_path = ("k2", "k9")
     warm_band_path = ("k8_band", "k11_band")
     cold_band_path = ("k1_band", "k6_band")
     k2_band_path = ("k2_band",)
+    chol_band_path = ("k4_band", "k5_band", "k10_band", "k10_band_emit_w")
     harness_path = ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "k10")
 
     def reset_counts():
@@ -2490,9 +2752,27 @@ def main() -> int:
                              f"{k2_band_launches}")
     if k2_band_launches["k9"]:
         raise AssertionError(f"K2 band path launched K9: {k2_band_launches}")
+    # the Cholesky band path (K4, K5, K10 at 129 ≤ n ≤ 256 on their packed
+    # instances), counted on its own: K3 (and so the Schur route) must not
+    # launch
+    reset_counts()
+    chol_band_lines = _chol_band_path(dev, torch)
+    t_part = mark("phase 4 Cholesky band path", t_part)
+    torch.cuda.synchronize()
+    chol_band_launches = read_counts()
+    for line in chol_band_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "chol_band_path",
+                      "launches": chol_band_launches}), flush=True)
+    if not all(chol_band_launches[k] for k in chol_band_path):
+        raise AssertionError(f"Cholesky band path did not launch every "
+                             f"kernel: {chol_band_launches}")
+    if chol_band_launches["k3"]:
+        raise AssertionError(f"Cholesky band path launched K3 (the Schur "
+                             f"route): {chol_band_launches}")
     launches = {k: launches[k] + engine_launches[k] + big_launches[k]
                 + band_launches[k] + cold_launches[k] + k2_band_launches[k]
-                for k in counters}
+                + chol_band_launches[k] for k in counters}
 
     # ---- 5. timing ----
     name, limit = [s.strip() for s in smi.split(",", 1)]
@@ -2615,6 +2895,9 @@ def main() -> int:
     _time_k2_band(dev, lambda batch, n: _kernel_bounds(batch, n, *scheds),
                   timing, library, card, torch)
     t_part = mark("phase 5 K2 band", t_part)
+    _time_chol_band(dev, lambda batch, n: _kernel_bounds(batch, n, *scheds),
+                    timing, library, card, torch)
+    t_part = mark("phase 5 Cholesky band", t_part)
 
     # ---- 6. the reference's harness, counted on its own ----
     reset_counts()
@@ -2647,7 +2930,7 @@ def main() -> int:
             "k10_emit_w" if key == "k10" else key]
         ms, plain_ms = timing[ms_key]
         bound_ms, bound_by = (timing[(key + "_bound", ms_key[1])]
-                              if key.endswith("_band") else bounds[key])
+                              if "_band" in key else bounds[key])
         return {"name": title, "route": "cuda",
                 "source": f"cuda_matrix_inversion_tpu_torch/csrc/{source}",
                 "replaces": f"cuda_matrix_inversion_tpu/ops/{replaces}",
@@ -2702,6 +2985,20 @@ def main() -> int:
                    "getrf + inverse, general class 100x256, 8 CTAs a "
                    "matrix)", "lu_band.cu", "pallas_lu.py:453",
                    ("k2_band", "100x256")),
+        entry_line("k4_band", "K4 cholesky factor on the packed lower "
+                   "triangle (100x256, one block a matrix)", "cholesky.cu",
+                   "pallas_cholesky.py:507", ("k4_band", "100x256")),
+        entry_line("k5_band", "K5 fused GP mean/variance, Cholesky on the "
+                   "packed lower triangle (100x256)", "gp.cu",
+                   "pallas_gp.py:171", ("k5_band", "100x256")),
+        entry_line("k10_band", "K10 fused GP log marginal likelihood on the "
+                   "packed lower triangle (without W, the fit's last LML, "
+                   "100x256)", "gp.cu", "pallas_gp.py:304",
+                   ("k10_band", "100x256")),
+        entry_line("k10_band_emit_w", "K10 fused GP log marginal likelihood "
+                   "on the packed lower triangle (emit_w: W = L^-1 in place, "
+                   "the fit's forward, 100x256)", "gp.cu", "pallas_gp.py:304",
+                   ("k10_band_emit_w", "100x256")),
     ]
     k9_ms, k9_plain_ms = timing[("k9", "nonsym500_100x512")]
     k9_bound_ms, k9_bound_by = timing[("k9_bound", "nonsym500_100x512")]

@@ -121,14 +121,14 @@ __device__ __forceinline__ void chol_stamp() {
 STAMPS = [
     ('#include "cholesky_common.cuh"\n', _STAMP_DEFS, 1),
     ("  const int tid = threadIdx.x;\n  load_matrix(a, L, n, ld);\n"
-     "  __syncthreads();\n  chol_factor(L, n, ld);\n"
+     "  __syncthreads();\n  chol_factor(L, n, CholSquare{ld});\n"
      "  chol_tri_inverse(L, W, n, ld);  // W = L^-1 by row panels\n"
      "  __syncthreads();\n",
      "  const int tid = threadIdx.x;\n"
      "  if (blockIdx.x == 0 && tid == 0) chol_next = 0;\n  chol_stamp();\n"
      "  load_matrix(a, L, n, ld);\n  __syncthreads();\n  chol_stamp();\n"
      "  chol_step(-1);\n"
-     "  chol_factor(L, n, ld);\n  chol_stamp();\n"
+     "  chol_factor(L, n, CholSquare{ld});\n  chol_stamp();\n"
      "  chol_tri_inverse(L, W, n, ld);\n  __syncthreads();\n"
      "  chol_stamp();\n", 1),
     ("      for (int c = 0; c < M; ++c) acc[r][c] = fmaf(p[r], q[c], "
@@ -175,15 +175,15 @@ __device__ __forceinline__ void chol_step(int s) {
 STEPS = [
     ("// A trailing-update tile: 64 rows",
      _STEP_DEFS + "// A trailing-update tile: 64 rows", 1),
-    ("n <= NB, ld);\n  __syncthreads();\n",
-     "n <= NB, ld);\n  __syncthreads();\n  chol_step(0);\n", 1),
+    ("n <= NB, lay);\n  __syncthreads();\n",
+     "n <= NB, lay);\n  __syncthreads();\n  chol_step(0);\n", 1),
     ("a[h + 3]);\n    }\n    __syncthreads();\n",
      "a[h + 3]);\n    }\n    __syncthreads();\n    chol_step(1);\n", 1),
-    ("      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, ld);\n",
-     "      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, ld);\n"
+    ("      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, lay);\n",
+     "      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, lay);\n"
      "      chol_step(2);\n", 1),
-    ("k0, n, ld);\n      }\n    }\n    __syncthreads();\n",
-     "k0, n, ld);\n      }\n    }\n    __syncthreads();\n"
+    ("        t -= cols;\n      }\n    }\n    __syncthreads();\n",
+     "        t -= cols;\n      }\n    }\n    __syncthreads();\n"
      "    chol_step(3);\n", 1),
     ("        prev[r] = w[r];\n      }\n    }\n",
      "        prev[r] = w[r];\n      }\n    }\n    chol_step(4);\n", 1),

@@ -584,10 +584,11 @@ def routes(dev, card: str) -> None:
         at = tile(spd)
         row["torch_linalg_inv_ms"] = median_ms(lambda: torch.linalg.inv(at))
         t = [tile(g[k]) for k in "abcde"]
-        mean, var = cuda_gp.gp_mean_variance_fused(*t)
+        mean, var = cuda_gp.gp_schur_route(*t)
         row["pallas_ns"] = {
-            "ms": median_ms(lambda: cuda_gp.gp_mean_variance_fused(*t)),
-            "route": "gp_mean_variance_fused (K5 Schur route)",
+            "ms": median_ms(lambda: cuda_gp.gp_schur_route(*t)),
+            "route": "gp_schur_route (K5's route here before its packed "
+                     "instance: Schur on K3)",
             "abs_err": max(float(np.abs(mean[:100].cpu().numpy()
                                         - g["means"]).max()),
                            float(np.abs(var[:100].cpu().numpy()

@@ -6,7 +6,10 @@
 //   _blocked_chol_inverse_kernel / _chol_inverse_kernel (pallas_call in
 //   inverse_cholesky)                                                    K3
 // K4 factors A = L L^T (cholesky_common.cuh) and writes L with zeros above
-// the diagonal.  K3 factors in place, forms W = L^-1 by forward
+// the diagonal, for 1 <= n <= 256 as the JAX kernel does: up to 128 on the
+// square layout, past it on the packed lower triangle
+// (chol_factor_band_kernel, one block a matrix at 256).  K3 factors in
+// place, forms W = L^-1 by forward
 // substitution into a second shared buffer, and writes A^-1 = W^T W, all in
 // fp32 (the TPU kernel's products are Precision.HIGHEST).  Both triangles
 // of A^-1 are written; the product is computed so that entry (i, j) and
@@ -22,17 +25,20 @@
 // cores.
 // What the design does about it: the matrix and W stay in shared memory for
 // the whole chain (2 n ld fp32 with ld = chol_ld(n) = 132 at n = 128: 135
-// KB, so one block per SM; K4 needs half and fits three), rows on 16 bytes
-// so every hot read is a float4 free of bank conflicts, and the matrix is
-// loaded with several float4 reads in flight a thread.  The factor and W go
-// by panels (cholesky_common.cuh): the chains run on one warp (the factor's
-// diagonal blocks) or one thread a column (W's panel rows) while the other
-// warps apply the previous panel from register tiles, so the barriers fall
-// to two a panel for the factor and one for W.  Each of the 256 threads
-// keeps an M x M register tile of W^T W, so one shared-memory load feeds M
-// FMAs.  None of the TPU kernel's workarounds (transposed factor, one-hot
-// lane selects) is needed.  W^T W on tensor cores in an fp32-exact form,
-// and more than one matrix per block, are later work.
+// KB, so one block per SM; K4 needs half and fits three; K4's packed
+// instance takes 55, 78, 105 and 136 KB at n = 160, 192, 224 and 256, and
+// two, two, two and one blocks an SM: its 128 registers a thread allow
+// two), rows on 16 bytes so every hot read is a float4 free of bank
+// conflicts, and the matrix is loaded with several float4 reads in flight
+// a thread.  The factor and W go by panels (cholesky_common.cuh): the
+// chains run on one warp (the factor's diagonal blocks) or one thread a
+// column (W's panel rows) while the other warps apply the previous panel
+// from register tiles, so the barriers fall to two a panel for the factor
+// and one for W.  Each of the 256 threads keeps an M x M register tile of
+// W^T W, so one shared-memory load feeds M FMAs.  None of the TPU kernel's
+// workarounds (transposed factor, one-hot lane selects) is needed.  W^T W
+// on tensor cores in an fp32-exact form, and more than one matrix per
+// block, are later work.
 
 #include <cuda_runtime.h>
 
@@ -41,11 +47,12 @@
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 thread grid over the W^T W output
-constexpr int kMaxN = 128;
+constexpr int kMaxN = 128;      // K3, and K4's square instance
+constexpr int kBandMaxN = 256;  // K4's packed instance, the JAX kernel's
 
 __device__ __forceinline__ void load_matrix(const float* __restrict__ a,
                                             float* K, int n, int ld) {
-  chol_load(a + static_cast<size_t>(blockIdx.x) * n * n, K, n, ld,
+  chol_load(a + static_cast<size_t>(blockIdx.x) * n * n, K, n, CholSquare{ld},
             [](int, int, float v) { return v; });
 }
 
@@ -58,11 +65,31 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int ld = chol_ld(n);
   load_matrix(a, smem, n, ld);
   __syncthreads();
-  chol_factor(smem, n, ld);
+  chol_factor(smem, n, CholSquare{ld});
   const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n, j = e % n;
     l[base + e] = j <= i ? smem[i * ld + j] : 0.f;
+  }
+}
+
+// K4 past n = 128 (129 <= n <= 256): the factor on the packed lower
+// triangle (cholesky_common.cuh::CholPacked, 136 KB at n = 256), the same
+// schedule and bits.  At most 128 registers a thread, so two blocks share
+// an SM where their shared memory fits (n <= 224).
+__global__ void __launch_bounds__(kThreads, 2)
+    chol_factor_band_kernel(const float* __restrict__ a,
+                            float* __restrict__ l, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const CholPacked lay;
+  chol_load(a + static_cast<size_t>(blockIdx.x) * n * n, smem, n, lay,
+            [](int, int, float v) { return v; });
+  __syncthreads();
+  chol_factor(smem, n, lay);
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int i = e / n, j = e % n;
+    l[base + e] = j <= i ? smem[lay.row(i) + j] : 0.f;
   }
 }
 
@@ -77,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   load_matrix(a, L, n, ld);
   __syncthreads();
-  chol_factor(L, n, ld);
+  chol_factor(L, n, CholSquare{ld});
   chol_tri_inverse(L, W, n, ld);  // W = L^-1 by row panels
   __syncthreads();
 
@@ -131,18 +158,24 @@ cudaError_t launch(Kernel kernel, const float* a, float* out, int batch,
 
 }  // namespace
 
-// a, l: (batch, n, n) fp32, contiguous, on `device`.  Returns the CUDA error
-// of the launch.
+// a, l: (batch, n, n) fp32, contiguous, on `device`; 1 <= n <= 256, one
+// block a matrix (the square layout up to 128, the packed one past it).
+// Returns the CUDA error of the launch.
 extern "C" int cmi_chol_factor(const float* a, float* l, int batch, int n,
                                int device, void* stream) {
-  if (n < 1 || n > kMaxN || batch < 0)
+  if (n < 1 || n > kBandMaxN || batch < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN)
+    return static_cast<int>(launch(
+        chol_factor_band_kernel, a, l, batch, n,
+        static_cast<size_t>(chol_packed_floats(n)) * sizeof(float), s));
   const size_t smem = static_cast<size_t>(n) * chol_ld(n) * sizeof(float);
   return static_cast<int>(launch(chol_factor_kernel, a, l, batch, n, smem,
-                                 static_cast<cudaStream_t>(stream)));
+                                 s));
 }
 
 // a, inv: (batch, n, n) fp32, contiguous, on `device`.  Returns the CUDA

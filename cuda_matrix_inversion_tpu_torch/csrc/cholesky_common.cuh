@@ -1,6 +1,9 @@
 // Device code shared by K3, K4 (cholesky.cu) and K5, K10 (gp.cu): one
 // panel-blocked Cholesky factorization of a matrix held in shared memory,
 // and the inverse W = L^-1 of the factor (K3 and K10's emit_w variant).
+// The matrix is held square (CholSquare, n <= 128) or, past 128 up to 256,
+// as its packed lower triangle (CholPacked: the square would not fit one
+// block), where K10's W replaces L in place (chol_tri_inverse_in_place).
 //
 // Arithmetic, per element, in this order (the JAX kernel's
 // _cholesky_factor_body and the plain versions in ops/cuda_cholesky.py):
@@ -59,6 +62,52 @@ __host__ __device__ __forceinline__ int chol_ld(int n) {
   return (n + 7) / 8 * 8 + 4;
 }
 
+// Where row i of the matrix starts in shared memory, in floats.  The
+// functions below take the layout as a template argument.
+//
+// CholSquare: n rows of stride ld = chol_ld(n), the n <= 128 instances.
+struct CholSquare {
+  int ld;
+  static constexpr bool kPacked = false;
+  static constexpr int kRowTiles = 2;  // 64-row tiles at n <= 128
+  __host__ __device__ __forceinline__ int row(int i) const { return i * ld; }
+};
+
+// CholPacked: the lower triangle only, the band instances (129 <= n <=
+// 256), whose n x chol_ld(n) square would not fit one block's shared
+// memory past n ~ 232.  Rows go in groups of 8: group g (rows 8g .. 8g+7,
+// at most 8g + 8 elements a row) has the odd stride of 2g + 3 float4s
+// (8g + 12 floats), so
+//   row(8g + r) = 32 g (g + 2) + 4 r (2g + 3).
+// Every row starts on 16 bytes, and the 8 rows of a group start in 8
+// distinct groups of 4 banks (r (2g + 3) mod 8 is distinct for r < 8): 8
+// lanes reading float4s at one column of 8 rows of a group never conflict,
+// the property chol_ld gives the square layout.  The hot loops' rows start
+// at multiples of 8 (panels, tiles and strips begin at k0 + 8).  A row
+// holds its elements j <= i; a float4 may run past the diagonal into the
+// row's padding (j <= i implies j + 3 < 8g + 12), never into the next row.
+// A read of columns past a row's padding (a tile's columns above its first
+// rows) lands in later rows or their padding and is never stored.
+struct CholPacked {
+  static constexpr bool kPacked = true;
+  static constexpr int kRowTiles = 4;  // 64-row tiles at n <= 256
+  __host__ __device__ __forceinline__ int row(int i) const {
+    const int g = i >> 3, r = i & 7;
+    return 32 * g * (g + 2) + 4 * r * (2 * g + 3);
+  }
+  // row(i + 1) - row(i) within i's group of 8
+  __host__ __device__ __forceinline__ int stride(int i) const {
+    return 8 * (i >> 3) + 12;
+  }
+};
+
+// Floats of the packed lower triangle of an n x n matrix (34,816 at n =
+// 256: 136 KB).
+__host__ __device__ __forceinline__ int chol_packed_floats(int n) {
+  const int g = (n + 7) / 8;
+  return 32 * g * (g + 2);
+}
+
 __device__ __forceinline__ void chol_st4(float* p, float x, float y, float z,
                                          float w) {
   *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
@@ -81,36 +130,39 @@ __device__ __forceinline__ void chol_get4(float* v, const float* p) {
 // strip) and Y[k][j] otherwise (W).  Every load is a float4: C's and X's
 // rows along the lanes, Y's by broadcast.  Row indices past n are clamped
 // to n - 1, so they compute garbage that is not stored.
-template <int NB, int A, bool YT, typename Keep>
+template <int NB, int A, bool YT, typename Keep, typename Lay>
 __device__ __forceinline__ void chol_tile(float* C, const float* X,
                                           const float* Y, Keep keep, int i0,
-                                          int j0, int k0, int n, int ld) {
+                                          int j0, int k0, int n, Lay lay) {
   const int lane = threadIdx.x & 31;
   int ri[A];
   float acc[A][kTileCols];
 #pragma unroll
   for (int a = 0; a < A; ++a) {
     ri[a] = min(i0 + lane + 32 * a, n - 1);
+    // a packed row above the tile's columns (all garbage, none stored)
+    // reads its own first columns instead of other rows' elements
+    const int jc = Lay::kPacked && ri[a] < j0 ? 0 : j0;
 #pragma unroll
     for (int h = 0; h < kTileCols; h += 4)
-      chol_get4(&acc[a][h], C + ri[a] * ld + j0 + h);
+      chol_get4(&acc[a][h], C + lay.row(ri[a]) + jc + h);
   }
 #pragma unroll
   for (int kh = 0; kh < NB; kh += 4) {
     float xv[A][4], yv[kTileCols][4];  // yv[c][q] = Y(k0 + kh + q, j0 + c)
 #pragma unroll
-    for (int a = 0; a < A; ++a) chol_get4(xv[a], X + ri[a] * ld + k0 + kh);
+    for (int a = 0; a < A; ++a) chol_get4(xv[a], X + lay.row(ri[a]) + k0 + kh);
     if (YT) {
 #pragma unroll
       for (int c = 0; c < kTileCols; ++c)
-        chol_get4(yv[c], Y + min(j0 + c, n - 1) * ld + k0 + kh);
+        chol_get4(yv[c], Y + lay.row(min(j0 + c, n - 1)) + k0 + kh);
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
         for (int h = 0; h < kTileCols; h += 4) {
           float t[4];
-          chol_get4(t, Y + (k0 + kh + q) * ld + j0 + h);
+          chol_get4(t, Y + lay.row(k0 + kh + q) + j0 + h);
 #pragma unroll
           for (int u = 0; u < 4; ++u) yv[h + u][q] = t[u];
         }
@@ -128,7 +180,7 @@ __device__ __forceinline__ void chol_tile(float* C, const float* X,
     const int i = i0 + lane + 32 * a;
 #pragma unroll
     for (int h = 0; h < kTileCols; h += 4) {
-      float* d = C + ri[a] * ld + j0 + h;
+      float* d = C + lay.row(ri[a]) + j0 + h;
       if (keep(i, j0 + h + 3)) {
         chol_st4(d, acc[a][h], acc[a][h + 1], acc[a][h + 2], acc[a][h + 3]);
       } else {
@@ -142,27 +194,29 @@ __device__ __forceinline__ void chol_tile(float* C, const float* X,
 
 // chol_tile with two row slices where the second holds a row below n, else
 // one.
-template <int NB, bool YT, typename Keep>
+template <int NB, bool YT, typename Keep, typename Lay>
 __device__ __forceinline__ void chol_tile_rows(float* C, const float* X,
                                                const float* Y, Keep keep,
                                                int i0, int j0, int k0, int n,
-                                               int ld) {
+                                               Lay lay) {
   if (i0 + 32 < n)
-    chol_tile<NB, 2, YT>(C, X, Y, keep, i0, j0, k0, n, ld);
+    chol_tile<NB, 2, YT>(C, X, Y, keep, i0, j0, k0, n, lay);
   else
-    chol_tile<NB, 1, YT>(C, X, Y, keep, i0, j0, k0, n, ld);
+    chol_tile<NB, 1, YT>(C, X, Y, keep, i0, j0, k0, n, lay);
 }
 
 // Copy the n x n matrix at src (device memory, rows of n) into dst (shared
-// memory, row stride ld) as dst[i][j] = f(i, j, src[i][j]).  Each thread
-// keeps kLoadDepth float4 loads (or 4 kLoadDepth float loads) in flight,
-// so the copy waits on the latency of device memory a few times instead of
-// once per element.  The caller adds the barrier.
+// memory, layout lay) as dst[i][j] = f(i, j, src[i][j]); the packed layout
+// reads and stores only j <= i (by float4s of 4 columns, the last of a row
+// running past the diagonal into the row's padding).  Each thread keeps
+// kLoadDepth float4 loads (or 4 kLoadDepth float loads) in flight, so the
+// copy waits on the latency of device memory a few times instead of once
+// per element.  The caller adds the barrier.
 constexpr int kLoadDepth = 4;
 
-template <typename F>
+template <typename Lay, typename F>
 __device__ __forceinline__ void chol_load(const float* __restrict__ src,
-                                          float* dst, int n, int ld, F f) {
+                                          float* dst, int n, Lay lay, F f) {
   const int nn = n * n;
   const int step = kLoadDepth * blockDim.x;
   if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
@@ -171,16 +225,18 @@ __device__ __forceinline__ void chol_load(const float* __restrict__ src,
 #pragma unroll
       for (int u = 0; u < kLoadDepth; ++u) {
         const int q = q0 + u * blockDim.x;
-        if (q < nn / 4) chol_get4(v[u], src + 4 * q);
+        const int i = 4 * q / n, j = 4 * q - i * n;
+        if (q < nn / 4 && (!Lay::kPacked || j <= i))
+          chol_get4(v[u], src + 4 * q);
       }
 #pragma unroll
       for (int u = 0; u < kLoadDepth; ++u) {
         const int q = q0 + u * blockDim.x;
-        if (q < nn / 4) {
-          const int i = 4 * q / n, j = 4 * q - i * n;
-          chol_st4(dst + i * ld + j, f(i, j, v[u][0]), f(i, j + 1, v[u][1]),
-                   f(i, j + 2, v[u][2]), f(i, j + 3, v[u][3]));
-        }
+        const int i = 4 * q / n, j = 4 * q - i * n;
+        if (q < nn / 4 && (!Lay::kPacked || j <= i))
+          chol_st4(dst + lay.row(i) + j, f(i, j, v[u][0]),
+                   f(i, j + 1, v[u][1]), f(i, j + 2, v[u][2]),
+                   f(i, j + 3, v[u][3]));
       }
     }
     return;
@@ -190,15 +246,14 @@ __device__ __forceinline__ void chol_load(const float* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < 4 * kLoadDepth; ++u) {
       const int e = e0 + u * blockDim.x;
-      v[u] = e < nn ? src[e] : 0.f;
+      v[u] = e < nn && (!Lay::kPacked || e % n <= e / n) ? src[e] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 4 * kLoadDepth; ++u) {
       const int e = e0 + u * blockDim.x;
-      if (e < nn) {
-        const int i = e / n, j = e - i * n;
-        dst[i * ld + j] = f(i, j, v[u]);
-      }
+      const int i = e / n, j = e - i * n;
+      if (e < nn && (!Lay::kPacked || j <= i))
+        dst[lay.row(i) + j] = f(i, j, v[u]);
     }
   }
 }
@@ -211,9 +266,9 @@ __device__ __forceinline__ void chol_load(const float* __restrict__ src,
 // stores the block's L below the diagonal and, on the diagonal, L[k][k]
 // when `last` (no strip follows) or else inv_k, where the strip reads it.
 // Returns L[k0+lane][k0+lane] to lane < w.
-template <int NB>
+template <int NB, typename Lay>
 __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
-                                                 int kp, bool last, int ld) {
+                                                 int kp, bool last, Lay lay) {
   const int lane = threadIdx.x & 31;
   if (kp < k0) {
     for (int e = lane; e < NB * (NB + 1) / 2; e += 32) {
@@ -226,14 +281,14 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
         float x[NB], y[NB];
 #pragma unroll
         for (int h = 0; h < NB; h += 4) {
-          chol_get4(x + h, K + (k0 + i) * ld + kp + h);
-          chol_get4(y + h, K + (k0 + j) * ld + kp + h);
+          chol_get4(x + h, K + lay.row(k0 + i) + kp + h);
+          chol_get4(y + h, K + lay.row(k0 + j) + kp + h);
         }
-        float acc = K[(k0 + i) * ld + k0 + j];
+        float acc = K[lay.row(k0 + i) + k0 + j];
 #pragma unroll
         for (int kk = 0; kk < NB; ++kk)
           acc = __fsub_rn(acc, __fmul_rn(x[kk], y[kk]));
-        K[(k0 + i) * ld + k0 + j] = acc;
+        K[lay.row(k0 + i) + k0 + j] = acc;
       }
     }
     __syncwarp();
@@ -245,7 +300,7 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
   for (int i = 0; i < NB; ++i)
 #pragma unroll
     for (int j = 0; j <= i; ++j)
-      b[i][j] = i < w ? K[(k0 + i) * ld + k0 + j] : 0.f;
+      b[i][j] = i < w ? K[lay.row(k0 + i) + k0 + j] : 0.f;
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
     inv[c] = __frcp_rn(__fsqrt_rn(b[c][c]));  // 1 / sqrtf, both IEEE
@@ -262,7 +317,7 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
     if (lane == 0 && i < w) {
-      float* row = K + (k0 + i) * ld + k0;
+      float* row = K + lay.row(k0 + i) + k0;
 #pragma unroll
       for (int j = 0; j < i; ++j) row[j] = b[i][j];
       row[i] = last ? b[i][i] : inv[i];
@@ -272,7 +327,7 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
   return lrr;
 }
 
-// Factor the symmetric matrix in K (row stride ld; only the lower triangle
+// Factor the symmetric matrix in K (layout lay; only the lower triangle
 // is read) in place: on return the lower triangle holds L, the strict upper
 // triangle is untouched.  The caller has passed a barrier since K was
 // written; the function ends with one.  Panels of kCholPanel columns; with
@@ -288,14 +343,19 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
 //      trailing update instead of between its barriers.
 // Every element of the trailing triangle takes the panel's columns in
 // increasing order, after the earlier panels', whichever warp applies them.
-__device__ __forceinline__ void chol_factor(float* K, int n, int ld) {
+// The trailing update walks the row tiles of 64 (Lay::kRowTiles at most:
+// two for n <= 128, four at 256), each with its column tiles up to its
+// last row.  The walk is unrolled over them: as a plain loop it held more
+// registers across a tile, and the square instances (80 registers) spilled.
+template <typename Lay>
+__device__ __forceinline__ void chol_factor(float* K, int n, Lay lay) {
   constexpr int NB = kCholPanel;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   float lrr = 0.f;  // warp 0, lane r: L[k0+r][k0+r] of the current panel
-  if (warp == 0) lrr = chol_diag_block<NB>(K, 0, min(NB, n), 0, n <= NB, ld);
+  if (warp == 0) lrr = chol_diag_block<NB>(K, 0, min(NB, n), 0, n <= NB, lay);
   __syncthreads();
   for (int k0 = 0; k0 + NB < n; k0 += NB) {
     const int k1 = k0 + NB;
@@ -303,17 +363,18 @@ __device__ __forceinline__ void chol_factor(float* K, int n, int ld) {
 
     // 1. The strip below the panel's diagonal block.
     for (int i = k1 + tid; i < n; i += blockDim.x) {
-      float* row = K + i * ld + k0;
+      float* row = K + lay.row(i) + k0;
       float a[NB];
 #pragma unroll
       for (int h = 0; h < NB; h += 4) chol_get4(a + h, row + h);
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
-        const float* lc = K + (k0 + c) * ld + k0;  // row k0+c of the block
-        a[c] = __fmul_rn(a[c], lc[c]);              // * inv_{k0+c}
+        const float* lc = K + lay.row(k0 + c) + k0;  // row k0+c of the block
+        a[c] = __fmul_rn(a[c], lc[c]);                // * inv_{k0+c}
 #pragma unroll
         for (int r = c + 1; r < NB; ++r)
-          a[r] = __fsub_rn(a[r], __fmul_rn(a[c], K[(k0 + r) * ld + k0 + c]));
+          a[r] = __fsub_rn(a[r],
+                           __fmul_rn(a[c], K[lay.row(k0 + r) + k0 + c]));
       }
 #pragma unroll
       for (int h = 0; h < NB; h += 4)
@@ -324,22 +385,22 @@ __device__ __forceinline__ void chol_factor(float* K, int n, int ld) {
     // 2. The next diagonal block on warp 0, the rest of the trailing
     // update on the others.
     if (warp == 0) {
-      if (lane < NB) K[(k0 + lane) * ld + k0 + lane] = lrr;
-      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, ld);
+      if (lane < NB) K[lay.row(k0 + lane) + k0 + lane] = lrr;
+      lrr = chol_diag_block<NB>(K, k1, k2 - k1, k0, k2 == n, lay);
     } else {
-      const int m = n - k2;  // rows of the trailing tiles
-      // column tiles from k1 up to each row tile's last row
-      const int last0 = k2 + min(kTileRows, m) - 1;  // row tile 0's last
-      const int tiles0 = m > 0 ? (last0 - k1) / kTileCols + 1 : 0;
-      const int tiles =
-          tiles0 + (m > kTileRows ? (n - 1 - k1) / kTileCols + 1 : 0);
-      for (int t = warp - 1; t < tiles; t += nwarps - 1) {
-        const bool second = t >= tiles0;  // the second row tile (m > 64)
-        const int i0 = k2 + (second ? kTileRows : 0);
-        const int j0 = k1 + kTileCols * (second ? t - tiles0 : t);
-        chol_tile_rows<NB, true>(
-            K, K, K, [=](int i, int j) { return i < n && j <= i; }, i0, j0,
-            k0, n, ld);
+      // tile t of the flat order over the row tiles [i0, i0 + 64), each
+      // with its column tiles j0 = k1, k1 + 8, ... up to its last row
+      int t = warp - 1;
+#pragma unroll
+      for (int r = 0; r < Lay::kRowTiles; ++r) {
+        const int i0 = k2 + kTileRows * r;
+        if (i0 >= n) break;
+        const int cols = (min(i0 + kTileRows, n) - 1 - k1) / kTileCols + 1;
+        for (; t < cols; t += nwarps - 1)
+          chol_tile_rows<NB, true>(
+              K, K, K, [=](int i, int j) { return i < n && j <= i; }, i0,
+              k1 + kTileCols * t, k0, n, lay);
+        t -= cols;
       }
     }
     __syncthreads();
@@ -423,10 +484,95 @@ __device__ __forceinline__ void chol_tri_inverse(const float* __restrict__ L,
         const int i0 = k1 + kTileRows * (t / col_tiles);
         const int j0 = kTileCols * (t % col_tiles);
         chol_tile_rows<NB, false>(W, L, W, [=](int i, int) { return i < n; },
-                                  i0, j0, kp, n, ld);
+                                  i0, j0, kp, n, CholSquare{ld});
       }
     }
     if (k1 < n) __syncthreads();
+  }
+}
+
+// W = L^-1 in place over the factor in the packed lower triangle of K: on
+// return row i holds W[i][0..i] where it held L[i][0..i].  The caller
+// keeps L's diagonal elsewhere if it needs it, has passed a barrier since
+// L was written, and the function ends with one; the block has at least n
+// threads.  Row i of W needs row i of L and the rows of W above it, so W
+// replaces L one row panel of kCholPanel rows at a time, left-looking:
+// thread j < n owns column j of the panel's rows in registers and gives
+// each W[i][j] the plain version's sequence,
+//   W[i][j] = delta_ij,  W[i][j] -= L[i][k] W[k][j] for k = j, ..., i - 1,
+//   W[i][j] /= L[i][i],
+// first the rows k above the panel (already W in K; L's rows by float4
+// broadcast, from the warp's first column so the loads stay uniform), then
+// the panel's own rows k (still in registers), then the division.  The
+// updates with the known zeros of W above the diagonal (k < j) are skipped,
+// as chol_tri_inverse skips them: only the warp's first 32 rows need the
+// test, the rest go through a loop without it.  After a barrier (every
+// thread has read the panel's L rows) each owner stores its column over
+// them, then a barrier before the next panel reads them as W: two barriers
+// a panel.
+__device__ __forceinline__ void chol_tri_inverse_in_place(float* K, int n,
+                                                          CholPacked lay) {
+  constexpr int NB = kCholPanel;
+  const int j = threadIdx.x;
+  const int jw = j & ~31;  // the warp's first column, a multiple of 4
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    const int k1 = min(k0 + NB, n);
+    float w[NB];
+    if (j < k1) {
+      int rows[NB];  // the panel's rows; rows past n: garbage, unstored
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        rows[r] = lay.row(min(k0 + r, n - 1));
+        w[r] = k0 + r == j ? 1.f : 0.f;
+      }
+      const int kmid = min(jw + 32, k0);  // every k >= kmid is > j
+      for (int k4 = jw; k4 < kmid; k4 += 4) {
+        float wk[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          wk[u] = k4 + u >= j ? K[lay.row(k4 + u) + j] : 0.f;
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          float l4[4];
+          chol_get4(l4, K + rows[r] + k4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (k4 + u >= j) w[r] = __fsub_rn(w[r], __fmul_rn(l4[u], wk[u]));
+        }
+      }
+      for (int k4 = kmid; k4 < k0; k4 += 4) {
+        const float* wrow = K + lay.row(k4) + j;  // rows k4 .. k4 + 3
+        const int ws = lay.stride(k4);
+        float wk[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) wk[u] = wrow[u * ws];
+#pragma unroll
+        for (int r = 0; r < NB; ++r) {
+          float l4[4];
+          chol_get4(l4, K + rows[r] + k4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            w[r] = __fsub_rn(w[r], __fmul_rn(l4[u], wk[u]));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < NB; ++r) {
+        float lc[NB];
+#pragma unroll
+        for (int h = 0; h < NB; h += 4) chol_get4(lc + h, K + rows[r] + k0 + h);
+#pragma unroll
+        for (int c = 0; c < r; ++c)
+          if (k0 + c >= j) w[r] = __fsub_rn(w[r], __fmul_rn(lc[c], w[c]));
+        if (k0 + r >= j) w[r] = w[r] / lc[r];
+      }
+    }
+    __syncthreads();
+    if (j < k1) {
+#pragma unroll
+      for (int r = 0; r < NB; ++r)
+        if (k0 + r < k1 && k0 + r >= j) K[lay.row(k0 + r) + j] = w[r];
+    }
+    __syncthreads();
   }
 }
 

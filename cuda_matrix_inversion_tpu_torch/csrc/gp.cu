@@ -10,7 +10,9 @@
 // L [y_d y_a] = [d a]; then mean = y_a . y_d and var = e - y_a . y_a.  The
 // TPU kernel builds the whole W = L^-1 and multiplies rows by it because the
 // TPU wants MXU matmuls; two right-hand sides cost O(n^2) after the
-// O(n^3 / 3) factor, so K5 never forms W.
+// O(n^3 / 3) factor, so K5 never forms W.  Past n = 128, up to the JAX
+// kernel's 256, K5 runs the same body on the packed lower triangle
+// (gp_chol_band_kernel, cholesky_common.cuh::CholPacked): 138 KB at 256.
 //
 // K6 replaces ops/pallas_gp.py::_gp_ns_kernel (pallas_call in
 // gp_mean_variance_fused_ns).  It loads B with asynchronous copies, stages K,
@@ -82,7 +84,11 @@
 // and writes W and alpha for the backward; 2 n ld + 2n fp32.  Bound as K5
 // and K3: the panel factor's chain of pivots, then (with emit_w) W's chain
 // of divisions.  Without emit_w three blocks share an SM (at most 80
-// registers a thread), with it one.
+// registers a thread), with it one.  Past n = 128, up to the JAX kernel's
+// 256, both variants run on the packed lower triangle (gp_lml_band_kernel):
+// with emit_w, W = L^-1 replaces L in place one 8-row panel at a time
+// (cholesky_common.cuh::chol_tri_inverse_in_place) and L's diagonal is
+// kept aside for log|K|; n floats more than without (139 KB at 256).
 
 #include <cuda_runtime.h>
 
@@ -92,6 +98,10 @@
 #include "ns_mma_rounds.cuh"
 
 namespace {
+
+// Largest n of K5 and K10 (one block a system; the packed layout past
+// kMaxN), the JAX kernels' ceiling.
+constexpr int kCholMaxN = 256;
 
 // Sum of v over the block (every thread gets the result).
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -106,22 +116,22 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
-    gp_chol_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   const float* __restrict__ c, const float* __restrict__ d,
-                   const float* __restrict__ e, float* __restrict__ out,
-                   int n) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = chol_ld(n);
-  float* K = smem;
-  float* Y = smem + n * ld;  // Y[0..n) = y_d, Y[n..2n) = y_a
+// K5's body on the layout lay: K in shared memory at K, Y (2n floats)
+// after it.
+template <typename Lay>
+__device__ __forceinline__ void gp_chol_body(
+    float* K, float* Y, const float* __restrict__ a,
+    const float* __restrict__ b, const float* __restrict__ c,
+    const float* __restrict__ d, const float* __restrict__ e,
+    float* __restrict__ out, int n, Lay lay) {
+  // Y[0..n) = y_d, Y[n..2n) = y_a
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t sys = blockIdx.x;
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
-  chol_load(bs, K, n, ld, [=](int i, int j, float v) {
+  chol_load(bs, K, n, lay, [=](int i, int j, float v) {
     return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
   });
   for (int i = tid; i < n; i += kThreads) {
@@ -129,18 +139,18 @@ __global__ void __launch_bounds__(kThreads, 3)
     Y[n + i] = a[sys * n + i];
   }
   __syncthreads();
-  chol_factor(K, n, ld);
+  chol_factor(K, n, lay);
 
   if (warp < 2) {
     // L y = rhs, one warp per right-hand side, in the plain version's
     // order: y[k] /= L[k][k], then eliminated from the rows below.
     float* y = Y + warp * n;
     for (int k = 0; k < n; ++k) {
-      const float yk = y[k] / K[k * ld + k];
+      const float yk = y[k] / K[lay.row(k) + k];
       __syncwarp();
       if (lane == 0) y[k] = yk;
       for (int i = k + 1 + lane; i < n; i += 32)
-        y[i] = __fsub_rn(y[i], __fmul_rn(K[i * ld + k], yk));
+        y[i] = __fsub_rn(y[i], __fmul_rn(K[lay.row(i) + k], yk));
       __syncwarp();
     }
   }
@@ -155,6 +165,30 @@ __global__ void __launch_bounds__(kThreads, 3)
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) out[2 * sys + warp] = warp == 0 ? s : e[sys] - s;
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    gp_chol_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ c, const float* __restrict__ d,
+                   const float* __restrict__ e, float* __restrict__ out,
+                   int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = chol_ld(n);
+  gp_chol_body(smem, smem + n * ld, a, b, c, d, e, out, n, CholSquare{ld});
+}
+
+// K5 past n = 128 (129 <= n <= 256): the packed lower triangle
+// (cholesky_common.cuh::CholPacked), then Y; 138 KB at n = 256.
+__global__ void __launch_bounds__(kThreads, 2)
+    gp_chol_band_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const float* __restrict__ c,
+                        const float* __restrict__ d,
+                        const float* __restrict__ e, float* __restrict__ out,
+                        int n) {
+  extern __shared__ __align__(16) float smem[];
+  gp_chol_body(smem, smem + chol_packed_floats(n), a, b, c, d, e, out, n,
+               CholPacked{});
 }
 
 // The fp32 epilogue of K6 and K11 from X ~= K^-1 in sX and sv = [d a]:
@@ -428,54 +462,60 @@ __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
   band_gp_epilogue(sm, n, rank, e + sys, out + 2 * sys, red);
 }
 
-// K10.  EMIT_W = false: quad and logdet only; true: also W = L^-1 and
-// alpha = K^-1 d.
-template <bool EMIT_W>
-__global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
-    gp_lml_kernel(const float* __restrict__ b, const float* __restrict__ c,
-                  const float* __restrict__ d, float* __restrict__ out,
-                  float* __restrict__ w_out, float* __restrict__ alpha_out,
-                  int n) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = chol_ld(n);
-  float* K = smem;
-  float* W = smem + n * ld;                     // EMIT_W only
-  float* v = smem + (EMIT_W ? 2 : 1) * n * ld;  // v[0..n) = d, v[n..2n) = t
+// K10's body on the layout lay.  EMIT_W = false: quad and logdet only;
+// true: also W = L^-1 and alpha = K^-1 d.  K (the factor, then with EMIT_W
+// on the packed layout W in its place), W (EMIT_W on the square layout: a
+// second matrix), v (2n floats: d, then t) and, on the packed layout with
+// EMIT_W, diag (n floats: L's diagonal, kept for log|K|) in shared memory.
+template <bool EMIT_W, typename Lay>
+__device__ __forceinline__ void gp_lml_body(
+    float* K, float* W, float* v, float* diag, const float* __restrict__ b,
+    const float* __restrict__ c, const float* __restrict__ d,
+    float* __restrict__ out, float* __restrict__ w_out,
+    float* __restrict__ alpha_out, int n, Lay lay) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t sys = blockIdx.x;
   const float* bs = b + sys * n * n;
   const float* cs = c + sys * n;
-  chol_load(bs, K, n, ld, [=](int i, int j, float v) {
+  chol_load(bs, K, n, lay, [=](int i, int j, float v) {
     return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
   });
   for (int i = tid; i < n; i += kThreads) v[i] = d[sys * n + i];
   __syncthreads();
-  chol_factor(K, n, ld);
+  chol_factor(K, n, lay);
 
   const float* u = v;  // the vector whose squares sum to quad
+  const float* ldiag = nullptr;  // L's diagonal where W replaced L
   if (!EMIT_W) {
     if (warp == 0) {
       // L y = d in place, in the plain version's order (as K5)
       for (int k = 0; k < n; ++k) {
-        const float yk = v[k] / K[k * ld + k];
+        const float yk = v[k] / K[lay.row(k) + k];
         __syncwarp();
         if (lane == 0) v[k] = yk;
         for (int i = k + 1 + lane; i < n; i += 32)
-          v[i] = __fsub_rn(v[i], __fmul_rn(K[i * ld + k], yk));
+          v[i] = __fsub_rn(v[i], __fmul_rn(K[lay.row(i) + k], yk));
         __syncwarp();
       }
     }
   } else {
-    chol_tri_inverse(K, W, n, ld);
-    __syncthreads();
+    if constexpr (Lay::kPacked) {
+      for (int i = tid; i < n; i += kThreads) diag[i] = K[lay.row(i) + i];
+      chol_tri_inverse_in_place(K, n, lay);  // ends with a barrier
+      W = K;
+      ldiag = diag;
+    } else {
+      chol_tri_inverse(K, W, n, lay.ld);
+      __syncthreads();
+    }
     // t = W d, thread i owns row i (W is zero above the diagonal)
     for (int i = tid; i < n; i += kThreads) {
       float t = 0.f;
       for (int k4 = 0; k4 <= i; k4 += 4) {  // float4 reads of row i
         float w4[4];
-        chol_get4(w4, W + i * ld + k4);
+        chol_get4(w4, W + lay.row(i) + k4);
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           if (k4 + u <= i) t = fmaf(w4[u], v[k4 + u], t);
@@ -486,13 +526,13 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
     // alpha = W^T t, thread j owns column j
     for (int j = tid; j < n; j += kThreads) {
       float s = 0.f;
-      for (int i = j; i < n; ++i) s = fmaf(W[i * ld + j], v[n + i], s);
+      for (int i = j; i < n; ++i) s = fmaf(W[lay.row(i) + j], v[n + i], s);
       alpha_out[sys * n + j] = s;
     }
     float* ws = w_out + sys * n * n;
     for (int x = tid; x < n * n; x += kThreads) {
       const int i = x / n, j = x % n;
-      ws[x] = j <= i ? W[i * ld + j] : 0.f;
+      ws[x] = j <= i ? W[lay.row(i) + j] : 0.f;
     }
     u = v + n;
   }
@@ -501,7 +541,7 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
     float q = 0.f, ld_sum = 0.f;
     for (int i = lane; i < n; i += 32) {
       q = fmaf(u[i], u[i], q);
-      ld_sum += logf(K[i * ld + i]);
+      ld_sum += logf(ldiag ? ldiag[i] : K[lay.row(i) + i]);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -513,6 +553,36 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
       out[2 * sys + 1] = 2.f * ld_sum;
     }
   }
+}
+
+// K10, n <= 128: K, then W (EMIT_W), then v.
+template <bool EMIT_W>
+__global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
+    gp_lml_kernel(const float* __restrict__ b, const float* __restrict__ c,
+                  const float* __restrict__ d, float* __restrict__ out,
+                  float* __restrict__ w_out, float* __restrict__ alpha_out,
+                  int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = chol_ld(n);
+  gp_lml_body<EMIT_W>(smem, smem + n * ld,
+                      smem + (EMIT_W ? 2 : 1) * n * ld, nullptr, b, c, d,
+                      out, w_out, alpha_out, n, CholSquare{ld});
+}
+
+// K10 past n = 128 (129 <= n <= 256): the packed lower triangle, with
+// EMIT_W turned into W in place (cholesky_common.cuh::
+// chol_tri_inverse_in_place), then v and diag; 139 KB at n = 256.
+template <bool EMIT_W>
+__global__ void __launch_bounds__(kThreads, 2)
+    gp_lml_band_kernel(const float* __restrict__ b,
+                       const float* __restrict__ c,
+                       const float* __restrict__ d, float* __restrict__ out,
+                       float* __restrict__ w_out,
+                       float* __restrict__ alpha_out, int n) {
+  extern __shared__ __align__(16) float smem[];
+  float* v = smem + chol_packed_floats(n);
+  gp_lml_body<EMIT_W>(smem, nullptr, v, v + 2 * n, b, c, d, out, w_out,
+                      alpha_out, n, CholPacked{});
 }
 
 // Bytes of K6's and K11's shared memory for NP = np: NsSmem, then [d a]
@@ -540,16 +610,22 @@ cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
 extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
                             const float* d, const float* e, float* out,
                             int batch, int n, int device, void* stream) {
-  if (n < 1 || n > kMaxN || batch < 0)
+  if (n < 1 || n > kCholMaxN || batch < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN)
+    return static_cast<int>(launch(
+        gp_chol_band_kernel,
+        (static_cast<size_t>(chol_packed_floats(n)) + 2ull * n) *
+            sizeof(float),
+        batch, s, a, b, c, d, e, out, n));
   const size_t smem =
       (static_cast<size_t>(n) * chol_ld(n) + 2ull * n) * sizeof(float);
-  return static_cast<int>(launch(gp_chol_kernel, smem, batch,
-                                 static_cast<cudaStream_t>(stream), a, b, c,
-                                 d, e, out, n));
+  return static_cast<int>(launch(gp_chol_kernel, smem, batch, s, a, b, c, d,
+                                 e, out, n));
 }
 
 namespace {
@@ -672,12 +748,22 @@ extern "C" int cmi_gp_fused_warm(const float* a, const float* b,
 extern "C" int cmi_gp_lml(const float* b, const float* c, const float* d,
                           float* out, float* w, float* alpha, int batch,
                           int n, int emit_w, int device, void* stream) {
-  if (n < 1 || n > kMaxN || batch < 0)
+  if (n < 1 || n > kCholMaxN || batch < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN) {
+    // the packed triangle, v and (emit_w) diag
+    const size_t smem = (static_cast<size_t>(chol_packed_floats(n)) +
+                         (emit_w ? 3ull : 2ull) * n) * sizeof(float);
+    err = emit_w ? launch(gp_lml_band_kernel<true>, smem, batch, s, b, c, d,
+                          out, w, alpha, n)
+                 : launch(gp_lml_band_kernel<false>, smem, batch, s, b, c, d,
+                          out, w, alpha, n);
+    return static_cast<int>(err);
+  }
   const size_t mats = emit_w ? 2 : 1;
   const size_t smem = (mats * n * chol_ld(n) + 2ull * n) * sizeof(float);
   if (emit_w)

@@ -43,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the panel, the staged rows and the tables) and states its own larger
 # ceiling, LU_MAX_N; K3 and K10 with ``emit_w`` two n×ld
 # (``csrc/cholesky_common.cuh::chol_ld``, 132 at n = 128: 135 KB); K4, K5
-# and K10 one n×ld (68 KB, three blocks an SM).  K7 keeps one n×n buffer
+# and K10 one n×ld (68 KB, three blocks an SM) and state their own larger
+# ceiling, CHOL_MAX_N.  K7 keeps one n×n buffer
 # too and states its own larger ceiling, GAUSS_JORDAN_MAX_N = 192
 # (148 KB), the JAX kernel's.  K9 keeps one n×pw panel and checks its own ceiling
 # (``lu_bign.panel_smem_bytes``).
@@ -59,6 +60,16 @@ WARM_MAX_N = 224
 # a 32-column slab of the matrix and of its inverse in each CTA's shared
 # memory (``csrc/lu_band.cu``).
 LU_MAX_N = 256
+# Largest n the Cholesky kernels K4, K5 and K10 take, the JAX kernels'
+# ceiling: past MAX_N each matrix stays in one block's shared memory as
+# its packed lower triangle (``csrc/cholesky_common.cuh::CholPacked``,
+# rows in groups of 8 with an odd float4 stride: 34,816 floats, 136 KB,
+# at n = 256 against 266 KB for the n×chol_ld square), beside K5's two
+# vectors (2n floats, 138 KB in all) or K10's (3n with ``emit_w``, whose
+# W = L⁻¹ replaces L in place: 139 KB).  One block an SM at 256, two up
+# to 224 (105 KB; the register cap of two blocks holds n = 160 at two
+# too).  K3 keeps MAX_N: past it both packages invert through Schur.
+CHOL_MAX_N = 256
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int

@@ -7,7 +7,9 @@ both hand-written in ``csrc/cholesky.cu``; on a CPU tensor they run the
 plain PyTorch versions :func:`cholesky_plain` and
 :func:`inverse_cholesky_plain`, which perform the kernels' operations in
 the same order (WᵀW's summation order aside).  A member that is not
-positive definite comes out non-finite; the others are unaffected.
+positive definite comes out non-finite; the others are unaffected.  K4
+takes n ≤ 256 (:data:`cuda_build.CHOL_MAX_N`, the JAX kernel's ceiling;
+past 128 on the packed lower triangle), K3 n ≤ 128.
 """
 
 from __future__ import annotations
@@ -60,8 +62,9 @@ def inverse_cholesky_plain(a: torch.Tensor) -> torch.Tensor:
     return linalg.matmul(w.mT, w)
 
 
-def _launch(name: str, a: torch.Tensor) -> torch.Tensor:
-    cuda_build.check_kernel_input(a, "cholesky kernel")
+def _launch(name: str, a: torch.Tensor,
+            max_n: int = cuda_build.MAX_N) -> torch.Tensor:
+    cuda_build.check_kernel_input(a, "cholesky kernel", max_n=max_n)
     cuda_build.check_cuda_f32("cholesky kernel", a)
     a = a.contiguous()
     out = torch.empty_like(a)
@@ -73,10 +76,14 @@ def _launch(name: str, a: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_cuda(a: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on a CUDA fp32 batch; ``cholesky_cuda.launches`` counts
-    the launches."""
-    out = _launch("cmi_chol_factor", a)
+    """Launch K4 on a CUDA fp32 batch, n ≤ :data:`cuda_build.CHOL_MAX_N`;
+    ``cholesky_cuda.launches`` counts the launches and
+    ``cholesky_cuda.band_launches`` those of the packed instance (n >
+    128)."""
+    out = _launch("cmi_chol_factor", a, max_n=cuda_build.CHOL_MAX_N)
     cholesky_cuda.launches += 1
+    if a.shape[-1] > cuda_build.MAX_N:
+        cholesky_cuda.band_launches += 1
     return out
 
 
@@ -89,20 +96,22 @@ def inverse_cholesky_cuda(a: torch.Tensor) -> torch.Tensor:
 
 
 cholesky_cuda.launches = 0
+cholesky_cuda.band_launches = 0
 inverse_cholesky_cuda.launches = 0
 
 
 def cholesky(a: torch.Tensor) -> torch.Tensor:
     """Batched lower Cholesky factor of an SPD batch (K4).
 
-    float64, and n > 128 past the kernel's shared memory, take the library
+    float64, and n > 256 past the kernel's shared memory, take the library
     route (:func:`linalg.cholesky`), as the JAX package takes XLA's factor
     past its kernel.
     """
-    if a.dtype == torch.float64 or (a.ndim == 3
-                                    and a.shape[-1] > cuda_build.MAX_N):
+    if a.dtype == torch.float64 or (
+            a.ndim == 3 and a.shape[-1] > cuda_build.CHOL_MAX_N):
         return linalg.cholesky(a)
-    cuda_build.check_kernel_input(a, "cholesky kernel")
+    cuda_build.check_kernel_input(a, "cholesky kernel",
+                                  max_n=cuda_build.CHOL_MAX_N)
     a32 = a.to(torch.float32)
     l = cuda_build.on_device(a32, "cholesky", cholesky_cuda, cholesky_plain,
                              a32)

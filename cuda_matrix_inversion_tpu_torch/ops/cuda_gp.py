@@ -88,10 +88,15 @@ def _gp_launch(fn_name: str, a, b, c, d, e, *extra,
 
 
 def gp_fused_cuda(a, b, c, d, e):
-    """Launch K5 on contiguous CUDA fp32 tensors in the flat layout;
-    ``gp_fused_cuda.launches`` counts the launches."""
-    out = _gp_launch("cmi_gp_fused", a, b, c, d, e)
+    """Launch K5 on contiguous CUDA fp32 tensors in the flat layout, n ≤
+    :data:`cuda_build.CHOL_MAX_N` (past 128 on the packed lower triangle);
+    ``gp_fused_cuda.launches`` counts the launches and
+    ``gp_fused_cuda.band_launches`` those of the packed instance."""
+    out = _gp_launch("cmi_gp_fused", a, b, c, d, e,
+                     max_n=cuda_build.CHOL_MAX_N)
     gp_fused_cuda.launches += 1
+    if b.shape[-1] > cuda_build.MAX_N:
+        gp_fused_cuda.band_launches += 1
     return out
 
 
@@ -136,6 +141,7 @@ def gp_fused_warm_cuda(a, b, c, d, e, x0, lo: int = 2, hi: int = 1):
 
 
 gp_fused_cuda.launches = 0
+gp_fused_cuda.band_launches = 0
 gp_fused_ns_cuda.launches = 0
 gp_fused_ns_cuda.band_launches = 0
 gp_fused_warm_cuda.launches = 0
@@ -163,25 +169,34 @@ def _run(b, cuda_fn, plain_fn, flat):
     return out[:, 0, None, None], out[:, 1, None, None]
 
 
+def gp_schur_route(a, b, c, d, e):
+    """The route past K5's ceiling, as the JAX package takes it past 256:
+    :func:`schur.spd_schur_solve` of K[d a] with the K3 inverse
+    (:func:`cuda_cholesky.inverse_cholesky`) as its base; fixture layout in
+    and out, as :func:`gp_mean_variance_fused`."""
+    x = schur.spd_schur_solve(linalg.add_diagonal(b, c),
+                              torch.cat([d, a], dim=-1),
+                              cuda_cholesky.inverse_cholesky,
+                              max_base_n=cuda_build.MAX_N)
+    return _project(a, x, e)
+
+
 def gp_mean_variance_fused(a, b, c, d, e):
     """Fused batched GP mean and variance, one K5 launch for the batch.
 
     a, c, d: (batch, n, 1); b: (batch, n, n); e: (batch, 1, 1).  Returns
-    (means, variances), each (batch, 1, 1).  float64 takes the library
-    solve route.  n > 128 (the kernel's shared-memory ceiling; the JAX
-    package's is 256) goes through :func:`schur.spd_schur_solve` with the
-    K3 inverse as its base.
+    (means, variances), each (batch, 1, 1).  K5 takes n ≤ 256, the JAX
+    kernel's ceiling (one thread block a system; past 128 on the packed
+    lower triangle).  float64 takes the library solve route, and n > 256
+    :func:`gp_schur_route`, as the JAX package routes them.
     """
     if b.dtype == torch.float64:
         return _project(a, linalg.spd_solve(linalg.add_diagonal(b, c),
                                             torch.cat([d, a], dim=-1)), e)
-    if b.shape[-1] > cuda_build.MAX_N:
-        x = schur.spd_schur_solve(linalg.add_diagonal(b, c),
-                                  torch.cat([d, a], dim=-1),
-                                  cuda_cholesky.inverse_cholesky,
-                                  max_base_n=cuda_build.MAX_N)
-        return _project(a, x, e)
-    return _run(b, gp_fused_cuda, gp_fused_plain, _flat(a, b, c, d, e))
+    if b.shape[-1] > cuda_build.CHOL_MAX_N:
+        return gp_schur_route(a, b, c, d, e)
+    return _run(b, gp_fused_cuda, gp_fused_plain,
+                _flat(a, b, c, d, e, max_n=cuda_build.CHOL_MAX_N))
 
 
 def gp_mean_variance_fused_ns(a, b, c, d, e):

@@ -50,8 +50,12 @@ def lml_quad_logdet_plain(b, c, d, emit_w: bool = False):
 def lml_quad_logdet_cuda(b, c, d, emit_w: bool = False):
     """Launch K10 on contiguous CUDA fp32 tensors in the flat layout;
     returns as :func:`lml_quad_logdet_plain`.
-    ``lml_quad_logdet_cuda.launches`` counts the launches."""
-    cuda_build.check_kernel_input(b, "gp lml kernel")
+    ``lml_quad_logdet_cuda.launches`` counts the launches; of the packed
+    instances (n > 128), ``.band_launches`` counts those without ``emit_w``
+    and ``.band_emit_w_launches`` those with it (W = L⁻¹ built in place
+    over L)."""
+    cuda_build.check_kernel_input(b, "gp lml kernel",
+                                  max_n=cuda_build.CHOL_MAX_N)
     cuda_build.check_cuda_f32("gp lml kernel", b, c, d)
     batch, n, _ = b.shape
     out = torch.empty((batch, 2), dtype=torch.float32, device=b.device)
@@ -67,18 +71,25 @@ def lml_quad_logdet_cuda(b, c, d, emit_w: bool = False):
         stream)
     cuda_build.check(err, "gp lml kernel")
     lml_quad_logdet_cuda.launches += 1
+    if n > cuda_build.MAX_N and emit_w:
+        lml_quad_logdet_cuda.band_emit_w_launches += 1
+    elif n > cuda_build.MAX_N:
+        lml_quad_logdet_cuda.band_launches += 1
     if emit_w:
         return out[:, 0], out[:, 1], w, alpha
     return out[:, 0], out[:, 1]
 
 
 lml_quad_logdet_cuda.launches = 0
+lml_quad_logdet_cuda.band_launches = 0
+lml_quad_logdet_cuda.band_emit_w_launches = 0
 
 
 def lml_quad_logdet(b, c, d, emit_w: bool = False):
     """(quad, logdet[, w, alpha]) per system through K10, fp32, flat layout
-    (b ``(batch, n, n)``, c and d ``(batch, n)``), 1 ≤ n ≤ 128."""
-    cuda_build.check_kernel_input(b, "gp lml kernel")
+    (b ``(batch, n, n)``, c and d ``(batch, n)``), 1 ≤ n ≤ 256."""
+    cuda_build.check_kernel_input(b, "gp lml kernel",
+                                  max_n=cuda_build.CHOL_MAX_N)
     batch, n, _ = b.shape
     for name, v in (("c", c), ("d", d)):
         if tuple(v.shape) != (batch, n):
@@ -128,13 +139,13 @@ def gp_log_marginal_likelihood_fused(b, c, d):
     (b — (batch, n, n); c, d — (batch, n, 1) → (batch,)).  When autograd
     records (grad enabled and an input requires grad) the forward runs the
     ``emit_w`` variant and the backward is the analytic VJP of
-    :class:`_LMLFused`; otherwise the plain variant runs alone.  float64 and
-    n > 128 (the JAX kernel's ceiling is 256) take
+    :class:`_LMLFused`; otherwise the plain variant runs alone.  K10 takes
+    n ≤ 256, the JAX kernel's ceiling.  float64 and n > 256 take
     :func:`models.gp.gp_log_marginal_likelihood` on ``torch.linalg``,
     differentiated by autograd, the JAX package's route past its kernel.
     """
     n = b.shape[-1]
-    if b.dtype == torch.float64 or n > cuda_build.MAX_N:
+    if b.dtype == torch.float64 or n > cuda_build.CHOL_MAX_N:
         from cuda_matrix_inversion_tpu_torch.models.gp import (
             gp_log_marginal_likelihood,
         )

@@ -1,0 +1,490 @@
+"""The Cholesky kernels' band, 129 ≤ n ≤ 256: K4 (the factor), K5 (the
+fused GP mean/variance) and K10 (the fused LML, with and without W) on the
+packed lower triangle (``csrc/cholesky_common.cuh::CholPacked``), against
+the JAX package and against their own plain versions.
+
+On the CPU the port runs the kernels' plain versions; the JAX kernels run
+in interpret mode with a batch block of one system, each interpreted once
+(module-scoped results).  The kernels' schedule on the packed layout is
+replayed in plain PyTorch on a flat buffer at the layout's offsets (the
+factor's panels and tiles, and W = L⁻¹ built in place over L), and must
+give the plain versions' bits.  PyTorch runs on one thread for the
+module: its CPU kernels and BLAS oversubscribe the cores of a test worker
+otherwise.  Tolerances are stated where they are used.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
+from cuda_matrix_inversion_tpu.ops import pallas_cholesky, pallas_gp
+from cuda_matrix_inversion_tpu_torch.io import fixtures
+from cuda_matrix_inversion_tpu_torch.models import gp
+from cuda_matrix_inversion_tpu_torch.ops import (
+    cuda_build,
+    cuda_cholesky,
+    cuda_gp,
+    cuda_gp_lml,
+    linalg,
+)
+
+NB, TILE_ROWS, TILE_COLS = 8, 64, 8  # cholesky_common.cuh's constants
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _spd(batch, n, seed):
+    return make_spd_batch(batch, n, np.random.default_rng(seed)
+                          ).astype(np.float32)
+
+
+def _rel(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return np.abs(x - ref).max() / np.abs(ref).max()
+
+
+def _gp_system(batch, n, seed):
+    g = fixtures.make_gp_batch(batch, n, np.random.default_rng(seed))
+    return {k: g[k].astype(np.float32) for k in "abcde"}, g
+
+
+def _lml_system(batch, n, seed):
+    """The fit test's draw (tests/test_torch_gp_fit.py ``_synth``):
+    B = W Wᵀ + 0.05 I of rank 4, c ∈ [0.5, 1.5), d drawn from K*."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((batch, n, 4))
+    b = (w @ np.transpose(w, (0, 2, 1)) + 0.05 * np.eye(n)).astype(np.float32)
+    c = (rng.random((batch, n, 1)) + 0.5).astype(np.float32)
+    k = 1.8 ** 2 * b.astype(np.float64) + 0.25 * np.eye(n) * c[:, :, 0][
+        :, None, :]
+    d = (np.linalg.cholesky(k) @ rng.standard_normal((batch, n, 1))
+         ).astype(np.float32)
+    return b, c, d
+
+
+# ---- the packed layout and its schedule, replayed --------------------------
+
+def _row(i):
+    """cholesky_common.cuh::CholPacked::row."""
+    g, r = i // 8, i % 8
+    return 32 * g * (g + 2) + 4 * r * (2 * g + 3)
+
+
+def _packed_floats(n):
+    g = (n + 7) // 8
+    return 32 * g * (g + 2)
+
+
+@pytest.mark.parametrize("n", [129, 136, 200, 229, 256])
+def test_packed_layout_rows_are_disjoint_aligned_and_conflict_free(n):
+    """Rows start on 16 bytes, hold their elements up to the diagonal
+    rounded up to 4 (a float4 store) without reaching the next row, end
+    inside the buffer, and the 8 rows of a group start in 8 distinct
+    groups of 4 banks; 136 KB at n = 256, under one block's 227 KB."""
+    offs = [_row(i) for i in range(n)]
+    assert all(o % 4 == 0 for o in offs)
+    for i in range(n - 1):
+        assert offs[i] + (i + 4) // 4 * 4 <= offs[i + 1]
+    assert offs[-1] + (n + 3) // 4 * 4 <= _packed_floats(n)
+    for g0 in range(0, n - 7, 8):
+        assert len({offs[i] // 4 % 8 for i in range(g0, g0 + 8)}) == 8
+    assert _packed_floats(256) * 4 == 139264 <= 232448
+
+
+def _sub_mul(x, y, z):
+    """``__fsub_rn(x, __fmul_rn(y, z))``: a rounded product, then a rounded
+    difference, never fused."""
+    return torch.sub(x, torch.mul(y, z))
+
+
+class _Packed:
+    """A batch of matrices in a flat buffer at the packed offsets: every
+    read and write goes through the rows' offsets, so an overlap of two
+    rows or a read past the buffer shows as a wrong bit or an index
+    error."""
+
+    def __init__(self, a):
+        batch, n, _ = a.shape
+        self.n = n
+        self.f = torch.full((batch, _packed_floats(n)), float("nan"))
+        for i in range(n):  # the loader's float4s, up to the diagonal
+            j1 = min((i + 4) // 4 * 4, n) if n % 4 == 0 else i + 1
+            self.f[:, _row(i):_row(i) + j1] = a[:, i, :j1]
+
+    def idx(self, rows, cols):
+        return (torch.tensor([_row(i) for i in rows])[:, None]
+                + torch.as_tensor(cols)[None, :]
+                if isinstance(cols, range) else
+                torch.tensor([[_row(i) + j for j in c]
+                              for i, c in zip(rows, cols)]))
+
+    def get(self, rows, cols):
+        return self.f[:, self.idx(rows, cols)]
+
+    def put(self, rows, cols, x, keep):
+        """Store x[:, r, c] where keep(row, col)."""
+        ix = self.idx(rows, cols)
+        ri = torch.tensor(list(rows))[:, None]
+        ci = (torch.as_tensor(cols)[None, :].expand(len(rows), -1)
+              if isinstance(cols, range) else torch.tensor(cols))
+        m = keep(ri, ci)
+        self.f[:, ix[m]] = x[:, m]
+
+    def lower(self):
+        n = self.n
+        out = torch.zeros((self.f.shape[0], n, n))
+        for i in range(n):
+            out[:, i, :i + 1] = self.f[:, _row(i):_row(i) + i + 1]
+        return out
+
+
+def _tile_walk(n, k1, k2, square):
+    """The trailing tiles (i0, j0) of one panel in chol_factor's flat
+    order: the packed walk (every 64-row tile, its columns up to its last
+    row), or the square instances' (at most two row tiles, the second with
+    every column up to n - 1) as a broken order for n > 144."""
+    if square:
+        m = n - k2
+        last0 = k2 + min(TILE_ROWS, m) - 1
+        tiles0 = (last0 - k1) // TILE_COLS + 1 if m > 0 else 0
+        tiles = tiles0 + ((n - 1 - k1) // TILE_COLS + 1
+                          if m > TILE_ROWS else 0)
+        return [(k2 + (TILE_ROWS if t >= tiles0 else 0),
+                 k1 + TILE_COLS * (t - tiles0 if t >= tiles0 else t))
+                for t in range(tiles)]
+    return [(i0, j0) for i0 in range(k2, n, TILE_ROWS)
+            for j0 in range(k1, min(i0 + TILE_ROWS, n), TILE_COLS)]
+
+
+def _packed_factor(a, square_walk=False):
+    """chol_factor on the packed layout, in plain PyTorch: each diagonal
+    block is updated by the previous panel's columns and factored column by
+    column (warp 0, inv_k = 1/sqrt stored on the diagonal until the strip
+    is solved), each strip solved right-looking by rows, and the rest of
+    the trailing triangle updated in 64 × 8 tiles by the panel's columns
+    in increasing order; a tile's rows above its columns read their own
+    first columns (garbage, never stored)."""
+    p = _Packed(a)
+    n = p.n
+    lower = lambda i, j: (i < n) & (j <= i)  # noqa: E731
+
+    def diag_block(k0, kp, last):
+        k1 = min(k0 + NB, n)
+        rows = range(k0, k1)
+        blk = p.get(rows, range(k0, k1))
+        if kp < k0:
+            x = p.get(rows, range(kp, k0))
+            for k in range(k0 - kp):
+                blk = _sub_mul(blk, x[:, :, k:k + 1], x[:, None, :, k])
+        inv = []
+        for c in range(k1 - k0):
+            inv.append(torch.reciprocal(torch.sqrt(blk[:, c, c])))
+            blk[:, c:, c] = torch.mul(blk[:, c:, c], inv[c][:, None])
+            col = blk[:, c + 1:, c]
+            blk[:, c + 1:, c + 1:] = _sub_mul(
+                blk[:, c + 1:, c + 1:], col[:, :, None], col[:, None, :])
+        lrr = torch.diagonal(blk, dim1=1, dim2=2).clone()
+        if not last:
+            for c in range(k1 - k0):
+                blk[:, c, c] = inv[c]
+        p.put(rows, range(k0, k1), blk, lower)
+        return lrr
+
+    lrr = diag_block(0, 0, n <= NB)
+    for k0 in range(0, n - NB, NB):
+        k1, k2 = k0 + NB, min(k0 + 2 * NB, n)
+        rows = range(k1, n)
+        s = p.get(rows, range(k0, k1))
+        blk = p.get(range(k0, k1), range(k0, k1))
+        for c in range(NB):
+            s[:, :, c] = torch.mul(s[:, :, c], blk[:, c, c][:, None])
+            for r in range(c + 1, NB):
+                s[:, :, r] = _sub_mul(s[:, :, r], s[:, :, c],
+                                      blk[:, r, c][:, None])
+        p.put(rows, range(k0, k1), s, lambda i, j: (i >= 0) & (j >= 0))
+        for c in range(NB):  # warp 0 puts L[k][k] in place
+            p.f[:, _row(k0 + c) + k0 + c] = lrr[:, c]
+        lrr = diag_block(k1, k0, k2 == n)
+        for i0, j0 in _tile_walk(n, k1, k2, square_walk):
+            rows = [min(i, n - 1) for i in range(i0, i0 + TILE_ROWS)]
+            cols = [range(0 if r < j0 else j0, (0 if r < j0 else j0)
+                          + TILE_COLS) for r in rows]
+            t = p.get(rows, [list(c) for c in cols])
+            x = p.get(rows, range(k0, k1))
+            y = p.get([min(j, n - 1) for j in range(j0, j0 + TILE_COLS)],
+                      range(k0, k1))
+            for k in range(NB):
+                t = _sub_mul(t, x[:, :, k:k + 1], y[:, None, :, k])
+            tile_rows = range(i0, i0 + TILE_ROWS)
+            ix = p.idx(rows, range(j0, j0 + TILE_COLS))
+            m = lower(torch.tensor(list(tile_rows))[:, None],
+                      torch.arange(j0, j0 + TILE_COLS)[None, :])
+            p.f[:, ix[m]] = t[:, m]
+    return p
+
+
+def _w_in_place(p, warp_stores=False):
+    """chol_tri_inverse_in_place in plain PyTorch: W = L⁻¹ over L, one
+    8-row panel at a time, left-looking; all owners (columns j ≤ the
+    panel's last row) compute the panel from L's rows and the W rows above,
+    and only then store it over the panel's L rows.  ``warp_stores`` is a
+    broken order, the kernel without its barrier between the two: each
+    warp of 32 columns stores its part of the panel as soon as it is done,
+    the last columns' warp first, before the warps of earlier columns have
+    read the L elements it overwrites (column j reads L[i][k] for k ≥ j)."""
+    n = p.n
+    lval = lambda i, k: p.f[:, _row(i) + k]  # noqa: E731
+    for k0 in range(0, n, NB):
+        k1 = min(k0 + NB, n)
+        groups = ([range(j0, min(j0 + 32, k1))
+                   for j0 in reversed(range(0, k1, 32))]
+                  if warp_stores else [range(k1)])
+        for cols in groups:
+            c0, c1 = cols.start, cols.stop
+            w = {}
+            for i in range(k0, k1):
+                wi = torch.zeros((p.f.shape[0], c1 - c0))
+                if c0 <= i < c1:
+                    wi[:, i - c0] = 1.0
+                for k in range(max(c0, 0), i):  # k ≥ j only, in order
+                    hi = min(k + 1, c1) - c0
+                    if hi <= 0:
+                        continue
+                    src = (w[k] if k >= k0 else
+                           p.f[:, _row(k) + c0:_row(k) + c0 + hi])
+                    wi[:, :hi] = _sub_mul(wi[:, :hi], lval(i, k)[:, None],
+                                          src[:, :hi])
+                hi = min(i + 1, c1) - c0
+                if hi > 0:
+                    wi[:, :hi] = torch.div(wi[:, :hi], lval(i, i)[:, None])
+                w[i] = wi
+            for i in range(k0, k1):
+                hi = min(i + 1, c1) - c0
+                if hi > 0:
+                    p.f[:, _row(i) + c0:_row(i) + c0 + hi] = w[i][:, :hi]
+    return p.lower()
+
+
+@pytest.mark.parametrize("n", [129, 200, 256])
+def test_packed_schedule_is_bitwise_the_plain_order(n):
+    """The band instances' schedule on the packed layout gives L bit for
+    bit ``cholesky_plain``'s, and W = L⁻¹ built in place over it bit for
+    bit ``forward_substitution_plain(L, I)``'s (n = 129: one row past the
+    square instances; 200: a partial last row tile; 256: the ceiling)."""
+    a = torch.tensor(_spd(2, n, 1900 + n))
+    l_ref = cuda_cholesky.cholesky_plain(a)
+    p = _packed_factor(a)
+    assert torch.equal(p.lower(), l_ref)
+    eye = torch.eye(n).expand_as(a)
+    assert torch.equal(_w_in_place(p),
+                       cuda_cholesky.forward_substitution_plain(l_ref, eye))
+
+
+@pytest.mark.parametrize("mutant", ["square_tile_walk", "warp_stores"])
+def test_packed_replay_catches_a_broken_order(mutant):
+    """The square instances' tile walk leaves rows past the second row
+    tile without their updates at n = 200; W stored a warp's columns at a
+    time overwrites L elements that earlier columns still read."""
+    n = 200 if mutant == "square_tile_walk" else 72
+    a = torch.tensor(_spd(2, n, 2900 + n))
+    l_ref = cuda_cholesky.cholesky_plain(a)
+    if mutant == "square_tile_walk":
+        assert not torch.equal(_packed_factor(a, square_walk=True).lower(),
+                               l_ref)
+        return
+    p = _packed_factor(a)
+    w_ref = cuda_cholesky.forward_substitution_plain(
+        l_ref, torch.eye(n).expand_as(a))
+    assert not torch.equal(_w_in_place(p, warp_stores=True), w_ref)
+
+
+# ---- the port against the JAX package --------------------------------------
+
+@pytest.mark.parametrize("n", [136, 160, 256])
+def test_k4_band_matches_jax(n):
+    """K4's plain version (the band instance's bits) against the JAX
+    kernel: fp32 on both sides, the same right-looking order — 1e-5
+    relative; both 1e-5 of the fp64 factor."""
+    a = _spd(2, n, 4100 + n)
+    ref = np.asarray(pallas_cholesky.cholesky(a, block=1))
+    l = cuda_cholesky.cholesky(torch.tensor(a)).numpy()
+    assert l.dtype == np.float32 and l.shape == a.shape
+    assert (np.triu(l, 1) == 0).all()
+    assert _rel(l, ref) <= 1e-5
+    assert _rel(l, np.linalg.cholesky(a.astype(np.float64))) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def gp160():
+    data, g = _gp_system(3, 160, 5160)
+    ref = [np.asarray(x) for x in pallas_gp.gp_mean_variance_fused(
+        *(data[k] for k in "abcde"), block=1)]
+    return data, g, ref
+
+
+def test_k5_band_matches_jax(gp160):
+    """``gp_mean_variance_fused`` at n = 160 (K5's plain version) against
+    the JAX kernel (its panel width 32): the same factor, the two dot
+    products in another order — 1e-5 absolute; both within 1e-4 of the
+    fp64 closed form."""
+    data, g, ref = gp160
+    got = [x.numpy() for x in cuda_gp.gp_mean_variance_fused(
+        *(torch.tensor(data[k]) for k in "abcde"))]
+    for x, r, exact in zip(got, ref, (g["means"], g["variances"])):
+        assert x.shape == (3, 1, 1) and x.dtype == np.float32
+        assert np.abs(x - r).max() <= 1e-5
+        assert np.abs(x - exact).max() < 1e-4
+        assert np.abs(r - exact).max() < 1e-4
+
+
+@pytest.fixture(scope="module")
+def lml160():
+    b, c, d = _lml_system(3, 160, 10160)
+    ref = {emit_w: [np.asarray(x) for x in pallas_gp._lml_fused_quad_logdet(
+        b, c, d, emit_w=emit_w, block=1)] for emit_w in (False, True)}
+    return (b, c, d), ref
+
+
+@pytest.mark.parametrize("emit_w", [False, True])
+def test_k10_band_matches_jax(lml160, emit_w):
+    """quad and logdet (with ``emit_w`` also W = L⁻¹ and α = K⁻¹d) at
+    n = 160 against the JAX kernel's blocked factor-inverse body: 1e-5
+    relative, the same factorization in another summation order."""
+    (b, c, d), ref = lml160
+    got = cuda_gp_lml.lml_quad_logdet(
+        *(torch.tensor(x) for x in (b, c[..., 0], d[..., 0])), emit_w=emit_w)
+    assert len(got) == len(ref[emit_w]) == (4 if emit_w else 2)
+    for x, r in zip(got, ref[emit_w]):
+        assert tuple(x.shape) == r.shape
+        assert _rel(x.numpy(), r) <= 1e-5
+    if emit_w:
+        assert (np.triu(got[2].numpy(), 1) == 0).all()
+
+
+def test_k10_band_gradients_match_jax(lml160):
+    """∂/∂b, ∂/∂c, ∂/∂d of Σ LML at n = 160 through the port's analytic
+    backward against the JAX custom VJP's backward (``_lml_fused_bwd``)
+    on the JAX kernel's own W and α, at the JAX test's 2e-3; the LML
+    against JAX's at its rtol 1e-4 / atol 1e-3."""
+    (b, c, d), ref = lml160
+    quad, logdet, w, alpha = ref[True]
+    args = [torch.tensor(x, requires_grad=True) for x in (b, c, d)]
+    lml = cuda_gp_lml.gp_log_marginal_likelihood_fused(*args)
+    np.testing.assert_allclose(
+        lml.detach().numpy(), np.asarray(pallas_gp._lml_from(quad, logdet,
+                                                            160)),
+        rtol=1e-4, atol=1e-3)
+    lml.sum().backward()
+    grads = pallas_gp._lml_fused_bwd((w, alpha), np.ones(3, np.float32))
+    for x, r in zip(args, grads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(r), rtol=2e-3,
+                                   atol=2e-3)
+
+
+# ---- the routes ------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [129, 256, 257])
+def test_routes_around_the_band(n, monkeypatch):
+    """Up to 256 the three entry points run the kernels' plain versions on
+    CPU tensors (the band instances' arithmetic) and launch nothing; at
+    257 they take the JAX package's routes past its kernels: the library
+    factor, the Schur solve (``gp_schur_route``) and the ``torch.linalg``
+    LML.  Each result equals (``torch.equal``) its route's own."""
+    counters = (cuda_cholesky.cholesky_cuda, cuda_gp.gp_fused_cuda,
+                cuda_gp_lml.lml_quad_logdet_cuda)
+    before = [(f.launches, f.band_launches) for f in counters]
+    before_w = cuda_gp_lml.lml_quad_logdet_cuda.band_emit_w_launches
+    calls = []
+    for name in ("cholesky_plain", "forward_substitution_plain"):
+        fn = getattr(cuda_cholesky, name)
+        monkeypatch.setattr(cuda_cholesky, name, lambda *a, _f=fn, _n=name:
+                            calls.append(_n) or _f(*a))
+    a = torch.tensor(_spd(1, n, 6000 + n))
+    l = cuda_cholesky.cholesky(a)
+    band = n <= cuda_build.CHOL_MAX_N
+    assert torch.equal(l, cuda_cholesky.cholesky_plain(a) if band
+                       else linalg.cholesky(a))
+    data, _ = _gp_system(1, n, 6100 + n)
+    t = [torch.tensor(data[k]) for k in "abcde"]
+    got = torch.cat(cuda_gp.gp_mean_variance_fused(*t), -1)
+    if band:
+        out = cuda_gp.gp_fused_plain(*cuda_gp._flat(*t, max_n=n))
+        assert torch.equal(got[:, 0, :], out)
+    else:
+        assert torch.equal(got, torch.cat(cuda_gp.gp_schur_route(*t), -1))
+    b, c, d = (torch.tensor(x) for x in _lml_system(1, n, 6200 + n))
+    lml = cuda_gp_lml.gp_log_marginal_likelihood_fused(b, c, d)
+    if band:
+        quad, logdet = cuda_gp_lml.lml_quad_logdet_plain(b, c[..., 0],
+                                                         d[..., 0])
+        assert torch.equal(lml, cuda_gp_lml._lml_from(quad, logdet, n))
+        assert "cholesky_plain" in calls
+    else:
+        assert torch.equal(lml, gp.gp_log_marginal_likelihood(b, c, d))
+    assert [(f.launches, f.band_launches) for f in counters] == before
+    assert cuda_gp_lml.lml_quad_logdet_cuda.band_emit_w_launches == before_w
+
+
+def test_f64_routes_and_kernel_checks_in_the_band():
+    """float64 keeps the library routes in the band; the kernels' wrappers
+    take n ≤ 256 and a CUDA float32 tensor, and raise otherwise (K3
+    keeps 128)."""
+    a64 = torch.tensor(make_spd_batch(1, 160, np.random.default_rng(7)))
+    assert torch.equal(cuda_cholesky.cholesky(a64), linalg.cholesky(a64))
+    data, _ = _gp_system(1, 160, 7160)
+    t = [torch.tensor(data[k], dtype=torch.float64) for k in "abcde"]
+    mean, var = cuda_gp.gp_mean_variance_fused(*t)
+    x = linalg.spd_solve(linalg.add_diagonal(t[1], t[2]),
+                         torch.cat([t[3], t[0]], -1))
+    proj = t[0].mT @ x
+    assert mean.dtype == torch.float64
+    np.testing.assert_allclose(mean.numpy(), proj[:, :, 0:1].numpy(),
+                               rtol=1e-12)
+    np.testing.assert_allclose(var.numpy(), (t[4] - proj[:, :, 1:2]).numpy(),
+                               rtol=1e-12)
+    b, c, d = (torch.tensor(x, dtype=torch.float64)
+               for x in _lml_system(1, 160, 7161))
+    assert torch.equal(cuda_gp_lml.gp_log_marginal_likelihood_fused(b, c, d),
+                       gp.gp_log_marginal_likelihood(b, c, d))
+    a = torch.eye(160)[None]
+    v = torch.ones(1, 160)
+    for fn, args in ((cuda_cholesky.cholesky_cuda, (a,)),
+                     (cuda_gp.gp_fused_cuda, (v, a, v, v, torch.ones(1))),
+                     (cuda_gp_lml.lml_quad_logdet_cuda, (a, v, v))):
+        with pytest.raises(ValueError, match="float32 CUDA"):
+            fn(*args)
+    a, v = torch.eye(257)[None], torch.ones(1, 257)
+    for fn, args in ((cuda_cholesky.cholesky_cuda, (a,)),
+                     (cuda_gp.gp_fused_cuda, (v, a, v, v, torch.ones(1))),
+                     (cuda_gp_lml.lml_quad_logdet_cuda, (a, v, v))):
+        with pytest.raises(ValueError, match="1..256"):
+            fn(*args)
+    with pytest.raises(ValueError, match="1..128"):
+        cuda_cholesky.inverse_cholesky_cuda(torch.eye(129)[None])
+
+
+def test_chol_band_probe_patches_match_the_kernel_source():
+    """The card probe of the packed instances (``bench/chol_band_probe.py``)
+    builds its stamped variants by patching ``csrc/``: every anchor must
+    still occur as often as the probe expects, and the probe refuses to
+    run without a card."""
+    from cuda_matrix_inversion_tpu_torch.bench import chol_band_probe, chol_probe
+
+    for unit, patches in (
+            ("cholesky.cu", chol_band_probe.K4_STAMPS),
+            ("gp.cu", chol_band_probe.K10_STAMPS),
+            ("cholesky_common.cuh",
+             [*chol_probe.STEPS, *chol_band_probe.W_STEPS])):
+        src = (cuda_build.CSRC_DIR / unit).read_text()
+        for anchor, _, count in patches:
+            assert src.count(anchor) == count, (unit, anchor)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            chol_band_probe.main()

@@ -235,8 +235,9 @@ def test_indefinite_member_is_confined():
 
 def test_f64_and_big_n_routes():
     """float64 takes the library routes; n > 128 inverts through Schur onto
-    the kernel's plain version (n = 160 splits 80/80); the factor takes the
-    library route past 128, as JAX takes XLA's past its kernel."""
+    the kernel's plain version (n = 160 splits 80/80); the factor runs K4's
+    plain version up to 256 (n = 160 here) and takes the library route
+    past it (n = 264), as JAX takes XLA's past its kernel."""
     a64 = torch.tensor(make_spd_batch(2, 24, np.random.default_rng(4)))
     assert torch.equal(cuda_cholesky.inverse_cholesky(a64),
                        linalg.inverse_cholesky(a64))
@@ -247,10 +248,13 @@ def test_f64_and_big_n_routes():
     before = cuda_cholesky.cholesky_cuda.launches
     l = cuda_cholesky.cholesky(torch.tensor(a))
     assert cuda_cholesky.cholesky_cuda.launches == before
-    assert torch.equal(l, linalg.cholesky(torch.tensor(a)))
+    assert torch.equal(l, cuda_cholesky.cholesky_plain(torch.tensor(a)))
     assert l.dtype == torch.float32
     np.testing.assert_allclose(l.numpy(), np.linalg.cholesky(
         a.astype(np.float64)), rtol=0, atol=1e-4 * np.abs(l.numpy()).max())
+    big = torch.tensor(_spd(1, 264, 6))
+    assert torch.equal(cuda_cholesky.cholesky(big), linalg.cholesky(big))
+    assert cuda_cholesky.cholesky_cuda.launches == before
 
 
 @pytest.mark.parametrize("n", [8, 24, 100, 150, 160, 256, 272, 304, 512,

@@ -185,11 +185,11 @@ def test_host_wrappers_and_f64_route(jax_block1):
 
 @pytest.mark.parametrize("route", ["k5_schur", "k6_band"])
 def test_k5_schur_route_past_128(route, monkeypatch):
-    """n = 160 > 128: K5's method solves K = B + diag(c) through
-    spd_schur_solve on the K3 plain base; K6's runs its own plain version
-    (the cluster instance's arithmetic; K6 serves n ≤ 224, as JAX's
-    kernel does) and never the Schur solve.  Both within 1e-4 of fp64."""
-    data, means, variances = _system(160)
+    """n = 160 > 128: K5's method runs K5's plain version (the packed
+    instance's arithmetic; K5 serves n ≤ 256, as JAX's kernel does) and
+    K6's its own (the cluster instance's; n ≤ 224): neither calls the Schur
+    solve.  K5's solves K = B + diag(c) through spd_schur_solve on the K3
+    plain base only past 256 (n = 264).  All within 1e-4 of fp64."""
     calls = []
     solve = cuda_gp.schur.spd_schur_solve
 
@@ -200,11 +200,14 @@ def test_k5_schur_route_past_128(route, monkeypatch):
     monkeypatch.setattr(cuda_gp.schur, "spd_schur_solve", spy)
     fn = (cuda_gp.gp_mean_variance_fused if route == "k5_schur"
           else cuda_gp.gp_mean_variance_fused_ns)
-    mean, var = _np(fn(*_t(data, "abcde")))
-    assert calls == ([160] if route == "k5_schur" else [])
-    assert mean.shape == (BATCH, 1, 1)
-    assert np.abs(mean - means).max() < 1e-4
-    assert np.abs(var - variances).max() < 1e-4
+    for n in (160, 264) if route == "k5_schur" else (160,):
+        data, means, variances = _system(n)
+        calls.clear()
+        mean, var = _np(fn(*_t(data, "abcde")))
+        assert calls == ([n] if n > cuda_build.CHOL_MAX_N else [])
+        assert mean.shape == (BATCH, 1, 1)
+        assert np.abs(mean - means).max() < 1e-4
+        assert np.abs(var - variances).max() < 1e-4
 
 
 def test_indefinite_system_is_confined():

@@ -221,9 +221,10 @@ def test_fitted_scales_beat_unscaled_and_feed_prediction(synth):
 
 
 def test_routes_validation_and_no_launch_on_cpu(synth):
-    """float64 and n > 128 take the torch.linalg LML (JAX's route past its
-    kernel); without grad the plain variant runs alone; an unknown method
-    raises; CPU tensors launch no kernel."""
+    """float64 and n > 256 take the torch.linalg LML (JAX's route past its
+    kernel), n = 140 K10's plain version (the packed instance's
+    arithmetic); without grad the plain variant runs alone; an unknown
+    method raises; CPU tensors launch no kernel."""
     cuda_gp_lml.lml_quad_logdet_cuda.launches = 0
     b, c, d = (x[:3] for x in synth)
     b64, c64, d64 = (torch.tensor(x, dtype=torch.float64) for x in (b, c, d))
@@ -231,7 +232,12 @@ def test_routes_validation_and_no_launch_on_cpu(synth):
         cuda_gp_lml.gp_log_marginal_likelihood_fused(b64, c64, d64).numpy(),
         np.asarray(jax_gp.gp_log_marginal_likelihood(
             *(np.asarray(x, np.float64) for x in (b, c, d)))), rtol=1e-12)
-    big = _synth(batch=2, n=140, rank=4, seed=7)
+    band = _synth(batch=2, n=140, rank=4, seed=7)
+    got = cuda_gp_lml.gp_log_marginal_likelihood_fused(*_t(*band))
+    quad, logdet = cuda_gp_lml.lml_quad_logdet_plain(
+        *_t(band[0], band[1][..., 0], band[2][..., 0]))
+    assert torch.equal(got, cuda_gp_lml._lml_from(quad, logdet, 140))
+    big = _synth(batch=2, n=264, rank=4, seed=7)
     got = cuda_gp_lml.gp_log_marginal_likelihood_fused(*_t(*big))
     np.testing.assert_allclose(
         got.numpy(), gp.gp_log_marginal_likelihood(*_t(*big)).numpy())

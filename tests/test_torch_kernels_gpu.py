@@ -347,19 +347,20 @@ def test_k6_matches_plain_at_1600x128(cuda):
 
 
 def test_kernels_reject_n129_on_cuda(cuda):
-    """The one-block kernels reject n = 129; K1 and K6, which run one
-    thread-block cluster a matrix past 128, reject n = 225, and K2, whose
-    cluster instance serves up to 256, n = 257."""
+    """K3 rejects n = 129 (both packages invert through Schur past 128);
+    K1 and K6, which run one thread-block cluster a matrix past 128, reject
+    n = 225; K2, whose cluster instance serves up to 256, and K4 and K5,
+    whose packed instances do, n = 257."""
     with pytest.raises(ValueError, match="256"):
         cuda_lu.lu_inverse_cuda(torch.eye(257, device=cuda)[None])
-    a = torch.eye(129, device=cuda)[None]
     with pytest.raises(ValueError, match="128"):
+        cuda_cholesky.inverse_cholesky_cuda(torch.eye(129, device=cuda)[None])
+    a = torch.eye(257, device=cuda)[None]
+    with pytest.raises(ValueError, match="256"):
         cuda_cholesky.cholesky_cuda(a)
-    with pytest.raises(ValueError, match="128"):
-        cuda_cholesky.inverse_cholesky_cuda(a)
-    v = torch.ones(1, 129, device=cuda)
+    v = torch.ones(1, 257, device=cuda)
     e = torch.ones(1, device=cuda)
-    with pytest.raises(ValueError, match="128"):
+    with pytest.raises(ValueError, match="256"):
         cuda_gp.gp_fused_cuda(v, a, v, v, e)
     a = torch.eye(225, device=cuda)[None]
     v = torch.ones(1, 225, device=cuda)
@@ -367,6 +368,112 @@ def test_kernels_reject_n129_on_cuda(cuda):
         newton_schulz.ns_iterate_cuda(a, LANES["newton_schulz_pallas"]["schedule"])
     with pytest.raises(ValueError, match="224"):
         cuda_gp.gp_fused_ns_cuda(v, a, v, v, e)
+
+
+def _check_chol_band(cuda, batch, n, seed):
+    """K4, K5 and K10 (with and without W) past 128, on the packed lower
+    triangle, against their plain versions on one launch each; for batch >
+    1 member batch // 2 is negative definite and is the only non-finite
+    one.  K4's L and K10's W are bitwise the plain versions' on every
+    positive definite member; K5 within K5_ATOL (and the fp64 closed form
+    within 1e-4), K10's quad, logdet and α within LML_RTOL (sums in
+    another order)."""
+    bad = batch // 2 if batch > 1 else None
+    ok = np.arange(batch) != (bad if bad is not None else -1)
+    keep = torch.from_numpy(ok).to(cuda)
+    a = torch.tensor(make_spd_batch(batch, n, np.random.default_rng(seed)),
+                     dtype=torch.float32, device=cuda)
+    g = make_gp_batch(batch, n, np.random.default_rng(seed + 1))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=cuda)
+         for k, v in g.items()}
+    if bad is not None:
+        a[bad] = -a[bad]
+        t["b"][bad] = -t["b"][bad]
+    flat = cuda_gp._flat(*(t[k] for k in "abcde"),
+                         max_n=cuda_build.CHOL_MAX_N)
+    counters = ((cuda_cholesky.cholesky_cuda, "band_launches"),
+                (cuda_gp.gp_fused_cuda, "band_launches"),
+                (cuda_gp_lml.lml_quad_logdet_cuda, "band_launches"),
+                (cuda_gp_lml.lml_quad_logdet_cuda, "band_emit_w_launches"))
+    before = [getattr(f, k) for f, k in counters]
+    l = cuda_cholesky.cholesky_cuda(a)
+    out = cuda_gp.gp_fused_cuda(*flat)
+    b, c, d = flat[1], flat[2], flat[3]
+    lml = cuda_gp_lml.lml_quad_logdet_cuda(b, c, d)
+    lml_w = cuda_gp_lml.lml_quad_logdet_cuda(b, c, d, True)
+    torch.cuda.synchronize()
+    assert [getattr(f, k) for f, k in counters] == [x + 1 for x in before]
+    l_ref = cuda_cholesky.cholesky_plain(a)
+    assert torch.equal(l[keep], l_ref[keep])
+    assert bool(torch.isfinite(l).all(-1).all(-1).eq(keep).all())
+    out_ref = cuda_gp.gp_fused_plain(*flat)
+    assert bool(torch.isfinite(out).all(-1).eq(keep).all())
+    o, r = out[keep].cpu().numpy(), out_ref[keep].cpu().numpy()
+    assert np.abs(o - r).max() <= K5_ATOL
+    ref64 = np.stack([g["means"][:, 0, 0], g["variances"][:, 0, 0]], -1)
+    assert np.abs(o - ref64[ok]).max() < 1e-4
+    ref = cuda_gp_lml.lml_quad_logdet_plain(b, c, d, True)
+    assert torch.equal(lml_w[2][keep], ref[2][keep])
+    for got in (lml, lml_w):
+        for x, y in zip(got, ref):
+            fin = torch.isfinite(x.reshape(batch, -1)).all(-1)
+            assert bool(fin.eq(keep).all())
+            assert _rel(x[keep].cpu().numpy(), y[keep].cpu().numpy()
+                        ) <= LML_RTOL
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1600])
+@pytest.mark.parametrize("n", [129, 160, 200, 232, 256])
+def test_chol_band_kernels_match_plain(cuda, n, batch):
+    """K4, K5 and K10 past 128 at n = 129 (one row past the square
+    instances, n off 4), 160, 200, 232 and 256 (one block an SM), at one
+    system, 37 (not a multiple of the blocks the card holds at once) and
+    1600 (many waves)."""
+    _check_chol_band(cuda, batch, n, 1900 + n + batch)
+
+
+def test_chol_band_paths_run_k5_and_k10(cuda):
+    """A ``GPEngine(method="pallas")`` request at n = 200 (the 256 bucket)
+    runs K5's packed instance, no K3 and no Schur solve, within 1e-4 of the
+    fp64 closed form; ``GPEngine.fit`` at n = 200 runs K10's packed
+    instance with W and agrees with the ``torch.linalg`` fit to the CPU
+    fit test's bounds; ``cholesky`` at 256 runs K4's."""
+    from cuda_matrix_inversion_tpu_torch import GPEngine
+
+    g = make_gp_batch(20, 200, np.random.default_rng(1200))
+    before = (cuda_gp.gp_fused_cuda.band_launches,
+              cuda_cholesky.inverse_cholesky_cuda.launches)
+    mean, var = GPEngine(method="pallas", device=cuda).mean_variance(
+        *(g[k].astype(np.float32) for k in "abcde"))
+    assert (cuda_gp.gp_fused_cuda.band_launches,
+            cuda_cholesky.inverse_cholesky_cuda.launches) == (
+                before[0] + 1, before[1])
+    assert np.abs(mean - g["means"]).max() < 1e-4
+    assert np.abs(var - g["variances"]).max() < 1e-4
+    rng = np.random.default_rng(1201)
+    w = rng.standard_normal((8, 200, 6))
+    b = (w @ np.transpose(w, (0, 2, 1)) + 0.05 * np.eye(200)).astype(
+        np.float32)
+    c = (rng.random((8, 200, 1)) + 0.5).astype(np.float32)
+    k = 1.8 ** 2 * b.astype(np.float64) + 0.25 * np.eye(200) * c[:, :, 0][
+        :, None, :]
+    d = (np.linalg.cholesky(k) @ rng.standard_normal((8, 200, 1))).astype(
+        np.float32)
+    before = cuda_gp_lml.lml_quad_logdet_cuda.band_emit_w_launches
+    res = {m: GPEngine(fit_method=m, device=cuda).fit(b, c, d, steps=30)
+           for m in ("pallas", "xla")}
+    assert cuda_gp_lml.lml_quad_logdet_cuda.band_emit_w_launches == (
+        before + 30)
+    k10, ref = res["pallas"], res["xla"]
+    np.testing.assert_allclose(k10.lml, ref.lml, rtol=1e-3, atol=1e-2)
+    assert np.abs(k10.log_amp - ref.log_amp).max() <= 5e-3
+    assert np.abs(k10.log_noise - ref.log_noise).max() <= 5e-3
+    a = torch.tensor(make_spd_batch(4, 256, np.random.default_rng(1202)),
+                     dtype=torch.float32, device=cuda)
+    before = cuda_cholesky.cholesky_cuda.band_launches
+    l = cuda_cholesky.cholesky(a)
+    assert cuda_cholesky.cholesky_cuda.band_launches == before + 1
+    assert torch.equal(l, cuda_cholesky.cholesky_plain(a))
 
 
 def _check_k7(cuda, a, bad=None, gate=True):
@@ -569,10 +676,13 @@ def test_k11_matches_plain_at_1600x128(cuda):
 
 
 def test_new_kernels_reject_past_their_ceiling(cuda):
-    a = torch.eye(129, device=cuda)[None]
-    v = torch.ones(1, 129, device=cuda)
-    with pytest.raises(ValueError, match="128"):
-        cuda_gp_lml.lml_quad_logdet_cuda(a, v, v)
+    a = torch.eye(257, device=cuda)[None]
+    v = torch.ones(1, 257, device=cuda)
+    before = cuda_gp_lml.lml_quad_logdet_cuda.launches
+    for emit_w in (False, True):
+        with pytest.raises(ValueError, match="256"):
+            cuda_gp_lml.lml_quad_logdet_cuda(a, v, v, emit_w)
+    assert cuda_gp_lml.lml_quad_logdet_cuda.launches == before
     with pytest.raises(ValueError, match="192"):
         cuda_gauss_jordan.gauss_jordan_cuda(torch.eye(193, device=cuda)[None])
     # the warm kernels serve n <= 224 (one cluster a matrix past 128)
