@@ -88,7 +88,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each through the gate, and ``gp_mean_variance_host(...,
    method="pallas_ns")`` at 100×192 and 100×224 within 1e-4 of the fp64
    closed form; the cluster instances of K1 and K6 must launch in this
-   path.  Then the K2 band path, with the counters reset:
+   path, K1's at each padded size NP = 160, 192, 224 and K6's at 192 and
+   224 (phase 3 runs K6's at 160 too).  Then the K2 band path, with the counters reset:
    ``inverse_batched`` with ``lu_pallas`` at 100×{160, 192, 224, 256} (κ
    = 500), an ``lu_pallas`` engine in its 256 bucket, ``bucketed_inverse``
    on a ragged list with a 256 bucket, the differentiable ``lu_pallas`` at
@@ -123,7 +124,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    plain versions, ``torch.linalg.inv`` (K1) or the GP ``solve`` method
    (K6), the route each replaced (the Schur recursion on K1 at 128, the
    batched split3 products, the adaptive loop; K5's Schur route), the
-   lane or method through its entry point, and the bound; at 100×{160,
+   lane or method through its entry point, the bound and their times on
+   the slab loop before the 2 x 2 quadrant cluster; at 100×{160,
    192, 224, 256} and 1600×256 K2 on its cluster instance beside its plain
    version, ``torch.linalg.inv``, the blocked route on K9 that
    ``lu_pallas`` took there before, the lane and the bound; at the same
@@ -253,6 +255,24 @@ BAND_BEFORE_MS = {
                        "100x160": None, "100x192": None},
     "k11_band": {"100x224": 0.531, "1600x224": 7.444, "100x160": 0.191,
                  "100x192": 0.365},
+}
+# K1's and K6's cluster instances before the 2 x 2 quadrant cluster (PR 17's
+# slab loop: NP / 32 CTAs of 32 rows, the seed over the cluster), through
+# the wrappers at BAND_TIMED, in ms: PR 17's final run of phase 5 of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W.  Its record holds no time at
+# 100x160 and 100x192 (None); there ``bench/ns_band_probe.py ab`` times the
+# slab instances of a checkout against the quadrant ones in one run.
+COLD_BAND_BEFORE_MS = {
+    "newton_schulz_spd10_pallas": {"100x224": 0.576, "1600x224": 7.989,
+                                   "100x160": None, "100x192": None},
+    "newton_schulz_spd_pallas": {"100x224": 0.691, "1600x224": 9.710,
+                                 "100x160": None, "100x192": None},
+    "newton_schulz_pallas": {"100x224": 1.071, "1600x224": 14.970,
+                             "100x160": None, "100x192": None},
+    "newton_schulz_pan500_pallas": {"100x224": 2.431, "1600x224": 34.834,
+                                    "100x160": None, "100x192": None},
+    "k6_band": {"100x224": 0.726, "1600x224": 10.459, "100x160": None,
+                "100x192": None},
 }
 # K1's and K6's cluster instances (the cold band, n = 129 … 224): phase
 # 3's dimensions for K1 (31 rows of zero padding at 129) and K6, K1's
@@ -653,8 +673,9 @@ def _cold_band_vs_plain(dev, k1_lanes, err, torch):
     the SPD class), and the pan schedule at 33 lo rounds (bf16 and split3)
     at 7×160; K6 at n ∈ K6_BAND_N on a batch of 100, whose finite members
     also lie within GP_ATOL of the fp64 closed form.  In each, member
-    batch // 2's A (K6: B) holds a NaN and alone must come out non-finite.
-    Errors under ``k1_band`` and ``k6_band``."""
+    batch // 2's A (K6: B) holds a NaN and alone must come out non-finite,
+    and each launch counts once at its padded size NP (the wrappers'
+    ``band_launches_<NP>``).  Errors under ``k1_band`` and ``k6_band``."""
     from cuda_matrix_inversion_tpu_torch.io.fixtures import (
         make_gp_batch,
         make_nonsym_cond,
@@ -667,6 +688,17 @@ def _cold_band_vs_plain(dev, k1_lanes, err, torch):
     )
     from cuda_matrix_inversion_tpu_torch.ops.registry import LANES
 
+    def launched_at(fn, n, run):
+        # run() launches the quadrant instance at n's padded size once, as
+        # the launch reports it
+        key = "band_launches_%d" % next(
+            np_ for np_ in cuda_build.NS_BAND_NP if n <= np_)
+        before = getattr(fn, key)
+        run()
+        if getattr(fn, key) != before + 1:
+            raise AssertionError(f"{fn.__name__} at n = {n}: not one "
+                                 f"launch of its NP instance ({key})")
+
     def k1(sched, batch, n, seed):
         rng = np.random.default_rng(seed)
         a = (make_nonsym_cond(batch, n, 500.0, rng) if sched.split3
@@ -674,9 +706,10 @@ def _cold_band_vs_plain(dev, k1_lanes, err, torch):
         a = torch.tensor(a, dtype=torch.float32, device=dev)
         bad = batch // 2
         a[bad, n // 2, n - 1] = float("nan")
-        _compare("k1_band", newton_schulz.ns_iterate_cuda,
-                 newton_schulz.ns_iterate_plain, (a, sched), bad, K1_RTOL,
-                 err, torch)
+        launched_at(newton_schulz.ns_iterate_cuda, n, lambda: _compare(
+            "k1_band", newton_schulz.ns_iterate_cuda,
+            newton_schulz.ns_iterate_plain, (a, sched), bad, K1_RTOL, err,
+            torch))
 
     for i, lane in enumerate(k1_lanes):
         sched = LANES[lane]["schedule"]
@@ -694,9 +727,9 @@ def _cold_band_vs_plain(dev, k1_lanes, err, torch):
         t["b"][50, n // 2, n - 1] = float("nan")
         flat = cuda_gp._flat(*(t[k] for k in "abcde"),
                              max_n=cuda_build.WARM_MAX_N)
-        _compare("k6_band", cuda_gp.gp_fused_ns_cuda,
-                 cuda_gp.gp_fused_ns_plain, flat, 50, K6_RTOL, err, torch,
-                 atols=(K6_ATOL,))
+        launched_at(cuda_gp.gp_fused_ns_cuda, n, lambda: _compare(
+            "k6_band", cuda_gp.gp_fused_ns_cuda, cuda_gp.gp_fused_ns_plain,
+            flat, 50, K6_RTOL, err, torch, atols=(K6_ATOL,)))
         out = cuda_gp.gp_fused_ns_cuda(*flat).cpu().numpy()
         ok = np.arange(100) != 50
         ref64 = _gp_ref64({k: g[k].astype(np.float32) for k in "abcde"})
@@ -773,7 +806,8 @@ def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
     and K6 on GP systems, each beside its plain version, its library call
     (``torch.linalg.inv``; the GP ``solve`` method), the route it replaced
     (COLD_BAND_ROUTES; K6: K5's Schur route), the lane or method through
-    its entry point and its bound.  A batch of 1600 repeats 100 draws."""
+    its entry point, its bound and its time before the quadrant cluster
+    (:data:`COLD_BAND_BEFORE_MS`).  A batch of 1600 repeats 100 draws."""
     from cuda_matrix_inversion_tpu_torch.bench.ns_band_probe import (
         band_routes,
     )
@@ -826,7 +860,9 @@ def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
             timing[(key + "_bound", case)] = bound
             print(json.dumps({
                 "timing": "K1_BAND", "lane": lane, "case": case,
-                "kernel_ms": ms, "lane_ms": lane_ms, "plain_ms": plain_ms,
+                "kernel_ms": ms,
+                "before_ms": COLD_BAND_BEFORE_MS[lane][case],
+                "lane_ms": lane_ms, "plain_ms": plain_ms,
                 "route_before_ms": route_ms,
                 "route_before": COLD_BAND_ROUTES[lane],
                 "torch_linalg_inv_ms": inv_ms[id(a)], "bound_ms": bound[0],
@@ -848,6 +884,7 @@ def _time_cold_band(dev, k1_lanes, timing, library, card, torch):
         timing[("k6_band_bound", case)] = bound
         print(json.dumps({
             "timing": "K6_BAND", "case": case, "kernel_ms": ms,
+            "before_ms": COLD_BAND_BEFORE_MS["k6_band"][case],
             "method_pallas_ns_ms": lane_ms, "plain_ms": plain_ms,
             "route_before_ms": route_ms,
             "route_before": "gp_schur_route (Schur on K3)",
@@ -2575,11 +2612,18 @@ def main() -> int:
                              "band_launches"),
                 "k10_band_emit_w": (cuda_gp_lml.lml_quad_logdet_cuda,
                                     "band_emit_w_launches")}
+    # K1's and K6's quadrant instances at each padded size
+    for np_ in cuda_build.NS_BAND_NP:
+        counters[f"k1_band_{np_}"] = (newton_schulz.ns_iterate_cuda,
+                                      f"band_launches_{np_}")
+        counters[f"k6_band_{np_}"] = (cuda_gp.gp_fused_ns_cuda,
+                                      f"band_launches_{np_}")
     inversion_path = ("k1", "k2", "k3", "k4", "k5", "k6")
     engine_path = ("k7", "k8", "k10", "k11")
     big_n_path = ("k2", "k9")
     warm_band_path = ("k8_band", "k11_band")
-    cold_band_path = ("k1_band", "k6_band")
+    cold_band_path = ("k1_band", "k6_band", "k1_band_160", "k1_band_192",
+                      "k1_band_224", "k6_band_192", "k6_band_224")
     k2_band_path = ("k2_band",)
     chol_band_path = ("k4_band", "k5_band", "k10_band", "k10_band_emit_w")
     harness_path = ("k1", "k2", "k3", "k5", "k6", "k7", "k9", "k10")
@@ -2974,13 +3018,14 @@ def main() -> int:
                    "Newton-Schulz on a thread-block cluster (100x224, 7 CTAs "
                    "a system)", "ns_cluster_rounds.cuh", "pallas_gp.py:491",
                    ("k11_band", "100x224")),
-        entry_line("k1_band", "K1 newton_schulz on a thread-block cluster "
-                   "(spd10 schedule, 100x224, 7 CTAs a matrix)",
-                   "newton_schulz.cu", "newton_schulz.py:549",
-                   ("k1_band", "100x224")),
+        entry_line("k1_band", "K1 newton_schulz on a 2x2 thread-block "
+                   "cluster (spd10 schedule, 100x224, 4 CTAs a matrix, a "
+                   "quadrant each)", "ns_quad_rounds.cuh",
+                   "newton_schulz.py:549", ("k1_band", "100x224")),
         entry_line("k6_band", "K6 fused GP mean/variance, Newton-Schulz on "
-                   "a thread-block cluster (100x224, 7 CTAs a system)",
-                   "gp.cu", "pallas_gp.py:606", ("k6_band", "100x224")),
+                   "a 2x2 thread-block cluster (100x224, 4 CTAs a system, "
+                   "a quadrant each)", "ns_quad_rounds.cuh",
+                   "pallas_gp.py:606", ("k6_band", "100x224")),
         entry_line("k2_band", "K2 lu on a thread-block cluster (pivoted "
                    "getrf + inverse, general class 100x256, 8 CTAs a "
                    "matrix)", "lu_band.cu", "pallas_lu.py:453",

@@ -256,8 +256,8 @@ def _k6_launcher(cdll, flat):
         cuda_build.check(cdll.cmi_gp_fused_ns(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
             e.data_ptr(), out.data_ptr(), b.shape[0], b.shape[-1],
-            sched.lo_iters, sched.hi_iters, two_c, c_sq, device, stream),
-            "k6")
+            sched.lo_iters, sched.hi_iters, two_c, c_sq, device, stream,
+            None), "k6")
         return out
     return run
 

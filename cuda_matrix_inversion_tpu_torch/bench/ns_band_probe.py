@@ -1,10 +1,13 @@
-"""Probes of the Newton-Schulz kernels' cluster instances (K1, K8, K6 and
-K11 at 129 ≤ n ≤ 224, ``csrc/ns_cluster_rounds.cuh``) on one card.
+"""Probes of the Newton-Schulz kernels' cluster instances at 129 ≤ n ≤ 224
+on one card: K8 and K11 on the slab loop (``csrc/ns_cluster_rounds.cuh``),
+K1 and K6 on the 2 × 2 quadrant loop (``csrc/ns_quad_rounds.cuh``).
 
     python -m cuda_matrix_inversion_tpu_torch.bench.ns_band_probe [BASELINE_CSRC]
+    python -m cuda_matrix_inversion_tpu_torch.bench.ns_band_probe ab BASELINE_CSRC
     python -m cuda_matrix_inversion_tpu_torch.bench.ns_band_probe routes
 
-Prints one JSON line a probe (``routes`` alone with that argument):
+Prints one JSON line a probe (``routes`` alone with that argument, and
+``baseline`` alone with ``ab``):
 
 - ``routes``: the routes the fixed Newton-Schulz lanes and the GP method
   ``pallas_ns`` took at 129 ≤ n ≤ 224 before K1 and K6 served that band,
@@ -23,12 +26,13 @@ Prints one JSON line a probe (``routes`` alone with that argument):
   every CTA of a full grid of clusters at once; GB/s a CTA (median) and
   for the card, and ns a chunk, at NP = 160, 192, 224 and C = NP / 32.
 - ``clusters``: ``cudaOccupancyMaxActiveClusters`` for a kernel of 256
-  threads at each cluster size 4 … 8 with the band instances' shared
-  memory (``band_smem_bytes``, both schedules), and for the band kernels
-  themselves (``ns_band_kernel`` for K8 and K1, ``gp_warm_band_kernel``,
-  ``gp_ns_band_kernel``): the shared
-  memory each launch asks for, their registers, local memory
-  (``cudaFuncGetAttributes``) and ``ptxas -v``'s lines (spills).
+  threads at each cluster size 4 … 8 with the slab instances' shared
+  memory (``band_smem_bytes``, both schedules), and for the cluster
+  kernels themselves (``ns_band_kernel`` for K8, ``ns_quad_kernel`` for
+  K1, ``gp_warm_band_kernel``, ``gp_ns_quad_kernel``): the shared memory
+  each launch asks for, their registers, local memory
+  (``cudaFuncGetAttributes``), the clusters the card holds at once and
+  ``ptxas -v``'s lines (spills).
 - ``clock_split``: K8's cluster instance with thread 0 of block 0 (rank 0
   of the first cluster) stamping ``clock64`` and ``%globaltimer`` after
   each step of the band loop (:data:`BAND_PHASES`: each store and cluster
@@ -38,15 +42,23 @@ Prints one JSON line a probe (``routes`` alone with that argument):
   walk, the fp32 residual being the fifth of the six walks of the
   default 2 + 1 rounds); each interval in µs, median of 5 launches, K8 bf16 and split3
   at 100×224, bf16 at 1600×224, 100×160 and 1×224 (one cluster on an
-  idle card: the walks without the other clusters' traffic), and K1's
-  spd10 lane at 100×224 (its seed over the cluster a phase of its own).
+  idle card: the walks without the other clusters' traffic).
+- ``quad_split``: K1's quadrant instance with thread 0 of block 0 (the
+  diagonal CTA (0, 0) of the first cluster) stamping after the stage, the
+  seed, each product (A X, X T, the residual), each store of T or R and
+  each publish of X (:data:`QUAD_PHASES`); µs, median
+  of 5 launches, spd10 at 100×224, 1600×224 and 1×224 (one cluster on an
+  idle card) and pan500 at 100×224: a product's interval against the
+  slab loop's walks above.
 - ``baseline`` (when ``BASELINE_CSRC``, another checkout's ``csrc/``, is
   given): K8 (bf16, split3) and K11 of that checkout against this tree's
   on the same inputs at 100×224, 1600×224, 100×160 and 100×192 (the
-  drifted batches of ``chip_smoke.py`` phase 5): whether the outputs are
-  bitwise equal and their largest difference (a design that sums in
-  another order differs by rounding), and bare launches timed baseline,
-  this, this, baseline.
+  drifted batches of ``chip_smoke.py`` phase 5), and K1 in each fixed
+  lane (pan500 on the κ = 500 nonsymmetric class, the others on the SPD
+  class) and K6 on the same shapes: whether the outputs are bitwise equal
+  and their largest difference (a design that sums in another order
+  differs by rounding), and bare launches timed baseline, this, this,
+  baseline.
 
 The micro-benchmark's source is written under ``build/`` and compiled with
 the kernels' flags; the band kernels' figures come from a copy of
@@ -68,6 +80,7 @@ import torch
 
 from cuda_matrix_inversion_tpu_torch.bench.gp_ns_probe import (
     STAMP_DEFS,
+    _k6_launcher,
     _launcher,
     clock_split,
     median_ms,
@@ -106,8 +119,8 @@ BAND_TIMED = ((100, 224), (1600, 224), (100, 160), (100, 192))
 # wait for a peer's two chunks (14) and their MMAs or FMAs (15), each
 # window's cluster barrier and pushes (16), and its closing block barrier
 # (17); :func:`walks` groups them by walk.
-BAND_PHASES = {18: "load X0 (K8), stage A",
-               1: "seed over the cluster (K1)",
+BAND_PHASES = {18: "load X0, stage A",
+               1: "before the rounds",
                2: "publish X, cluster barrier",
                4: "lo: store T, cluster barrier",
                6: "lo: publish X, cluster barrier",
@@ -153,9 +166,8 @@ BAND_STAMPS = {
          "  parity ^= 1;\n  __syncthreads();\n  ns_stamp(17);\n", 1),
     ],
     "newton_schulz.cu": [
-        ("  if constexpr (WARM) band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
-         "  ns_stamp(0);\n"
-         "  if constexpr (WARM) band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
+        ("  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
+         "  ns_stamp(0);\n  band_load_x<NP>(xm, x0 + base, n, rank, w);\n",
          1),
         ("  band_stage(sm, n, rank, [=](int i, int j) { return ab[i * n + j]; "
          "});\n",
@@ -167,6 +179,58 @@ BAND_STAMPS = {
         ("  band_store_x(sm, x + base, n, rank);\n}\n",
          "  band_store_x(sm, x + base, n, rank);\n  __syncthreads();\n"
          "  ns_stamp(11);\n}\n", 1),
+    ],
+}
+
+
+# The quadrant loop's clock split (K1's ns_quad_kernel), as BAND_STAMPS.
+QUAD_PHASES = {30: "stage A (and A's remote bf16 part)",
+               31: "seed over the cluster (3 cluster barriers)",
+               41: "publish: cluster barrier after the last product",
+               32: "publish X, cluster barrier",
+               33: "lo: A X",
+               34: "lo: store T, cluster barrier",
+               35: "lo: X T",
+               36: "hi: residual",
+               37: "hi: cluster barriers, X's bf16 parts",
+               40: "hi: split A X, store R, cluster barrier",
+               38: "hi: X R",
+               39: "write X"}
+QUAD_STAMPS = {
+    "ns_common.cuh": [("#pragma once\n", STAMP_DEFS, 1)],
+    "ns_quad_rounds.cuh": [
+        ("    if (r > 0 && !turn) cluster_sync();\n",
+         "    if (r > 0 && !turn) cluster_sync();\n"
+         "    if (r > 0 && !turn) ns_stamp(41);\n", 1),
+        ("    cluster_sync();\n  };\n  const bf16* xh",
+         "    cluster_sync();\n    ns_stamp(32);\n  };\n  const bf16* xh", 1),
+        ("      ax_one(acc);\n    if (w.active)\n",
+         "      ax_one(acc);\n    ns_stamp(33);\n    if (w.active)\n", 1),
+        ("    store_t(acc);\n    xt(xm);\n",
+         "    store_t(acc);\n    ns_stamp(34);\n    xt(xm);\n"
+         "    ns_stamp(35);\n", 1),
+        ("      quad_residual<NP, SPLIT3>(sm, c, bars, src, n);\n",
+         "      quad_residual<NP, SPLIT3>(sm, c, bars, src, n);\n"
+         "      ns_stamp(36);\n", 1),
+        ("          store_tile_bf16<1, NT, true>(xm, sm.slot(kXL), LD, w);\n"
+         "      }\n      cluster_sync();\n    } else {\n",
+         "          store_tile_bf16<1, NT, true>(xm, sm.slot(kXL), LD, w);\n"
+         "      }\n      cluster_sync();\n      ns_stamp(37);\n    } else {\n",
+         1),
+        ("      store_t(acc);\n    }\n    xt(acc);\n",
+         "      store_t(acc);\n      ns_stamp(40);\n    }\n    xt(acc);\n"
+         "    ns_stamp(38);\n", 1),
+    ],
+    "newton_schulz.cu": [
+        ("  quad_stage<NP, SPLIT3>(sm, c, src, n, !prm.init_spd);\n",
+         "  ns_stamp(0);\n  quad_stage<NP, SPLIT3>(sm, c, src, n, "
+         "!prm.init_spd);\n  ns_stamp(30);\n", 1),
+        ("  quad_seed<NP>(xm, sm, c, n, prm.init_spd, red, w);\n",
+         "  quad_seed<NP>(xm, sm, c, n, prm.init_spd, red, w);\n"
+         "  ns_stamp(31);\n", 1),
+        ("  quad_store_x(sm, c, x + base, n);\n}\n",
+         "  quad_store_x(sm, c, x + base, n);\n  __syncthreads();\n"
+         "  ns_stamp(39);\n}\n", 1),
     ],
 }
 
@@ -337,20 +401,20 @@ extern "C" int probe_max_clusters(int csize, int smem, int* out) {
 BAND_READER = """
 namespace {{
 template <typename Kernel>
-int band_figures(Kernel kernel, int np, bool split3, int* out) {{
-  const size_t smem = band_smem_bytes(np, split3);
+int band_figures(Kernel kernel, int np, bool split3, int csize, size_t smem,
+                 int* out) {{
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   cudaLaunchConfig_t cfg = {{}};
-  cfg.gridDim = dim3(np / kSlab * 132);
+  cfg.gridDim = dim3(csize * 132);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute la[1];
   la[0].id = cudaLaunchAttributeClusterDimension;
-  la[0].val.clusterDim.x = np / kSlab;
+  la[0].val.clusterDim.x = csize;
   la[0].val.clusterDim.y = 1;
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
@@ -373,27 +437,32 @@ extern "C" int cmi_probe_band(int* out) {{
   return err;
 }}
 """
-# K8 (WARM = true) and K1 (WARM = false); K11 and K6.
-NS_KERNELS = [f"ns_band_kernel<{np}, {w}, {s}>" for w in ("true", "false")
+# K8 and K1 (the slab and the quadrant instances); K11 and K6.
+NS_KERNELS = [f"{k}<{np}, {s}>" for k in ("ns_band_kernel", "ns_quad_kernel")
               for np in BAND_NP for s in ("false", "true")]
 GP_KERNELS = [f"{k}<{np}>" for k in ("gp_warm_band_kernel",
-                                     "gp_ns_band_kernel") for np in BAND_NP]
+                                     "gp_ns_quad_kernel") for np in BAND_NP]
 
 
 def _kernel_np_split3(kernel: str) -> tuple:
-    """(NP, split3) of a band kernel's name, ``ns_band_kernel<224, true,
-    false>`` (NP, WARM, SPLIT3) or ``gp_warm_band_kernel<160>``."""
+    """(NP, split3) of a cluster kernel's name, ``ns_band_kernel<224,
+    false>`` (NP, SPLIT3) or ``gp_warm_band_kernel<160>``."""
     args = [x.strip() for x in kernel.split("<")[1].rstrip(">").split(",")]
     return int(args[0]), len(args) > 1 and args[-1] == "true"
 
 
 def _reader(kernels) -> str:
-    calls = "\n  ".join(
-        f"if (!err) err = band_figures({k}, {np_}, "
-        f"{'true' if s3 else 'false'}, out + {4 * i});"
-        for i, k in enumerate(kernels)
-        for np_, s3 in [_kernel_np_split3(k)])
-    return BAND_READER.format(calls=calls)
+    calls = []
+    for i, k in enumerate(kernels):
+        np_, s3 = _kernel_np_split3(k)
+        split3 = "true" if s3 else "false"
+        if "quad" in k:
+            csize, smem = "kQuadCtas", f"quad_smem_bytes({np_})"
+        else:
+            csize, smem = f"{np_} / kSlab", f"band_smem_bytes({np_}, {split3})"
+        calls.append(f"if (!err) err = band_figures({k}, {np_}, {split3}, "
+                     f"{csize}, {smem}, out + {4 * i});")
+    return BAND_READER.format(calls="\n  ".join(calls))
 
 
 def _band_figures(unit: str, kernels) -> dict:
@@ -407,7 +476,8 @@ def _band_figures(unit: str, kernels) -> dict:
     cuda_build.check(fn(ctypes.cast(out, ctypes.c_void_p)), "band figures")
     lines = lib.compiler_log.splitlines()
     ptxas = [x.strip() for i, line in enumerate(lines)
-             if "Compiling entry function" in line and "band" in line
+             if "Compiling entry function" in line
+             and ("band" in line or "quad" in line)
              for x in lines[i:i + 4] if "registers" in x or "spill" in x]
     return {"kernels": {k: {"registers": out[4 * i],
                             "local_bytes": out[4 * i + 1],
@@ -458,6 +528,9 @@ def main() -> int:
     dev = torch.device("cuda")
     if sys.argv[1:] == ["routes"]:
         routes(dev, card)
+        return 0
+    if sys.argv[1:2] == ["ab"]:
+        _baseline(_baseline_libs(Path(sys.argv[2])), dev, card)
         return 0
     lib = _copy_lib()
 
@@ -527,20 +600,32 @@ def main() -> int:
                           "case": f"K8 {prec} {batch}x{n}", **split,
                           "walks": walks(split["sequence_us"]),
                           "card": card}), flush=True)
-    a = torch.tensor(make_spd_batch(100, 224, np.random.default_rng(324)),
-                     dtype=torch.float32, device=dev)
-    split = clock_split(stamped, k1_launcher(
-        stamped, a, LANES["newton_schulz_spd10_pallas"]["schedule"]),
-        BAND_PHASES)
-    print(json.dumps({"probe": "clock_split", "case": "K1 spd10 100x224",
-                      **split, "walks": walks(split["sequence_us"]),
-                      "card": card}), flush=True)
+    quad = variant_library(
+        "quad_stamped", stamped_edits(QUAD_STAMPS, "newton_schulz.cu"),
+        units=("newton_schulz.cu",))
+    for lane, batch in (("newton_schulz_spd10_pallas", 100),
+                        ("newton_schulz_spd10_pallas", 1600),
+                        ("newton_schulz_spd10_pallas", 1),
+                        ("newton_schulz_pan500_pallas", 100)):
+        sched = LANES[lane]["schedule"]
+        rng = np.random.default_rng(324 + batch)
+        a = torch.tensor(make_nonsym_cond(batch, 224, 500.0, rng)
+                         if sched.split3 else make_spd_batch(batch, 224, rng),
+                         dtype=torch.float32, device=dev)
+        split = clock_split(quad, k1_launcher(quad, a, sched), QUAD_PHASES)
+        print(json.dumps({"probe": "quad_split",
+                          "case": f"K1 {lane} {batch}x224", **split,
+                          "card": card}), flush=True)
     if len(sys.argv) > 1:
-        base = variant_library("band_baseline", src=Path(sys.argv[1]),
-                               units=("newton_schulz.cu", "gp.cu"))
-        _baseline({"baseline": base, "this": cuda_build.library()}, dev,
-                  card)
+        _baseline(_baseline_libs(Path(sys.argv[1])), dev, card)
     return 0
+
+
+def _baseline_libs(src: Path) -> dict:
+    """The kernels of another checkout's ``csrc/`` and of this tree."""
+    base = variant_library("band_baseline", src=src,
+                           units=("newton_schulz.cu", "gp.cu"))
+    return {"baseline": base, "this": cuda_build.library()}
 
 
 def band_routes() -> dict:
@@ -613,8 +698,8 @@ def _drifted(a, delta: float, seed: int, symmetric: bool):
 
 
 def _baseline(libs: dict, dev, card: str) -> None:
-    """K8 (bf16 and split3) and K11 of the baseline against this tree's
-    at BAND_TIMED, one line each."""
+    """K8 (bf16 and split3), K11, K1 in each fixed lane and K6 of the
+    baseline against this tree's at BAND_TIMED, one line each."""
     for batch, n in BAND_TIMED:
         rng = np.random.default_rng(batch + n)
         spd, gen = (torch.tensor(f(batch, n, rng), dtype=torch.float32,
@@ -632,6 +717,15 @@ def _baseline(libs: dict, dev, card: str) -> None:
         flat = cuda_gp._flat(*t, max_n=cuda_build.WARM_MAX_N)
         _ab(libs, lambda lib: _launcher(lib, flat, x0),
             f"K11 gp_{batch}x{n}", card, False)
+        _ab(libs, lambda lib: _k6_launcher(lib, flat), f"K6 gp_{batch}x{n}",
+            card, False)
+        pan500 = torch.tensor(make_nonsym_cond(batch, n, 500.0, rng),
+                              dtype=torch.float32, device=dev)
+        for lane in band_routes():
+            sched = LANES[lane]["schedule"]
+            a = pan500 if sched.split3 else spd
+            _ab(libs, lambda lib: k1_launcher(lib, a, sched),
+                f"K1 {lane} {batch}x{n}", card, False)
 
 
 if __name__ == "__main__":

@@ -185,7 +185,7 @@ def k1_launcher(cdll, a, sched):
             a.data_ptr(), x.data_ptr(), a.shape[0], a.shape[-1],
             int(sched.init == "spd"), sched.lo_iters, sched.hi_iters,
             int(sched.split3), int(sched.polish_highest), two_c, c_sq,
-            device, stream), "k1")
+            device, stream, None), "k1")
         return x
     return run
 

@@ -1,10 +1,10 @@
 // Thread-block-cluster primitives for sm_90a, shared by the kernels that
-// spread one matrix over a cluster: the Newton-Schulz band loop
-// (ns_cluster_rounds.cuh: K1, K8, K6, K11) and the LU band kernel
-// (lu_band.cu: K2 past n = 128).  A cluster barrier, the peers' shared
-// memory (mapa, st.shared::cluster), mbarriers that bulk copies complete,
-// the bulk copy from this CTA's shared memory into a peer's, and the
-// launch of a grid of clusters.
+// spread one matrix over a cluster: the Newton-Schulz band loops
+// (ns_cluster_rounds.cuh: K8, K11; ns_quad_rounds.cuh: K1, K6) and the LU
+// band kernel (lu_band.cu: K2 past n = 128).  A cluster barrier, the
+// peers' shared memory (mapa, st.shared::cluster), mbarriers that bulk
+// copies complete, the bulk copy from this CTA's shared memory into a
+// peer's, and the launch of a grid of clusters.
 //
 // Rules the callers keep (W10): a cluster barrier after the mbarriers'
 // initialisation and before any access to a peer's shared memory; no CTA

@@ -52,10 +52,10 @@
 // T or R, X's lo part) 34 KB each, with X in fp32 over the last two where
 // needed, then [d a]: 201.5 KB, one block an SM.  Several systems per
 // block and wgmma are later work.  Past n = 128, up to the JAX kernel's
-// 224, K6 runs as one thread-block cluster a system (gp_ns_band_kernel on
-// ns_cluster_rounds.cuh): K11's band instance with K1's seed taken over
-// the cluster (band_seed), the spd schedule's rounds and K11's band
-// epilogue (band_gp_epilogue), without the K^-1 store.
+// 224, K6 runs as one 2 x 2 thread-block cluster a system
+// (gp_ns_quad_kernel on ns_quad_rounds.cuh, K1's quadrant loop): K1's spd
+// seed taken over the cluster (quad_seed), the spd schedule's rounds, and
+// an epilogue that sums each quadrant's part (quad_gp_epilogue).
 //
 // K11 replaces ops/pallas_gp.py::_gp_warm_kernel (pallas_call in
 // gp_mean_variance_fused_warm): K6 with X loaded from the previous
@@ -96,6 +96,7 @@
 #include "ns_cluster_rounds.cuh"
 #include "ns_common.cuh"
 #include "ns_mma_rounds.cuh"
+#include "ns_quad_rounds.cuh"
 
 namespace {
 
@@ -332,7 +333,7 @@ __global__ void __launch_bounds__(kThreads)
     ks[x] = sm.Xf[(x / n) * LD + x % n];
 }
 
-// The band instances of K6 and K11 (129 <= n <= 224): [d a] of system
+// K11's band instance (129 <= n <= 224): [d a] of system
 // `sys` into sm.rest, d at [0, NP) and a at [NP, 2 NP).
 template <int NP>
 __device__ __forceinline__ void band_gp_load_da(const BandSmem<NP, false>& sm,
@@ -358,7 +359,7 @@ __device__ __forceinline__ void band_gp_stage_k(const BandSmem<NP, false>& sm,
   });
 }
 
-// The band epilogue of K6 and K11 from the slab of X in sm.Xf and [d a] in
+// K11's band epilogue from the slab of X in sm.Xf and [d a] in
 // sm.rest: each CTA sums over its rows x_d[j] = sum_i d[i] X[i][j] and x_a
 // likewise (thread j) into the partials mean_s = x_d . a and
 // quad_s = x_a . a, and stores them in rank 0's partials (sm.rest at
@@ -435,31 +436,105 @@ __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
   band_store_x(sm, kinv + sys * n * n, n, rank);
 }
 
-// K6 for 129 <= n <= 224: K11's band instance with K1's spd seed on K
-// (band_seed) in place of X0, the spd schedule's rounds and no K^-1 store.
+// K = B + diag(c) (K6's A): B read as it is, then c added to the
+// diagonal of a loaded quadrant, K[i][i] = B[i][i] + c[i] as the plain
+// version's b + eye * c rounds it.
+struct QuadGpK {
+  const float* b;
+  const float* c;
+  int n;
+  __device__ const float* at(int i, int j) const {
+    return b + static_cast<size_t>(i) * n + j;
+  }
+  // dst holds the quadrant at global (gi0, gj0): thread t < Q adds c to
+  // the diagonal element of its row, where the quadrant has one
+  template <int NP>
+  __device__ void fix(float* dst, int gi0, int gj0) const {
+    using G = QuadGeometry<NP>;
+    const int t = threadIdx.x, gi = gi0 + t, j = gi - gj0;
+    if (t < G::Q && gi < n && j >= 0 && j < G::Q)
+      dst[t * G::LD + j] = __fadd_rn(dst[t * G::LD + j], c[gi]);
+  }
+};
+
+// K6's epilogue on the quadrant loop, from the quadrant of X in kF0 and
+// [d a] in sm.rest: thread j < Q sums its column over the quadrant's rows,
+// x_d[j] = sum_i d[i] X[i][j] and x_a likewise, into the partials
+// mean_s = x_d . a and quad_s = x_a . a over the quadrant's columns, and
+// stores them in rank 0's partials; rank 0 adds the four in rank order
+// into out[0] = mean and out[1] = *e - quad, so two runs give the same
+// bits.  The cluster has passed a barrier since kF0 was written.
+template <int NP>
+__device__ __forceinline__ void quad_gp_epilogue(const QuadSmem<NP>& sm,
+                                                 const QuadCta& c, int n,
+                                                 const float* e, float* out,
+                                                 float* red) {
+  using G = QuadGeometry<NP>;
+  constexpr int Q = G::Q;
+  const int tid = threadIdx.x;
+  const float* sd = sm.rest;
+  const float* sa = sm.rest + NP;
+  const float* xf = sm.area(kF0);
+  const int gi0 = c.p * Q, gj = c.q * Q + tid;
+  const int rows = min(Q, n - gi0);
+  float mean_part = 0.f, quad_part = 0.f;
+  if (tid < Q && gj < n) {
+    float xd = 0.f, xa = 0.f;
+    for (int i = 0; i < rows; ++i) {
+      const float xij = xf[i * G::LD + tid];
+      xd = fmaf(sd[gi0 + i], xij, xd);
+      xa = fmaf(sa[gi0 + i], xij, xa);
+    }
+    mean_part = __fmul_rn(xd, sa[gj]);
+    quad_part = __fmul_rn(xa, sa[gj]);
+  }
+  const float mean_s = block_sum(mean_part, red);
+  const float quad_s = block_sum(quad_part, red);
+  if (tid == 0) {
+    st_peer_f32(peer_addr(sm.partials() + 2 * c.rank, 0), mean_s);
+    st_peer_f32(peer_addr(sm.partials() + 2 * c.rank + 1, 0), quad_s);
+  }
+  cluster_sync();
+  if (c.rank == 0 && tid == 0) {
+    float mean = 0.f, quad = 0.f;
+    for (int r = 0; r < kQuadCtas; ++r) {
+      mean += sm.partials()[2 * r];
+      quad += sm.partials()[2 * r + 1];
+    }
+    out[0] = mean;
+    out[1] = *e - quad;
+  }
+}
+
+// K6 for 129 <= n <= 224: one 2 x 2 cluster of four CTAs a system, each
+// iterating one NP / 2 quadrant of K = B + diag(c) (ns_quad_rounds.cuh)
+// from K1's spd seed taken over the cluster (quad_seed), the spd
+// schedule's rounds, then quad_gp_epilogue.
 template <int NP>
 __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
-    gp_ns_band_kernel(const float* __restrict__ a,
+    gp_ns_quad_kernel(const float* __restrict__ a,
                       const float* __restrict__ b,
                       const float* __restrict__ c,
                       const float* __restrict__ d,
                       const float* __restrict__ e, float* __restrict__ out,
                       NSParams prm) {
-  using G = BandGeometry<NP>;
-  extern __shared__ __align__(16) unsigned char band_smem[];
+  extern __shared__ __align__(16) unsigned char quad_smem[];
   __shared__ float red[kThreads / 32];
-  const BandSmem<NP, false> sm(band_smem);
+  const QuadSmem<NP> sm(quad_smem);
+  const QuadCta cta;
   const int n = prm.n;
-  const int rank = cluster_rank();
-  const size_t sys = blockIdx.x / G::C;
-  band_gp_load_da(sm, a, d, sys, n);
-  const WarpTile w = band_warp_tile<NP>();
-  float xm[1][G::NT][4];
-  band_gp_stage_k(sm, b + sys * n * n, c + sys * n, n, rank);
-  band_seed<NP, false>(xm, sm, nullptr, n, rank, /*spd=*/true, nullptr,
-                       sm.rest + 2 * NP, red, w);
-  band_rounds<NP, false>(xm, sm, prm, w, rank);
-  band_gp_epilogue(sm, n, rank, e + sys, out + 2 * sys, red);
+  const size_t sys = blockIdx.x / kQuadCtas;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    sm.rest[i] = d[sys * n + i];
+    sm.rest[NP + i] = a[sys * n + i];
+  }
+  const QuadGpK src{b + sys * n * n, c + sys * n, n};
+  const WarpTile w = quad_warp_tile<NP>();
+  float xm[1][QuadGeometry<NP>::NT][4];
+  quad_stage<NP, false>(sm, cta, src, n, /*pan=*/false);
+  quad_seed<NP>(xm, sm, cta, n, /*spd=*/true, red, w);
+  quad_rounds<NP, false>(xm, sm, prm, cta, src, w);
+  quad_gp_epilogue(sm, cta, n, e + sys, out + 2 * sys, red);
 }
 
 // K10's body on the layout lay.  EMIT_W = false: quad and logdet only;
@@ -630,23 +705,35 @@ extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
 
 namespace {
 
-// K6 past n = 128: one cluster a system at NP = 160, 192 or 224.
-cudaError_t launch_gp_ns_band(const NSParams& prm, int batch, cudaStream_t s,
+// K6 past n = 128: one 2 x 2 cluster a system at NP = 160, 192 or 224.
+// *np_out = NP once it launched.
+template <int NP>
+cudaError_t launch_gp_ns_quad_np(const NSParams& prm, int batch,
+                                 cudaStream_t s, const float* a,
+                                 const float* b, const float* c,
+                                 const float* d, const float* e, float* out,
+                                 int* np_out) {
+  const cudaError_t err =
+      cluster_launch(gp_ns_quad_kernel<NP>, kQuadCtas, batch, kThreads,
+                     quad_smem_bytes(NP), s, a, b, c, d, e, out, prm);
+  if (err == cudaSuccess) *np_out = NP;
+  return err;
+}
+
+cudaError_t launch_gp_ns_quad(const NSParams& prm, int batch, cudaStream_t s,
                               const float* a, const float* b, const float* c,
-                              const float* d, const float* e, float* out) {
+                              const float* d, const float* e, float* out,
+                              int* np_out) {
   switch (band_np(prm.n)) {
     case 160:
-      return band_launch(gp_ns_band_kernel<160>, BandGeometry<160>::C,
-                         batch, band_smem_bytes(160, false), s, a, b, c, d,
-                         e, out, prm);
+      return launch_gp_ns_quad_np<160>(prm, batch, s, a, b, c, d, e, out,
+                                       np_out);
     case 192:
-      return band_launch(gp_ns_band_kernel<192>, BandGeometry<192>::C,
-                         batch, band_smem_bytes(192, false), s, a, b, c, d,
-                         e, out, prm);
+      return launch_gp_ns_quad_np<192>(prm, batch, s, a, b, c, d, e, out,
+                                       np_out);
     default:
-      return band_launch(gp_ns_band_kernel<224>, BandGeometry<224>::C,
-                         batch, band_smem_bytes(224, false), s, a, b, c, d,
-                         e, out, prm);
+      return launch_gp_ns_quad_np<224>(prm, batch, s, a, b, c, d, e, out,
+                                       np_out);
   }
 }
 
@@ -655,13 +742,17 @@ cudaError_t launch_gp_ns_band(const NSParams& prm, int batch, cudaStream_t s,
 // As cmi_gp_fused, with K^-1 by the spd Newton-Schulz schedule: `lo` scaled
 // rounds with the fp32 scalars two_c / c_sq (device arrays of `lo` floats),
 // then `hi` polish rounds, the last residual in fp32; 1 <= n <= 224, one
-// block a system up to 128 and one cluster past it (cudaErrorInvalidValue
-// past 224).
+// block a system up to 128 and one 2 x 2 cluster past it
+// (cudaErrorInvalidValue past 224).  *quad_np (when not null): the padded
+// size of the cluster instance launched, else 0.
 extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
                                const float* d, const float* e, float* out,
                                int batch, int n, int lo, int hi,
                                const float* two_c, const float* c_sq,
-                               int device, void* stream) {
+                               int device, void* stream, int* quad_np) {
+  int np_launched = 0;
+  if (quad_np == nullptr) quad_np = &np_launched;
+  *quad_np = 0;
   NSParams prm;
   if (batch < 0 || (lo > 0 && two_c == nullptr) ||
       !make_ns_params(n, /*init_spd=*/1, lo, hi, /*split3=*/0,
@@ -679,7 +770,7 @@ extern "C" int cmi_gp_fused_ns(const float* a, const float* b, const float* c,
     case 2: err = launch(gp_ns_kernel<2>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 4: err = launch(gp_ns_kernel<4>, smem, batch, s, a, b, c, d, e, out, prm); break;
     case 8: err = launch(gp_ns_kernel<8>, smem, batch, s, a, b, c, d, e, out, prm); break;
-    default: err = launch_gp_ns_band(prm, batch, s, a, b, c, d, e, out); break;
+    default: err = launch_gp_ns_quad(prm, batch, s, a, b, c, d, e, out, quad_np); break;
   }
   return static_cast<int>(err);
 }

@@ -58,21 +58,28 @@
 // with one more n^2 read (X0) than K1.
 //
 // Past n = 128, up to the JAX kernels' 224, K1 and K8 run as one
-// thread-block cluster a matrix (ns_band_kernel on ns_cluster_rounds.cuh):
-// C = NP / 32 CTAs (NP = 160, 192, 224) each iterate a 32-row slab,
-// reading the right operand's other slabs from the peers' shared memory;
-// the split3 schedule accumulates its residuals in fp64 there.  K1's seed
-// takes its norms over the cluster (band_seed: the row sums a slab, the
-// column sums of pan added by each column's owner, the maxima exchanged
-// through the peers' shared memory, two or three cluster barriers).  The
-// bound stays the operations (K8: 5 bf16 and 1 fp32 product of 2 NP^3 at
-// the default bf16 rounds; K1 spd10: 13 bf16 and 1 fp32); the cluster adds
-// a bulk copy of every peer's chunks to every CTA (87 KB a CTA a bf16
-// product at NP = 224, over the cluster's shared-memory network) and two
-// cluster barriers a round.
+// thread-block cluster a matrix, each on its own loop.  K8
+// (ns_band_kernel on ns_cluster_rounds.cuh, the slab loop): C = NP / 32
+// CTAs (NP = 160, 192, 224) each iterate a 32-row slab, reading the right
+// operand's other slabs from the peers' shared memory; K8's bound stays
+// the operations (5 bf16 and 1 fp32 product of 2 NP^3 at the default bf16
+// rounds), and the cluster adds a bulk copy of every peer's chunks to
+// every CTA (87 KB a CTA a bf16 product at NP = 224) and two cluster
+// barriers a round.  K1 (ns_quad_kernel on ns_quad_rounds.cuh, the
+// quadrant loop): a 2 x 2 cluster of four CTAs, each holding one NP / 2
+// quadrant of A, X and T; a product brings each CTA one quadrant of the
+// left operand from its row peer and one of the right from its column peer
+// (54 KB a bf16 product at NP = 224, for 5.6 MFLOP of MMA, three times the
+// slab loop's work a byte received), and 30 matrices run at once at
+// NP = 224 where the slab loop holds 15.  K1 seeds X over the cluster (quad_seed:
+// row and column sums of each quadrant added with the peer's half, the
+// maxima exchanged through the peers' shared memory).  The split3
+// schedule accumulates the residuals in fp64 on both loops.  K1 spd10's
+// bound: 13 bf16 products and 1 fp32 of 2 NP^3.
 
 #include "ns_cluster_rounds.cuh"
 #include "ns_mma_rounds.cuh"
+#include "ns_quad_rounds.cuh"
 
 namespace {
 
@@ -168,64 +175,107 @@ cudaError_t launch_ns(const NSParams& prm, int batch, cudaStream_t s,
   }
 }
 
-// K1 (WARM = false) and K8 (WARM = true) for 129 <= n <= 224: one
-// cluster of C = NP / 32 CTAs a matrix, each iterating its 32-row slab
-// (ns_cluster_rounds.cuh).  K1 seeds X over the cluster (band_seed), K8
-// loads it from x0.
-template <int NP, bool WARM, bool SPLIT3>
+// K8 for 129 <= n <= 224: one cluster of C = NP / 32 CTAs a matrix,
+// each refining its 32-row slab from x0 (ns_cluster_rounds.cuh).
+template <int NP, bool SPLIT3>
 __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, SPLIT3))
     ns_band_kernel(const float* __restrict__ a, const float* __restrict__ x0,
                    float* __restrict__ x, NSParams prm) {
   using G = BandGeometry<NP>;
   extern __shared__ __align__(16) unsigned char band_smem[];
-  __shared__ float red[kThreads / 32];
   const BandSmem<NP, SPLIT3> sm(band_smem);
   const int n = prm.n;
   const int rank = cluster_rank();
   const size_t base = static_cast<size_t>(blockIdx.x / G::C) * n * n;
   const WarpTile w = band_warp_tile<NP>();
   float xm[1][G::NT][4];
-  if constexpr (WARM) band_load_x<NP>(xm, x0 + base, n, rank, w);
+  band_load_x<NP>(xm, x0 + base, n, rank, w);
   const float* ab = a + base;
   band_stage(sm, n, rank, [=](int i, int j) { return ab[i * n + j]; });
-  if constexpr (!WARM)
-    band_seed<NP, SPLIT3>(xm, sm, ab, n, rank, prm.init_spd, sm.rest,
-                          sm.rest + 2 * NP, red, w);
   band_rounds<NP, SPLIT3>(xm, sm, prm, w, rank);
   band_store_x(sm, x + base, n, rank);
 }
 
-template <int NP, bool WARM>
+template <int NP>
 cudaError_t launch_band_np(const NSParams& prm, int batch, cudaStream_t s,
                            const float* a, const float* x0, float* x) {
   constexpr int C = BandGeometry<NP>::C;
   return prm.split3
-             ? band_launch(ns_band_kernel<NP, WARM, true>, C, batch,
+             ? band_launch(ns_band_kernel<NP, true>, C, batch,
                            band_smem_bytes(NP, true), s, a, x0, x, prm)
-             : band_launch(ns_band_kernel<NP, WARM, false>, C, batch,
+             : band_launch(ns_band_kernel<NP, false>, C, batch,
                            band_smem_bytes(NP, false), s, a, x0, x, prm);
 }
 
-template <bool WARM>
 cudaError_t launch_band(const NSParams& prm, int batch, cudaStream_t s,
                         const float* a, const float* x0, float* x) {
   switch (band_np(prm.n)) {
-    case 160: return launch_band_np<160, WARM>(prm, batch, s, a, x0, x);
-    case 192: return launch_band_np<192, WARM>(prm, batch, s, a, x0, x);
-    default: return launch_band_np<224, WARM>(prm, batch, s, a, x0, x);
+    case 160: return launch_band_np<160>(prm, batch, s, a, x0, x);
+    case 192: return launch_band_np<192>(prm, batch, s, a, x0, x);
+    default: return launch_band_np<224>(prm, batch, s, a, x0, x);
+  }
+}
+
+// K1 for 129 <= n <= 224: one 2 x 2 cluster of four CTAs a matrix, each
+// iterating one NP / 2 quadrant (ns_quad_rounds.cuh), X seeded over the
+// cluster (quad_seed).
+template <int NP, bool SPLIT3>
+__global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, SPLIT3))
+    ns_quad_kernel(const float* __restrict__ a, float* __restrict__ x,
+                   NSParams prm) {
+  extern __shared__ __align__(16) unsigned char quad_smem[];
+  __shared__ float red[kThreads / 32];
+  const QuadSmem<NP> sm(quad_smem);
+  const QuadCta c;
+  const int n = prm.n;
+  const size_t base = static_cast<size_t>(blockIdx.x / kQuadCtas) * n * n;
+  const QuadPlainA src{a + base, n};
+  const WarpTile w = quad_warp_tile<NP>();
+  float xm[1][QuadGeometry<NP>::NT][4];
+  quad_stage<NP, SPLIT3>(sm, c, src, n, !prm.init_spd);
+  quad_seed<NP>(xm, sm, c, n, prm.init_spd, red, w);
+  quad_rounds<NP, SPLIT3>(xm, sm, prm, c, src, w);
+  quad_store_x(sm, c, x + base, n);
+}
+
+// The instance at NP; *np_out = NP once it launched.
+template <int NP>
+cudaError_t launch_quad_np(const NSParams& prm, int batch, cudaStream_t s,
+                           const float* a, float* x, int* np_out) {
+  const size_t smem = quad_smem_bytes(NP);
+  const cudaError_t err =
+      prm.split3 ? cluster_launch(ns_quad_kernel<NP, true>, kQuadCtas, batch,
+                                  kThreads, smem, s, a, x, prm)
+                 : cluster_launch(ns_quad_kernel<NP, false>, kQuadCtas, batch,
+                                  kThreads, smem, s, a, x, prm);
+  if (err == cudaSuccess) *np_out = NP;
+  return err;
+}
+
+cudaError_t launch_quad(const NSParams& prm, int batch, cudaStream_t s,
+                        const float* a, float* x, int* np_out) {
+  switch (band_np(prm.n)) {
+    case 160: return launch_quad_np<160>(prm, batch, s, a, x, np_out);
+    case 192: return launch_quad_np<192>(prm, batch, s, a, x, np_out);
+    default: return launch_quad_np<224>(prm, batch, s, a, x, np_out);
   }
 }
 
 }  // namespace
 
 // K1.  a, x: (batch, n, n) fp32, contiguous, on `device`, 1 <= n <= 224:
-// one block a matrix up to 128, one cluster a matrix past it.  two_c /
-// c_sq: device arrays of `lo` fp32 scalars (any lo).  Returns the CUDA
-// error of the launch (cudaErrorInvalidValue past 224).
+// one block a matrix up to 128, one 2 x 2 cluster a matrix past it.  two_c /
+// c_sq: device arrays of `lo` fp32 scalars (any lo).  *quad_np (when not
+// null): the padded size of the cluster instance launched, else 0.
+// Returns the CUDA error of the launch (cudaErrorInvalidValue past 224).
 extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
                               int init_spd, int lo, int hi, int split3,
                               int polish_highest, const float* two_c,
-                              const float* c_sq, int device, void* stream) {
+                              const float* c_sq, int device, void* stream,
+                              int* quad_np) {
+  int np_launched = 0;
+  if (quad_np == nullptr) quad_np = &np_launched;
+  *quad_np = 0;
   NSParams prm;
   if (batch < 0 || (lo > 0 && two_c == nullptr) ||
       !make_ns_params(n, init_spd, lo, hi, split3, polish_highest, two_c,
@@ -236,7 +286,7 @@ extern "C" int cmi_ns_inverse(const float* a, float* x, int batch, int n,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = n <= kMaxN ? launch_ns<false>(prm, batch, s, a, nullptr, x)
-                   : launch_band<false>(prm, batch, s, a, nullptr, x);
+                   : launch_quad(prm, batch, s, a, x, quad_np);
   return static_cast<int>(err);
 }
 
@@ -257,6 +307,6 @@ extern "C" int cmi_ns_warm(const float* a, const float* x0, float* x,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = n <= kMaxN ? launch_ns<true>(prm, batch, s, a, x0, x)
-                   : launch_band<true>(prm, batch, s, a, x0, x);
+                   : launch_band(prm, batch, s, a, x0, x);
   return static_cast<int>(err);
 }

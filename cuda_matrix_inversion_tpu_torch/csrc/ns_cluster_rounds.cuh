@@ -1,10 +1,11 @@
 // The Newton-Schulz round loop of ns_mma_rounds.cuh spread over a
-// thread-block cluster, for 129 <= n <= 224, where one block's 227 KB of
-// shared memory cannot hold the single-block layout (ns_smem_bytes: 310.6
-// KB at NP = 160, 444.8 at 192, 602.9 at 224).  K1 and K8
-// (newton_schulz.cu), K6 and K11 (gp.cu) run it there: the loop takes X in
-// the fragments as the single-block one does, loaded from a previous
-// inverse (K8, K11) or seeded over the cluster (band_seed: K1, K6).
+// thread-block cluster of 32-row slabs, for 129 <= n <= 224, where one
+// block's 227 KB of shared memory cannot hold the single-block layout
+// (ns_smem_bytes: 310.6 KB at NP = 160, 444.8 at 192, 602.9 at 224).  The
+// warm kernels K8 (newton_schulz.cu::ns_band_kernel) and K11
+// (gp.cu::gp_warm_band_kernel) run it there: the loop takes X in the
+// fragments as the single-block one does, loaded from a previous inverse.
+// The cold kernels K1 and K6 run the quadrant loop (ns_quad_rounds.cuh).
 //
 // Geometry.  n pads with zeros to NP in {160, 192, 224} and the matrix is
 // cut into C = NP / 32 row slabs of 32 rows (5, 6 or 7 CTAs a cluster,
@@ -64,8 +65,7 @@
 // Shared memory a CTA (LDF = NP + 4 fp32, LDB = NP + 8 bf16 a row): A and
 // Xf in fp32 (32 x LDF each), four bf16 slab tiles (as ns_mma_rounds.cuh:
 // bf16 Ah, Xh, T, Xl; split3 Tl, Xh, T, Xl), the staging area, eight
-// mbarriers, then K6's and K11's [d a] (K1's seed: the column sums) and
-// the cluster's partial sums (the seed's maxima): 203.9 /
+// mbarriers, then K11's [d a] and the cluster's partial sums: 203.9 /
 // 225.6 / 105.4 KB (split3 168.4) at NP = 224 / 192 / 160, one CTA an SM
 // (two at NP = 160 bf16); the staging area is 12 bf16 chunks (87.0 KB) at
 // 224, 20 (125 KB) at 192, 4 (21 KB; split3 16) at 160.
@@ -81,12 +81,8 @@
 
 namespace {
 
-constexpr int kBandMaxN = 224;  // the JAX kernels K1, K6, K8, K11's ceiling
 constexpr int kSlab = 32;       // rows a CTA owns
 constexpr int kBandBars = 8;    // mbarriers reserved a CTA (C - 1 used)
-
-// NP for 129 <= n <= 224.
-inline int band_np(int n) { return n <= 160 ? 160 : n <= 192 ? 192 : 224; }
 
 // Bytes of the staging area at NP = np: whole 16-row bf16 chunks (16 x
 // (np + 8) x 2 bytes), as many as fit beside the rest (band_smem_bytes)
@@ -96,13 +92,6 @@ __host__ __device__ constexpr size_t band_stage_bytes(size_t np,
                                                   bool split3) {
   return 16 * (np + 8) * 2 *
          (np == 224 ? 12 : np == 192 ? 20 : split3 ? 16 : 4);
-}
-
-// CTAs an SM the band kernels are built for (__launch_bounds__): two at
-// NP = 160 for the bf16 schedules (105.4 KB, at most 128 registers a
-// thread), else one.
-__host__ __device__ constexpr int band_ctas_per_sm(int np, bool split3) {
-  return np == 160 && !split3 ? 2 : 1;
 }
 
 template <int NP>
@@ -131,8 +120,7 @@ struct BandSmem {
   bf16* Tl;  // split3 only
   unsigned char* stage;  // the peers' chunks of the walk's current window
   uint64_t* bars;        // bars[d - 1]: the chunks of the peer rank + d
-  // K6, K11: d at [0, NP), a at [NP, 2 NP), partials past them; K1:
-  // the seed's column sums at [0, NP) and its maxima at 2 NP
+  // K11: d at [0, NP), a at [NP, 2 NP), partials past them
   float* rest;
   __device__ explicit BandSmem(unsigned char* base)
       : A(reinterpret_cast<float*>(base)),
@@ -446,106 +434,6 @@ __device__ __forceinline__ void band_load_x(
     const int gi = kSlab * rank + i;
     v = (gi < n && j < n) ? src[static_cast<size_t>(gi) * n + j] : 0.f;
   });
-}
-
-// K1's and K6's seed over the cluster, straight into the warps' fragments
-// xm (zero in the padding), as the single-block kernels seed (spd:
-// X1 = 2sI - s^2 A, s = 1/||A||_inf; pan: X0 = A^T / (||A||_1 ||A||_inf)),
-// once band_stage has staged the slab of A.  The slab holds whole rows, so
-// ||A||_inf is the largest row sum over the ranks: each warp sums 4 of the
-// slab's rows (lanes strided, then a butterfly) and the block takes their
-// maximum.  ||A||_1 (pan) needs each column over all the slabs: thread j <
-// NP sums column j over the slab's 32 rows in order and stores that
-// partial in the shared memory of the column's owner, rank j / 32, at
-// cols[32 rank + j % 32]; the owner adds the C partials of each of its
-// columns in rank order and takes their maximum.  Each rank then stores
-// its two maxima in every rank's maxima[2 rank, 2 rank + 1], and every
-// rank takes the maximum over the C ranks, so all agree on the scale.
-// X0's slab (rows [32 rank, 32 rank + 32) of A^T) comes from device
-// memory, 32 consecutive floats of a row of A a warp and load, into sm.Xf
-// (unused before the loop's first fp32 publish) while the norms wait.
-// `a`: the n x n matrix in device memory (pan only); `cols` (NP floats,
-// pan only) and `maxima` (2 C floats): scratch in sm.rest that no peer
-// stores into again before the loop has passed a cluster barrier; `red`:
-// kThreads / 32 floats.  The first cluster barrier proves every CTA of
-// the cluster running before any store into a peer; 2 cluster barriers
-// (spd) or 3 (pan).
-template <int NP, bool SPLIT3>
-__device__ __forceinline__ void band_seed(
-    float (&xm)[1][BandGeometry<NP>::NT][4], const BandSmem<NP, SPLIT3>& sm,
-    const float* a, int n, int rank, bool spd, float* cols, float* maxima,
-    float* red, WarpTile w) {
-  using G = BandGeometry<NP>;
-  constexpr int LDF = G::LDF;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (!spd) {
-    // every load in flight before the first store
-    constexpr int kPer = kSlab * NP / kThreads;
-    float v[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int x = tid + k * kThreads;
-      const int i = x % kSlab, j = x / kSlab;
-      const int gi = kSlab * rank + i;
-      v[k] = (gi < n && j < n) ? a[static_cast<size_t>(j) * n + gi] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int x = tid + k * kThreads;
-      sm.Xf[(x % kSlab) * LDF + x / kSlab] = v[k];
-    }
-  }
-  cluster_sync();
-  float rmax = 0.f;
-  for (int i = warp; i < kSlab; i += kThreads / 32) {
-    float r = 0.f;
-    for (int j = lane; j < NP; j += 32) r += fabsf(sm.A[i * LDF + j]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-    rmax = fmaxf(rmax, r);
-  }
-  rmax = block_max(rmax, red);
-  float cmax = 0.f;
-  if (!spd) {
-    if (tid < NP) {
-      float c = 0.f;
-      for (int i = 0; i < kSlab; ++i) c += fabsf(sm.A[i * LDF + tid]);
-      st_peer_f32(peer_addr(cols + kSlab * rank + tid % kSlab, tid / kSlab),
-                  c);
-    }
-    cluster_sync();
-    float c = 0.f;
-    if (tid < kSlab)
-      for (int r = 0; r < G::C; ++r) c += cols[kSlab * r + tid];
-    cmax = block_max(c, red);
-  }
-  if (tid < G::C) {
-    st_peer_f32(peer_addr(maxima + 2 * rank, tid), rmax);
-    st_peer_f32(peer_addr(maxima + 2 * rank + 1, tid), cmax);
-  }
-  cluster_sync();
-  float r_inf = 0.f, c_1 = 0.f;
-  for (int r = 0; r < G::C; ++r) {
-    r_inf = fmaxf(r_inf, maxima[2 * r]);
-    c_1 = fmaxf(c_1, maxima[2 * r + 1]);
-  }
-  if (spd) {
-    const float s = 1.f / r_inf;
-    const float two_s = 2.f * s;
-    const float s2 = __fmul_rn(s, s);
-    tile_for_each(xm, w, [&](int i, int j, float& v) {
-      const int gi = kSlab * rank + i;
-      v = (gi < n && j < n) ? __fsub_rn(gi == j ? two_s : 0.f,
-                                        __fmul_rn(s2, sm.A[i * LDF + j]))
-                            : 0.f;
-    });
-  } else {
-    const float scale = 1.f / __fmul_rn(r_inf, c_1);
-    tile_for_each(xm, w, [&](int i, int j, float& v) {
-      const int gi = kSlab * rank + i;
-      v = (gi < n && j < n) ? __fmul_rn(sm.Xf[i * LDF + j], scale) : 0.f;
-    });
-  }
 }
 
 // The slab's rows of X (sm.Xf) into the n x n matrix dst (device memory).

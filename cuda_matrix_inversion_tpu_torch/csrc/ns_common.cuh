@@ -32,6 +32,20 @@ namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 thread grid over the output
 constexpr int kMaxN = 128;
+// Past kMaxN, up to the JAX kernels' ceiling, K1, K6, K8 and K11 run one
+// thread-block cluster a matrix: the slab loop (ns_cluster_rounds.cuh, K8
+// and K11) or the quadrant loop (ns_quad_rounds.cuh, K1 and K6).
+constexpr int kBandMaxN = 224;
+
+// The padded size NP of the cluster instances for 129 <= n <= 224.
+inline int band_np(int n) { return n <= 160 ? 160 : n <= 192 ? 192 : 224; }
+
+// CTAs an SM the cluster instances are built for (__launch_bounds__): two
+// at NP = 160 for the bf16 schedules (at most 128 registers a thread),
+// else one.
+__host__ __device__ constexpr int band_ctas_per_sm(int np, bool split3) {
+  return np == 160 && !split3 ? 2 : 1;
+}
 
 struct NSParams {
   int n;

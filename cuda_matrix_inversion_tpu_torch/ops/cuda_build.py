@@ -52,9 +52,13 @@ MAX_N = 128
 # Largest n the Newton-Schulz kernels K1, K6, K8 and K11 take, the JAX
 # kernels' ceiling (the name dates from the warm kernels K8 and K11, the
 # first to serve it): past MAX_N each matrix runs on one thread-block
-# cluster of NP / 32 CTAs (NP = 160, 192, 224), a 32-row slab of the
-# matrix in each CTA's shared memory (``csrc/ns_cluster_rounds.cuh``).
+# cluster at NP = 160, 192 or 224 (:data:`NS_BAND_NP`): K8 and K11 on NP /
+# 32 CTAs, a 32-row slab of the matrix in each CTA's shared memory
+# (``csrc/ns_cluster_rounds.cuh``); K1 and K6 on four CTAs, an NP / 2
+# quadrant in each (``csrc/ns_quad_rounds.cuh``).
 WARM_MAX_N = 224
+# The padded sizes of the Newton-Schulz kernels' cluster instances.
+NS_BAND_NP = (160, 192, 224)
 # Largest n K2 takes, the JAX kernel's ceiling: past MAX_N each matrix runs
 # on one thread-block cluster of NP / 32 CTAs (NP = 160, 192, 224, 256),
 # a 32-column slab of the matrix and of its inverse in each CTA's shared
@@ -73,12 +77,14 @@ CHOL_MAX_N = 256
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (all return cudaError_t as int).
 _SIGNATURES = {
     # a, x, batch, n, init_spd, lo, hi, split3, polish_highest,
-    # two_c (device float*), c_sq (device float*), device, stream
+    # two_c (device float*), c_sq (device float*), device, stream,
+    # quad_np (host int*, or None)
     "cmi_ns_inverse": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP, _VP, _I,
-                       _VP],
+                       _VP, _IP],
     # a, inv, ipiv, batch, n, device, stream
     "cmi_lu_inverse": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # a, inv, ipiv, ws (batch x NP x NP floats of scratch), batch, n,
@@ -91,9 +97,9 @@ _SIGNATURES = {
     # a, b, c, d, e, out, batch, n, device, stream
     "cmi_gp_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # a, b, c, d, e, out, batch, n, lo, hi, two_c (device float*),
-    # c_sq (device float*), device, stream
+    # c_sq (device float*), device, stream, quad_np (host int*, or None)
     "cmi_gp_fused_ns": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
-                        _VP, _I, _VP],
+                        _VP, _I, _VP, _IP],
     # a, inv, batch, n, device, stream
     "cmi_gauss_jordan": [_VP, _VP, _I, _I, _I, _VP],
     # a, x0, x, batch, n, lo, hi, split3, device, stream

@@ -20,6 +20,8 @@ the public functions take the fixture layout.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from cuda_matrix_inversion_tpu_torch.ops import (
@@ -75,14 +77,15 @@ def gp_fused_warm_plain(a, b, c, d, e, x0, lo: int = 2, hi: int = 1,
 
 
 def _gp_launch(fn_name: str, a, b, c, d, e, *extra,
-               max_n: int = cuda_build.MAX_N):
+               max_n: int = cuda_build.MAX_N, tail: tuple = ()):
     cuda_build.check_kernel_input(b, "gp kernel", max_n=max_n)
     cuda_build.check_cuda_f32("gp kernel", a, b, c, d, e)
     out = torch.empty((b.shape[0], 2), dtype=torch.float32, device=b.device)
     device, stream = cuda_build.launch_args(b)
     err = getattr(cuda_build.library(), fn_name)(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(),
-        out.data_ptr(), b.shape[0], b.shape[-1], *extra, device, stream)
+        out.data_ptr(), b.shape[0], b.shape[-1], *extra, device, stream,
+        *tail)
     cuda_build.check(err, f"gp kernel {fn_name}")
     return out
 
@@ -103,17 +106,22 @@ def gp_fused_cuda(a, b, c, d, e):
 def gp_fused_ns_cuda(a, b, c, d, e):
     """Launch K6 on contiguous CUDA fp32 tensors in the flat layout, n ≤
     :data:`cuda_build.WARM_MAX_N` (one thread block a system up to 128,
-    one thread-block cluster past it); ``gp_fused_ns_cuda.launches``
-    counts the launches and ``gp_fused_ns_cuda.band_launches`` those of
-    the cluster instance."""
+    one 2 × 2 thread-block cluster past it); ``gp_fused_ns_cuda.launches``
+    counts the launches, ``gp_fused_ns_cuda.band_launches`` those of the
+    cluster instance and ``gp_fused_ns_cuda.band_launches_<NP>`` those at
+    each padded size NP (160, 192, 224), as the launch reports it."""
     sched = GP_NS_SCHEDULE
     two_c, c_sq = newton_schulz.round_scalars(sched.coeffs, b.device)
+    quad_np = ctypes.c_int(0)
     out = _gp_launch("cmi_gp_fused_ns", a, b, c, d, e, sched.lo_iters,
                      sched.hi_iters, two_c, c_sq,
-                     max_n=cuda_build.WARM_MAX_N)
+                     max_n=cuda_build.WARM_MAX_N,
+                     tail=(ctypes.byref(quad_np),))
     gp_fused_ns_cuda.launches += 1
-    if b.shape[-1] > cuda_build.MAX_N:
+    if quad_np.value:
         gp_fused_ns_cuda.band_launches += 1
+        key = f"band_launches_{quad_np.value}"
+        setattr(gp_fused_ns_cuda, key, getattr(gp_fused_ns_cuda, key) + 1)
     return out
 
 
@@ -144,6 +152,8 @@ gp_fused_cuda.launches = 0
 gp_fused_cuda.band_launches = 0
 gp_fused_ns_cuda.launches = 0
 gp_fused_ns_cuda.band_launches = 0
+for _np in cuda_build.NS_BAND_NP:
+    setattr(gp_fused_ns_cuda, f"band_launches_{_np}", 0)
 gp_fused_warm_cuda.launches = 0
 gp_fused_warm_cuda.band_launches = 0
 

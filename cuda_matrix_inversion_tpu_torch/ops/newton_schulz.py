@@ -29,6 +29,7 @@ accumulate in fp32; ``HIGHEST`` is full fp32.  Never TF32.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import warnings
@@ -237,10 +238,12 @@ def round_scalars(coeffs: tuple, device: torch.device) -> tuple:
 def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
     """Launch K1 (``csrc/newton_schulz.cu``) on a CUDA fp32 batch, n ≤
     :data:`cuda_build.WARM_MAX_N` (one thread block a matrix up to 128,
-    one thread-block cluster past it), any number of lo rounds.
+    one 2 × 2 thread-block cluster past it), any number of lo rounds.
 
-    ``ns_iterate_cuda.launches`` counts the launches and
-    ``ns_iterate_cuda.band_launches`` those of the cluster instance."""
+    ``ns_iterate_cuda.launches`` counts the launches,
+    ``ns_iterate_cuda.band_launches`` those of the cluster instance and
+    ``ns_iterate_cuda.band_launches_<NP>`` those at each padded size NP
+    (160, 192, 224), as the launch reports it."""
     cuda_build.check_kernel_input(a, "newton_schulz kernel",
                                   max_n=cuda_build.WARM_MAX_N)
     cuda_build.check_cuda_f32("newton_schulz kernel", a)
@@ -248,20 +251,25 @@ def ns_iterate_cuda(a: torch.Tensor, sched: Schedule) -> torch.Tensor:
     x = torch.empty_like(a)
     two_c, c_sq = round_scalars(sched.coeffs, a.device)
     device, stream = cuda_build.launch_args(a)
+    quad_np = ctypes.c_int(0)
     err = cuda_build.library().cmi_ns_inverse(
         a.data_ptr(), x.data_ptr(), a.shape[0], a.shape[-1],
         int(sched.init == "spd"), sched.lo_iters, sched.hi_iters,
         int(sched.split3), int(sched.polish_highest), two_c, c_sq, device,
-        stream)
+        stream, ctypes.byref(quad_np))
     cuda_build.check(err, "newton_schulz kernel")
     ns_iterate_cuda.launches += 1
-    if a.shape[-1] > cuda_build.MAX_N:
+    if quad_np.value:
         ns_iterate_cuda.band_launches += 1
+        key = f"band_launches_{quad_np.value}"
+        setattr(ns_iterate_cuda, key, getattr(ns_iterate_cuda, key) + 1)
     return x
 
 
 ns_iterate_cuda.launches = 0
 ns_iterate_cuda.band_launches = 0
+for _np in cuda_build.NS_BAND_NP:
+    setattr(ns_iterate_cuda, f"band_launches_{_np}", 0)
 
 
 def inverse_newton_schulz_fixed(

@@ -284,8 +284,9 @@ def test_gp_engine_warm_chain_in_the_band():
 
 def test_ns_band_probe_patches_match_the_kernel_source():
     """The card probe of the band instances (``bench/ns_band_probe.py``)
-    stamps a clock split into copies of ``csrc/ns_cluster_rounds.cuh``,
-    ``newton_schulz.cu`` and ``ns_common.cuh``, and reads registers and
+    stamps a clock split into copies of ``csrc/ns_cluster_rounds.cuh`` and
+    ``ns_quad_rounds.cuh``, ``newton_schulz.cu`` and ``ns_common.cuh``,
+    and reads registers and
     cluster occupancy of kernels it names: every anchor must still occur as
     often as the probe expects, every stamp id must have a phase name, the
     kernels it names must exist, and the probe refuses to run without a
@@ -294,13 +295,16 @@ def test_ns_band_probe_patches_match_the_kernel_source():
 
     from cuda_matrix_inversion_tpu_torch.bench import ns_band_probe
 
-    for unit, patches in ns_band_probe.BAND_STAMPS.items():
-        text = (cuda_build.CSRC_DIR / unit).read_text()
-        for anchor, new, count in patches:
-            assert text.count(anchor) == count, (unit, anchor)
-            for stamp_id in re.findall(r"ns_stamp\((\d+)\)", new):
-                assert (int(stamp_id) == 0
-                        or int(stamp_id) in ns_band_probe.BAND_PHASES)
+    for stamps, phases in ((ns_band_probe.BAND_STAMPS,
+                            ns_band_probe.BAND_PHASES),
+                           (ns_band_probe.QUAD_STAMPS,
+                            ns_band_probe.QUAD_PHASES)):
+        for unit, patches in stamps.items():
+            text = (cuda_build.CSRC_DIR / unit).read_text()
+            for anchor, new, count in patches:
+                assert text.count(anchor) == count, (unit, anchor)
+                for stamp_id in re.findall(r"ns_stamp\((\d+)\)", new):
+                    assert int(stamp_id) == 0 or int(stamp_id) in phases
     for unit, kernels in (("newton_schulz.cu", ns_band_probe.NS_KERNELS),
                           ("gp.cu", ns_band_probe.GP_KERNELS)):
         text = (cuda_build.CSRC_DIR / unit).read_text()
