@@ -299,18 +299,19 @@ K2_BAND_PATH_N = (160, 192, 224, 256)
 K2_BAND_TIMED = ((100, 160), (100, 192), (100, 224), (100, 256),
                  (1600, 256))
 # The Cholesky kernels' packed instances (K4, K5 and K10 at 129 ≤ n ≤
-# 256, one block a matrix): phase 3's shapes (37 members at 256, one not
-# positive definite; 100×200, the fit's own shape, with a partial last row
-# tile), phase 4's requests (the GP engine's 256 bucket and the fit at n =
-# 200, the factor at 256) and phase 5's shapes (1600 = 100 draws
-# repeated).
+# 256, one block a matrix): phase 3's shapes (37 members at 225, 255 and
+# 256, one not positive definite; 225 and 255 end on a partial panel;
+# 100×200, the fit's own shape, with a partial last row tile), phase 4's
+# requests (the GP engine's 256 bucket and the fit at n = 200, the factor
+# at 256) and phase 5's shapes (1600 = 100 draws repeated).
 CHOL_BAND_SHAPES = ((100, 136), (100, 160), (100, 192), (100, 200),
-                    (100, 224), (100, 256), (37, 256))
+                    (100, 224), (100, 256), (37, 225), (37, 255), (37, 256))
 CHOL_BAND_PATH_N = 200
 CHOL_BAND_TIMED = ((100, 160), (100, 192), (100, 224), (100, 256),
-                   (1600, 256))
-# K10 vs plain: K5's factor and substitution and K3's W; the sums and
-# logarithms differ in order only.
+                   (1600, 224), (1600, 256))
+# K10 vs plain: K5's factor and substitution and K3's W; at n ≤ 128 the sums
+# and logarithms differ in order only (the packed instances' outputs are
+# compared bitwise).
 LML_RTOL = 1e-5
 # The K10 fit against the torch.linalg fit: the CPU test's bounds
 # (tests/test_torch_gp_fit.py), lml rtol / atol and θ atol.
@@ -1019,11 +1020,12 @@ def _time_k2_band(dev, bounds_at, timing, library, card, torch):
 
 def _chol_band_vs_plain(dev, err, torch):
     """Phase 3 for K4, K5 and K10 (with and without W) past 128, on the
-    packed lower triangle, at CHOL_BAND_SHAPES: K4's L and K10's W equal
-    (``torch.equal``) to the plain versions' on every finite member, K5
-    within K5_ATOL and CHOL_RTOL of its plain version and GP_ATOL of the
-    fp64 closed form, K10's quad, logdet and α within LML_RTOL; at batch 37
-    member 18 is negated, alone non-finite; one packed launch a call.
+    packed lower triangle, at CHOL_BAND_SHAPES: K4's L and every output of
+    K10 (quad, logdet, and with W also W and α) equal (``torch.equal``) to
+    the plain versions' on every finite member, K5 within K5_ATOL and
+    CHOL_RTOL of its plain version and GP_ATOL of the fp64 closed form; at
+    batch 37 member 18 is negated, alone non-finite; one packed launch a
+    call.
     Errors under ``k4_band``, ``k5_band``, ``k10_band`` and
     ``k10_band_emit_w``."""
     from cuda_matrix_inversion_tpu_torch.io.fixtures import (
@@ -1062,10 +1064,10 @@ def _chol_band_vs_plain(dev, err, torch):
                 ("k5_band", cuda_gp.gp_fused_cuda, cuda_gp.gp_fused_plain,
                  flat, CHOL_RTOL, (K5_ATOL,), ()),
                 ("k10_band", lml, cuda_gp_lml.lml_quad_logdet_plain,
-                 (b, c, d), LML_RTOL, (), ()),
+                 (b, c, d), LML_RTOL, (), (0, 1)),
                 ("k10_band_emit_w", lambda *x: lml(*x, True),
                  lambda *x: cuda_gp_lml.lml_quad_logdet_plain(*x, True),
-                 (b, c, d), LML_RTOL, (), (2,))):
+                 (b, c, d), LML_RTOL, (), (0, 1, 2, 3))):
             got = _compare(key, kernel, plain, args, bad, rtol, err, torch,
                            atols, bitwise)
             if key == "k5_band":

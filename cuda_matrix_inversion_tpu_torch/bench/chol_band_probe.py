@@ -5,11 +5,15 @@
 
     python -m cuda_matrix_inversion_tpu_torch.bench.chol_band_probe
     python -m cuda_matrix_inversion_tpu_torch.bench.chol_band_probe routes
+    python -m cuda_matrix_inversion_tpu_torch.bench.chol_band_probe ab BASELINE_CSRC
 
-Prints one JSON line a probe (``routes`` alone with that argument):
+Prints one JSON line a probe (``routes`` alone with that argument, and
+``ab`` alone with its):
 
-- ``occupancy``: for each kernel at n = 160, 192, 224 and 256, the
-  registers a thread and the local memory (spills) from
+- ``occupancy``: for each kernel (and K10 with W on one strip buffer) at
+  n = 160, 192, 224 and 256 and each block size (256 and 512 threads, the
+  instances ``chol_band_threads`` chooses from), the registers a thread
+  and the local memory (spills) from
   ``cudaFuncGetAttributes``, the shared memory a block asks for, and the
   blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
   ``ptxas -v``'s lines.
@@ -21,27 +25,38 @@ Prints one JSON line a probe (``routes`` alone with that argument):
   store, the epilogue), µs at the SM clock the two timers give, median of
   5 launches; and in the last launch thread 0's time in each step of the
   factor and of the in-place W summed over the panels (``chol_probe``'s
-  factor steps, thread 0 being warp 0's lane 0: the pivots of the diagonal
-  blocks, then the wait for the other warps' trailing tiles; W's panel
-  rows of thread 0's column, then the barriers and stores), at
-  :data:`SPLIT`.  The stamps cost thread 0 time.
+  factor steps, thread 0 being warp 0's lane 0: the strips, the update,
+  pivots and stores of the diagonal blocks, then the wait for the other
+  warps' trailing tiles; W's chain of thread 0's column, the strip and
+  block copies, then its tiles and the barrier), at :data:`SPLIT`.  The
+  stamps cost thread 0 time.
 - ``routes``: at :data:`TIMED`, each kernel beside the route it replaced
   in the band (K4: ``torch.linalg.cholesky_ex``; K5: the Schur solve on K3,
   ``cuda_gp.gp_schur_route``; K10: one ``torch.linalg`` LML forward and
   backward, ``models.gp.gp_log_marginal_likelihood``), its plain version,
   the GP ``pallas`` method and one fit step's forward and backward through
   the fused LML, and the GP ``solve`` method.
+- ``ab`` (``BASELINE_CSRC``: another checkout's ``csrc/``, e.g. the parent
+  unpacked by ``git archive`` under ``build/``): the occupancy of the
+  baseline's packed instances, then at :data:`TIMED` each kernel of the
+  baseline, of this tree (its own block sizes) and of this tree with every
+  packed instance at 256 and at 512 threads, bare ctypes launches on the
+  same inputs: which outputs are bitwise equal to the baseline's and to
+  this tree's, and the times in the order baseline, this, this, baseline
+  and 256, 512, 512, 256 (CUDA events, median of 20 after warm-up).
 
-The stamped and the occupancy builds come from a copy of ``csrc/`` with
-patches and a reader (``gp_ns_probe.variant_library``).
+The stamped, occupancy and block-size builds come from a copy of
+``csrc/`` with patches and a reader (``gp_ns_probe.variant_library``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,21 +79,80 @@ from cuda_matrix_inversion_tpu_torch.ops import (
 )
 
 BAND_N = (160, 192, 224, 256)
-TIMED = ((100, 160), (100, 192), (100, 224), (100, 256), (1600, 256))
+TIMED = ((100, 160), (100, 192), (100, 224), (100, 256), (1600, 224),
+         (1600, 256))
 SPLIT = ((100, 256), (1600, 256))
 
+# Occupancy of one kernel at `threads` threads and `smem` bytes:
+# registers, local bytes and blocks an SM into out[0..3).
+_OCC = """
+static int probe_band_occupancy(const void* fn, int threads, size_t smem,
+                                int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        smem);
+  if (err == cudaSuccess) {
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    out[2] = blocks;
+  }
+  return static_cast<int>(err);
+}
+"""
 # Appended to cholesky.cu (which 0) and gp.cu (1 = K5, 2 = K10, 3 = K10
-# with W): registers, local bytes, shared bytes and blocks an SM at n.
-_OCC = chol_probe._PROBE_OCCUPANCY
+# with W, 4 = K10 with W on one strip buffer): registers, local bytes,
+# blocks an SM and shared bytes at n and `threads` (256 or 512, the
+# templated instances).
 CHOL_OCCUPANCY = _OCC + """
-extern "C" int cmi_probe_band_occupancy(int which, int n, int* out) {
+extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
+                                        int* out) {
   const size_t m = static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
   out[3] = static_cast<int>(m);
-  return probe_occupancy((const void*)chol_factor_band_kernel, m, out);
+  const void* fn = threads == 512 ? (const void*)chol_factor_band_kernel<512>
+                                  : (const void*)chol_factor_band_kernel<256>;
+  return probe_band_occupancy(fn, threads, m, out);
 }
 """
 GP_OCCUPANCY = _OCC + """
-extern "C" int cmi_probe_band_occupancy(int which, int n, int* out) {
+extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
+                                        int* out) {
+  const bool wide = threads == 512;
+  const void* fn =
+      which == 1 ? (wide ? (const void*)gp_chol_band_kernel<512>
+                         : (const void*)gp_chol_band_kernel<256>)
+      : which == 2 ? (wide ? (const void*)gp_lml_band_kernel<false, 512>
+                           : (const void*)gp_lml_band_kernel<false, 256>)
+      : which == 3 ? (wide ? (const void*)gp_lml_band_kernel<true, 512>
+                           : (const void*)gp_lml_band_kernel<true, 256>)
+                   : (wide ? (const void*)gp_lml_band_kernel<true, 512, true>
+                           : (const void*)gp_lml_band_kernel<true, 256, true>);
+  const size_t smem =
+      which == 1 ? (chol_packed_floats(n) + 2ull * n) * sizeof(float)
+                 : gp_lml_band_floats(n, which >= 3, which == 4) *
+                       sizeof(float);
+  out[3] = static_cast<int>(smem);
+  return probe_band_occupancy(fn, threads, smem, out);
+}
+"""
+# The same for a checkout from before the block size was a template
+# parameter (256 threads; K10 with W without the in-place W's scratch).
+CHOL_OCCUPANCY_256 = _OCC + """
+extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
+                                        int* out) {
+  const size_t m = static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
+  out[3] = static_cast<int>(m);
+  return probe_band_occupancy((const void*)chol_factor_band_kernel, 256, m,
+                              out);
+}
+"""
+GP_OCCUPANCY_256 = _OCC + """
+extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
+                                        int* out) {
   const size_t m = static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
   const size_t v = static_cast<size_t>(n) * sizeof(float);
   const void* fn = which == 1 ? (const void*)gp_chol_band_kernel
@@ -86,24 +160,39 @@ extern "C" int cmi_probe_band_occupancy(int which, int n, int* out) {
                               : (const void*)gp_lml_band_kernel<true>;
   const size_t smem = m + (which == 3 ? 3 : 2) * v;
   out[3] = static_cast<int>(smem);
-  return probe_occupancy(fn, smem, out);
+  return probe_band_occupancy(fn, 256, smem, out);
 }
 """
-# (name, unit, which, kernel symbol as ptxas prints it, in part)
-KERNELS = (("K4", "cholesky.cu", 0, "chol_factor_band_kernel"),
-           ("K5", "gp.cu", 1, "gp_chol_band_kernel"),
-           ("K10", "gp.cu", 2, "gp_lml_band_kernelILb0E"),
-           ("K10_emit_w", "gp.cu", 3, "gp_lml_band_kernelILb1E"))
+# (name, unit, which, kernel symbol as ptxas prints it, in part, with the
+# block size appended as "ILi256E" or "Li256E"; without it, the 256-thread
+# checkout's)
+KERNELS = (("K4", "cholesky.cu", 0, "chol_factor_band_kernel", "ILi{}E"),
+           ("K5", "gp.cu", 1, "gp_chol_band_kernel", "ILi{}E"),
+           ("K10", "gp.cu", 2, "gp_lml_band_kernelILb0E", "Li{}ELb0E"),
+           ("K10_emit_w", "gp.cu", 3, "gp_lml_band_kernelILb1E", "Li{}ELb0E"),
+           ("K10_emit_w_one_strip", "gp.cu", 4, "gp_lml_band_kernelILb1E",
+            "Li{}ELb1E"))
+THREADS = (256, 512)
+# chol_band_threads' body, and the bodies that pin every packed instance to
+# one block size (the ab mode's 256 and 512 builds).
+BAND_THREADS = "  return 2 * (smem + 1024) <= 233472 ? 256 : 512;\n"
 
-# The in-place W's steps, added to chol_probe.STEPS' (ids 9 and 10).
+
+def _threads_patch(threads: int):
+    return {"cholesky_common.cuh": (
+        [(BAND_THREADS, f"  return {threads};\n", 1)], "")}
+
+
+# The in-place W's steps, added to chol_probe.STEPS' (ids 9 to 11).
 W_STEPS = [
-    ("    __syncthreads();\n    if (j < k1) {\n#pragma unroll\n"
-     "      for (int r = 0; r < NB; ++r)\n"
-     "        if (k0 + r < k1 && k0 + r >= j) K[lay.row(k0 + r) + j] = w[r];\n"
+    ("        if (k0 + r < n) K[rb + r * rs + j] = w[r];\n    }\n",
+     "        if (k0 + r < n) K[rb + r * rs + j] = w[r];\n    }\n"
+     "    chol_step(9);\n", 1),
+    ("      save_block(k1, (p + 1) & 1);\n",
+     "      save_block(k1, (p + 1) & 1);\n      chol_step(11);\n", 1),
+    ("          t = __shfl_sync(0xffffffffu, next, 0);\n        }\n      }\n"
      "    }\n    __syncthreads();\n",
-     "    chol_step(9);\n    __syncthreads();\n    if (j < k1) {\n"
-     "#pragma unroll\n      for (int r = 0; r < NB; ++r)\n"
-     "        if (k0 + r < k1 && k0 + r >= j) K[lay.row(k0 + r) + j] = w[r];\n"
+     "          t = __shfl_sync(0xffffffffu, next, 0);\n        }\n      }\n"
      "    }\n    __syncthreads();\n    chol_step(10);\n", 1),
 ]
 STEP_NAMES = {0: "factor: first diagonal block's stores and barrier",
@@ -112,9 +201,10 @@ STEP_NAMES = {0: "factor: first diagonal block's stores and barrier",
               3: "factor: then waiting for the trailing tiles",
               6: "factor: warp 0's update of a diagonal block by its panel",
               7: "factor: warp 0's factor of a diagonal block (pivots)",
-              9: "W in place: thread 0's column of a panel (the rows above, "
-                 "then the panel's chain of divisions)",
-              10: "W in place: barrier, stores, barrier"}
+              9: "W in place: thread 0's column of the panel (the previous "
+                 "panel applied, the chain of divisions, the stores)",
+              11: "W in place: the strip and diagonal block copies",
+              10: "W in place: thread 0's tiles, then the barrier"}
 _START = ("  if (blockIdx.x == 0 && threadIdx.x == 0) chol_next = 0;\n"
           "  chol_stamp();\n")
 _END = ("  __syncthreads();\n  chol_stamp();\n"
@@ -138,16 +228,18 @@ K10_STAMPS = [
     ("  const float* cs = c + sys * n;\n  chol_load(bs, K, n, lay, [=](int i, "
      "int j, float v) {\n    return i == j ? __fadd_rn(v, cs[i]) : v;  // as "
      "gp_ns_stage_k rounds it\n  });\n  for (int i = tid; i < n; i += "
-     "kThreads) v[i] = d[sys * n + i];\n  __syncthreads();\n"
+     "T) v[i] = d[sys * n + i];\n  __syncthreads();\n"
      "  chol_factor(K, n, lay);\n",
      "  const float* cs = c + sys * n;\n" + _START
      + "  chol_load(bs, K, n, lay, [=](int i, int j, float v) {\n"
      "    return i == j ? __fadd_rn(v, cs[i]) : v;\n  });\n"
-     "  for (int i = tid; i < n; i += kThreads) v[i] = d[sys * n + i];\n"
+     "  for (int i = tid; i < n; i += T) v[i] = d[sys * n + i];\n"
      "  __syncthreads();\n  chol_stamp();\n  chol_step(-1);\n"
      "  chol_factor(K, n, lay);\n  chol_stamp();\n", 1),
-    ("      chol_tri_inverse_in_place(K, n, lay);  // ends with a barrier\n",
-     "      chol_tri_inverse_in_place(K, n, lay);\n      chol_stamp();\n", 1),
+    ("      chol_tri_inverse_in_place<ONE>(K, W, n, lay);  // ends with a "
+     "barrier\n",
+     "      chol_tri_inverse_in_place<ONE>(K, W, n, lay);\n"
+     "      chol_stamp();\n", 1),
     ("    u = v + n;\n  }\n  __syncthreads();\n",
      "    u = v + n;\n  }\n  __syncthreads();\n  chol_stamp();\n", 1),
     ("      out[2 * sys + 1] = 2.f * ld_sum;\n    }\n  }\n}\n",
@@ -181,33 +273,46 @@ def _inputs(batch: int, n: int, dev) -> dict:
     return {"a": a, "fixture": fixture, "flat": flat}
 
 
-def occupancy() -> dict:
+def occupancy(src=None, label: str = "this") -> dict:
+    """Registers, spills, shared bytes and blocks an SM of each packed
+    instance at each n of :data:`BAND_N` and each block size the checkout
+    holds (``src``: another checkout's ``csrc/``), with ``ptxas -v``'s
+    lines."""
     res, ptxas = {}, []
-    for unit, tail in (("cholesky.cu", CHOL_OCCUPANCY),
-                       ("gp.cu", GP_OCCUPANCY)):
-        lib = variant_library(f"chol_band_occ_{unit[:-3]}",
-                              {unit: ([], tail)}, units=(unit,),
-                              flags=("-Xptxas", "-v"))
+    root = src or cuda_build.CSRC_DIR
+    templated = "gp_lml_band_floats" in (root / "gp.cu").read_text()
+    for unit, tail, tail_256 in (
+            ("cholesky.cu", CHOL_OCCUPANCY, CHOL_OCCUPANCY_256),
+            ("gp.cu", GP_OCCUPANCY, GP_OCCUPANCY_256)):
+        lib = variant_library(
+            f"chol_band_occ_{label}_{unit[:-3]}",
+            {unit: ([], tail if templated else tail_256)},
+            src=root, units=(unit,), flags=("-Xptxas", "-v"))
         fn = lib.cmi_probe_band_occupancy
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lines = lib.compiler_log.splitlines()
-        for name, u, which, symbol in KERNELS:
-            if u != unit:
+        for name, u, which, symbol, suffix in KERNELS:
+            if u != unit or which == 4 and not templated:
                 continue
-            rows = {}
-            for n in BAND_N:
-                out = (ctypes.c_int * 4)()
-                cuda_build.check(fn(which, n, ctypes.cast(
-                    out, ctypes.c_void_p)), f"{name} occupancy")
-                rows[n] = {"registers": out[0], "local_bytes": out[1],
-                           "smem_bytes": out[3], "blocks_per_sm": out[2]}
-            res[name] = rows
-            ptxas += [x.strip() for i, line in enumerate(lines)
-                      if "Compiling entry function" in line
-                      and symbol in line
-                      for x in lines[i:i + 4]
-                      if "registers" in x or "spill" in x]
+            for threads in THREADS if templated else (256,):
+                rows = {}
+                for n in BAND_N:
+                    out = (ctypes.c_int * 4)()
+                    cuda_build.check(fn(which, n, threads, ctypes.cast(
+                        out, ctypes.c_void_p)), f"{name} occupancy")
+                    rows[n] = {"registers": out[0], "local_bytes": out[1],
+                               "smem_bytes": out[3],
+                               "blocks_per_sm": out[2]}
+                res[f"{name}_t{threads}"] = rows
+                sym = symbol + (suffix.format(threads) if templated else "")
+                ptxas += [f"{name}_t{threads}: " + x.strip()
+                          for i, line in enumerate(lines)
+                          if "Compiling entry function" in line
+                          and sym in line
+                          for x in lines[i:i + 4]
+                          if "registers" in x or "spill" in x]
     return {"kernels": res, "ptxas": ptxas}
 
 
@@ -341,6 +446,84 @@ def routes(dev, card: str) -> None:
                           "card": card}), flush=True)
 
 
+UNITS = ("cholesky.cu", "gp.cu")
+
+
+def _launchers(cdll, x: dict) -> dict:
+    """Bare ctypes launches of the packed instances of K4, K5 and K10 (both
+    variants) of one library into output buffers of their own; each
+    returns its outputs by name."""
+    a, (ga, gb, gc, gd, ge) = x["a"], x["flat"]
+    batch, n = gb.shape[0], gb.shape[-1]
+    device, stream = cuda_build.launch_args(gb)
+    l = torch.empty_like(a)
+    out5, out10, out10w = (torch.empty((batch, 2), device=gb.device)
+                           for _ in range(3))
+    w, alpha = torch.empty_like(gb), torch.empty_like(gc)
+
+    def k4():
+        cuda_build.check(cdll.cmi_chol_factor(
+            a.data_ptr(), l.data_ptr(), batch, n, device, stream), "k4")
+        return {"L": l}
+
+    def k5():
+        cuda_build.check(cdll.cmi_gp_fused(
+            ga.data_ptr(), gb.data_ptr(), gc.data_ptr(), gd.data_ptr(),
+            ge.data_ptr(), out5.data_ptr(), batch, n, device, stream), "k5")
+        return {"mean_var": out5}
+
+    def k10():
+        cuda_build.check(cdll.cmi_gp_lml(
+            gb.data_ptr(), gc.data_ptr(), gd.data_ptr(), out10.data_ptr(),
+            None, None, batch, n, 0, device, stream), "k10")
+        return {"quad": out10[:, 0], "logdet": out10[:, 1]}
+
+    def k10w():
+        cuda_build.check(cdll.cmi_gp_lml(
+            gb.data_ptr(), gc.data_ptr(), gd.data_ptr(), out10w.data_ptr(),
+            w.data_ptr(), alpha.data_ptr(), batch, n, 1, device, stream),
+            "k10 emit_w")
+        return {"quad": out10w[:, 0], "logdet": out10w[:, 1], "W": w,
+                "alpha": alpha}
+
+    return {"K4": k4, "K5": k5, "K10": k10, "K10_emit_w": k10w}
+
+
+def ab(baseline: Path, dev, card: str) -> None:
+    """The ``ab`` probe (see the module docstring)."""
+    builds = {"baseline": ({}, baseline), "this": ({}, None),
+              "t256": (_threads_patch(256), None),
+              "t512": (_threads_patch(512), None)}
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(
+            variant_library, f"chol_band_ab_{k}", edits,
+            src or cuda_build.CSRC_DIR, UNITS)
+            for k, (edits, src) in builds.items()}
+        occ = pool.submit(occupancy, baseline, "baseline")
+        libs = {k: f.result() for k, f in futures.items()}
+        print(json.dumps({"probe": "ab_occupancy_baseline", **occ.result(),
+                          "card": card}), flush=True)
+    for batch, n in TIMED:
+        x = _inputs(batch, n, dev)
+        runs = {k: _launchers(v, x) for k, v in libs.items()}
+        rows = {}
+        for name in runs["this"]:
+            outs = {k: {o: t.clone() for o, t in runs[k][name]().items()}
+                    for k in libs}
+            torch.cuda.synchronize()
+            same = {ref: {k: [o for o in outs[k]
+                              if torch.equal(outs[k][o], outs[ref][o])]
+                          for k in libs if k != ref}
+                    for ref in ("baseline", "this")}
+            ms = {k: [] for k in libs}
+            for k in ("baseline", "this", "this", "baseline",
+                      "t256", "t512", "t512", "t256"):
+                ms[k].append(median_ms(runs[k][name]))
+            rows[name] = {"bitwise_equal_outputs": same, "ms": ms}
+        print(json.dumps({"probe": "ab", "case": f"{batch}x{n}",
+                          "kernels": rows, "card": card}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -349,6 +532,9 @@ def main() -> int:
     card = _card()
     if sys.argv[1:2] == ["routes"]:
         routes(dev, card)
+        return 0
+    if sys.argv[1:2] == ["ab"]:
+        ab(Path(sys.argv[2]), dev, card)
         return 0
     print(json.dumps({"probe": "occupancy", **occupancy(), "card": card}),
           flush=True)

@@ -75,9 +75,11 @@ __global__ void __launch_bounds__(kThreads, 3)
 
 // K4 past n = 128 (129 <= n <= 256): the factor on the packed lower
 // triangle (cholesky_common.cuh::CholPacked, 136 KB at n = 256), the same
-// schedule and bits.  At most 128 registers a thread, so two blocks share
-// an SM where their shared memory fits (n <= 224).
-__global__ void __launch_bounds__(kThreads, 2)
+// bits.  T = 256 or 512 threads (chol_band_threads), at most 128 registers
+// a thread: two blocks of 256 share an SM where their shared memory fits
+// (n <= 232), else one of 512.
+template <int T>
+__global__ void __launch_bounds__(T, 512 / T)
     chol_factor_band_kernel(const float* __restrict__ a,
                             float* __restrict__ l, int n) {
   extern __shared__ __align__(16) float smem[];
@@ -147,12 +149,13 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const float* a, float* out, int batch,
-                   int n, size_t smem, cudaStream_t stream) {
+                   int n, size_t smem, cudaStream_t stream,
+                   int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch, kThreads, smem, stream>>>(a, out, n);
+  kernel<<<batch, threads, smem, stream>>>(a, out, n);
   return cudaGetLastError();
 }
 
@@ -169,10 +172,16 @@ extern "C" int cmi_chol_factor(const float* a, float* l, int batch, int n,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > kMaxN)
-    return static_cast<int>(launch(
-        chol_factor_band_kernel, a, l, batch, n,
-        static_cast<size_t>(chol_packed_floats(n)) * sizeof(float), s));
+  if (n > kMaxN) {
+    const size_t smem =
+        static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
+    return static_cast<int>(
+        chol_band_threads(smem) == 512
+            ? launch(chol_factor_band_kernel<512>, a, l, batch, n, smem, s,
+                     512)
+            : launch(chol_factor_band_kernel<256>, a, l, batch, n, smem, s,
+                     256));
+  }
   const size_t smem = static_cast<size_t>(n) * chol_ld(n) * sizeof(float);
   return static_cast<int>(launch(chol_factor_kernel, a, l, batch, n, smem,
                                  s));

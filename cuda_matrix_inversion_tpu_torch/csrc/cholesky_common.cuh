@@ -34,7 +34,8 @@
 // column apply the previous panel below them; two barriers a panel for the
 // factor and one for W, against two a column before.  Every element goes
 // through shared memory once a panel, and every hot read is a float4 on a
-// row stride (chol_ld) that keeps it free of bank conflicts.
+// row stride (chol_ld) that keeps it free of bank conflicts.  On the packed
+// layout W is built right-looking in place (chol_tri_inverse_in_place).
 
 #pragma once
 
@@ -106,6 +107,14 @@ struct CholPacked {
 __host__ __device__ __forceinline__ int chol_packed_floats(int n) {
   const int g = (n + 7) / 8;
   return 32 * g * (g + 2);
+}
+
+// Threads a block of a packed instance that asks for smem bytes of shared
+// memory: 256 where two such blocks fit an SM (228 KB, 1 KB reserved a
+// block), else 512, one block an SM with 16 warps (at most 128 registers a
+// thread either way).  From the A/B of bench/chol_band_probe.py ab.
+inline int chol_band_threads(size_t smem) {
+  return 2 * (smem + 1024) <= 233472 ? 256 : 512;
 }
 
 __device__ __forceinline__ void chol_st4(float* p, float x, float y, float z,
@@ -491,88 +500,244 @@ __device__ __forceinline__ void chol_tri_inverse(const float* __restrict__ L,
   }
 }
 
+// Floats of chol_tri_inverse_in_place<ONE>'s scratch: two strips of L's
+// panel columns, each two float4 columns of n rounded up to 8 rows (ONE:
+// one float4 column of one strip, WStrip), then two diagonal blocks of
+// kCholPanel x kCholPanel, then two tile counters (16.5 KB at n = 256; ONE
+// 4.0 KB at 224).
+__host__ __device__ __forceinline__ int chol_w_scratch_floats(int n,
+                                                              bool one) {
+  return (one ? 4 : 16) * ((n + 7) / 8 * 8) + 2 * kCholPanel * kCholPanel +
+         4;
+}
+
+// Where the in-place W keeps a strip of L's panel columns: half h (the
+// panel's columns 4h .. 4h + 3) of row i of strip buffer b.  Two buffers of
+// two halves in the scratch, or (ONE) one buffer: half 0 in the scratch and
+// half 1 in row i's last float4 of K, which no element reaches (row i holds
+// j <= i < 8 (i >> 3) + 8 of its stride 8 (i >> 3) + 12).
+template <bool ONE>
+struct WStrip {
+  float4* s;
+  float* K;
+  int n8;
+  __device__ __forceinline__ float4* at(int b, int h, int i,
+                                        CholPacked lay) const {
+    if (ONE)
+      return h ? reinterpret_cast<float4*>(K + lay.row(i) + 8 * (i >> 3) + 8)
+               : s + i;
+    return s + (2 * b + h) * n8 + i;
+  }
+};
+
+// One warp's tile of W's trailing update (chol_tri_inverse_in_place): for
+// the rows i = i0 + lane + 32a (a < A, i < n) and the columns j = j0 + c
+// (c < 8) of the packed K,
+//   W[i][j] -= L[i][k] * W[k][j]   for k = kp, ..., kp + 7 in order,
+// with L[i][kp..kp+8) from strip buffer b and W[k][j] from the panel's
+// rows in K (zeros above the diagonal; row kp + r starts at yb + r ys, one
+// group of 8).  The tile at j0 = kp starts from zero (W's value before any
+// update there; K still holds L, which the strip has saved).  Rows past n
+// are clamped to n - 1 and not stored.
+template <int A, bool ONE>
+__device__ __forceinline__ void chol_w_tile(float* K, WStrip<ONE> strip,
+                                            int b, int i0, int j0, int kp,
+                                            int yb, int ys, int n,
+                                            CholPacked lay) {
+  const int lane = threadIdx.x & 31;
+  int ri[A];
+  float acc[A][kTileCols];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    ri[a] = min(i0 + lane + 32 * a, n - 1);
+#pragma unroll
+    for (int h = 0; h < kTileCols; h += 4) {
+      if (j0 == kp) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[a][h + u] = 0.f;
+      } else {
+        chol_get4(&acc[a][h], K + lay.row(ri[a]) + j0 + h);
+      }
+    }
+  }
+#pragma unroll
+  for (int kh = 0; kh < kCholPanel; kh += 4) {
+    float xv[A][4], yv[kTileCols][4];  // yv[c][q] = W[kp + kh + q][j0 + c]
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const float4 t = *strip.at(b, kh / 4, ri[a], lay);
+      xv[a][0] = t.x;
+      xv[a][1] = t.y;
+      xv[a][2] = t.z;
+      xv[a][3] = t.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* yr = K + yb + (kh + q) * ys + j0;
+#pragma unroll
+      for (int h = 0; h < kTileCols; h += 4) {
+        float t[4];
+        chol_get4(t, yr + h);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) yv[h + u][q] = t[u];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c)
+          acc[a][c] = __fsub_rn(acc[a][c], __fmul_rn(xv[a][q], yv[c][q]));
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    if (i0 + lane + 32 * a < n) {
+      float* d = K + lay.row(ri[a]) + j0;
+#pragma unroll
+      for (int h = 0; h < kTileCols; h += 4)
+        chol_st4(d + h, acc[a][h], acc[a][h + 1], acc[a][h + 2],
+                 acc[a][h + 3]);
+    }
+  }
+}
+
 // W = L^-1 in place over the factor in the packed lower triangle of K: on
-// return row i holds W[i][0..i] where it held L[i][0..i].  The caller
-// keeps L's diagonal elsewhere if it needs it, has passed a barrier since
-// L was written, and the function ends with one; the block has at least n
-// threads.  Row i of W needs row i of L and the rows of W above it, so W
-// replaces L one row panel of kCholPanel rows at a time, left-looking:
-// thread j < n owns column j of the panel's rows in registers and gives
-// each W[i][j] the plain version's sequence,
+// return row i holds W[i][0..i] where it held L[i][0..i] (and zeros past
+// the diagonal up to its panel's last column).  The caller keeps L's
+// diagonal elsewhere if it needs it, has passed a barrier since L was
+// written, and gives `scratch`, chol_w_scratch_floats(n, ONE) floats on
+// 16 bytes; the function ends with a barrier.  Each W[i][j] takes the plain
+// version's sequence,
 //   W[i][j] = delta_ij,  W[i][j] -= L[i][k] W[k][j] for k = j, ..., i - 1,
 //   W[i][j] /= L[i][i],
-// first the rows k above the panel (already W in K; L's rows by float4
-// broadcast, from the warp's first column so the loads stay uniform), then
-// the panel's own rows k (still in registers), then the division.  The
-// updates with the known zeros of W above the diagonal (k < j) are skipped,
-// as chol_tri_inverse skips them: only the warp's first 32 rows need the
-// test, the rest go through a loop without it.  After a barrier (every
-// thread has read the panel's L rows) each owner stores its column over
-// them, then a barrier before the next panel reads them as W: two barriers
-// a panel.
-__device__ __forceinline__ void chol_tri_inverse_in_place(float* K, int n,
+// right-looking by row panels of kCholPanel rows, one barrier a panel.  In
+// the step of panel p = [k0, k1), with panel p - 1 = [kp, k0):
+//   1. thread j < k1 finishes column j of the panel's rows: it applies
+//      panel p - 1 to them (W's rows kp..k0 in K, L's columns from strip
+//      p - 1), then the panel's own rows (L's diagonal block from its copy)
+//      and the divisions, and stores the column, zeros above the diagonal.
+//   2. it saves strip p, L[k1..n)[k0..k1), and the next diagonal block,
+//      which later steps overwrite with W;
+//   3. every warp applies panel p - 1 to rows [k1, n), columns [0, k0),
+//      from 64 x 8 register tiles (chol_w_tile) that store over K: their
+//      L operand comes from the strip, so no tile reads an L value another
+//      one has replaced.  A warp takes the next tile from a counter in
+//      shared memory, so the warps that finished no chain take more.
+// With ONE (one strip buffer, WStrip) strip p is saved after a second
+// barrier that ends the step, once no thread reads strip p - 1.  So each
+// W[i][j] takes the panels in increasing order (its own row's panel last,
+// with the division), and the chain of divisions (8 a panel, one thread a
+// column) runs beside the trailing tiles.  An update by a
+// zero of W above the diagonal (k < j in j's own panel) comes before any
+// nonzero term and leaves +0 unchanged, so it changes no bit of a
+// positive definite member.
+template <bool ONE>
+__device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
+                                                          float* scratch,
+                                                          int n,
                                                           CholPacked lay) {
   constexpr int NB = kCholPanel;
-  const int j = threadIdx.x;
-  const int jw = j & ~31;  // the warp's first column, a multiple of 4
-  for (int k0 = 0; k0 < n; k0 += NB) {
+  const int tid = threadIdx.x;
+  const int n8 = (n + 7) / 8 * 8;
+  const WStrip<ONE> strip{reinterpret_cast<float4*>(scratch), K, n8};
+  float* blocks = scratch + (ONE ? 4 : 16) * n8;         // [2][NB][NB]
+  int* next_tile = reinterpret_cast<int*>(blocks + 2 * NB * NB);  // [2]
+  // the diagonal block of rows [k1, k1 + NB) into blocks[slot]
+  auto save_block = [&](int k1, int slot) {
+    const int r = tid >> 1, h = 4 * (tid & 1);
+    if (tid < 2 * NB && k1 + r < n)
+      *reinterpret_cast<float4*>(blocks + slot * NB * NB + r * NB + h) =
+          *reinterpret_cast<const float4*>(K + lay.row(k1 + r) + k1 + h);
+  };
+  save_block(0, 0);
+  __syncthreads();
+  for (int k0 = 0, p = 0; k0 < n; k0 += NB, ++p) {
     const int k1 = min(k0 + NB, n);
-    float w[NB];
-    if (j < k1) {
-      int rows[NB];  // the panel's rows; rows past n: garbage, unstored
+    const int kp = k0 - NB;
+    const int sb = (p + 1) & 1;  // strip p - 1's buffer
+    const float* lb = blocks + (p & 1) * NB * NB;
+    if (tid == 0) next_tile[p & 1] = 0;  // the next step's counter
+    // 1. the panel's rows (a panel's rows are one group of 8: row k0 + r
+    // starts at rb + r rs, row kp + kk at yb + kk ys)
+    const int rb = lay.row(k0), rs = lay.stride(k0);
+    for (int j = tid; j < k1; j += blockDim.x) {
+      float w[NB];
 #pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        rows[r] = lay.row(min(k0 + r, n - 1));
-        w[r] = k0 + r == j ? 1.f : 0.f;
-      }
-      const int kmid = min(jw + 32, k0);  // every k >= kmid is > j
-      for (int k4 = jw; k4 < kmid; k4 += 4) {
-        float wk[4];
+      for (int r = 0; r < NB; ++r)  // rows past n: garbage, unstored
+        w[r] = j < kp ? K[rb + min(r, n - 1 - k0) * rs + j]
+                      : (k0 + r == j ? 1.f : 0.f);
+      if (j < k0) {
+        const int yb = lay.row(kp), ys = rs - 8;
+        float wk[NB];  // W[kp + kk][j], zero where kp + kk < j
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          wk[u] = k4 + u >= j ? K[lay.row(k4 + u) + j] : 0.f;
-#pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          float l4[4];
-          chol_get4(l4, K + rows[r] + k4);
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (k4 + u >= j) w[r] = __fsub_rn(w[r], __fmul_rn(l4[u], wk[u]));
-        }
-      }
-      for (int k4 = kmid; k4 < k0; k4 += 4) {
-        const float* wrow = K + lay.row(k4) + j;  // rows k4 .. k4 + 3
-        const int ws = lay.stride(k4);
-        float wk[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) wk[u] = wrow[u * ws];
+        for (int kk = 0; kk < NB; ++kk) wk[kk] = K[yb + kk * ys + j];
 #pragma unroll
         for (int r = 0; r < NB; ++r) {
-          float l4[4];
-          chol_get4(l4, K + rows[r] + k4);
+          const float4 l0 = *strip.at(sb, 0, k0 + r, lay),
+                       l1 = *strip.at(sb, 1, k0 + r, lay);
+          const float l8[NB] = {l0.x, l0.y, l0.z, l0.w,
+                                l1.x, l1.y, l1.z, l1.w};
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            w[r] = __fsub_rn(w[r], __fmul_rn(l4[u], wk[u]));
+          for (int kk = 0; kk < NB; ++kk)
+            w[r] = __fsub_rn(w[r], __fmul_rn(l8[kk], wk[kk]));
         }
       }
 #pragma unroll
       for (int r = 0; r < NB; ++r) {
         float lc[NB];
-#pragma unroll
-        for (int h = 0; h < NB; h += 4) chol_get4(lc + h, K + rows[r] + k0 + h);
+        chol_get4(lc, lb + r * NB);
+        chol_get4(lc + 4, lb + r * NB + 4);
 #pragma unroll
         for (int c = 0; c < r; ++c)
-          if (k0 + c >= j) w[r] = __fsub_rn(w[r], __fmul_rn(lc[c], w[c]));
-        if (k0 + r >= j) w[r] = w[r] / lc[r];
+          w[r] = __fsub_rn(w[r], __fmul_rn(lc[c], w[c]));
+        w[r] = w[r] / lc[r];
+      }
+#pragma unroll
+      for (int r = 0; r < NB; ++r)
+        if (k0 + r < n) K[rb + r * rs + j] = w[r];
+    }
+    // 2. strip p (after the step's barrier with ONE) and the next
+    // diagonal block
+    auto save_strip = [&] {
+      for (int i = k1 + tid; i < n; i += blockDim.x) {
+        const float* src = K + lay.row(i) + k0;
+        *strip.at(p & 1, 0, i, lay) = *reinterpret_cast<const float4*>(src);
+        *strip.at(p & 1, 1, i, lay) =
+            *reinterpret_cast<const float4*>(src + 4);
+      }
+    };
+    if (k1 < n) {
+      if (!ONE) save_strip();
+      save_block(k1, (p + 1) & 1);
+      // 3. panel p - 1 applied to rows [k1, n), columns [0, k0), a tile
+      // at a time from this step's counter
+      if (k0 > 0) {
+        const int cols = k0 / kTileCols;
+        const int tiles = (n - k1 + kTileRows - 1) / kTileRows * cols;
+        const int yb = lay.row(kp), ys = lay.stride(kp);
+        int* counter = next_tile + ((p + 1) & 1);
+        int t = 0;
+        if ((tid & 31) == 0) t = atomicAdd(counter, 1);
+        t = __shfl_sync(0xffffffffu, t, 0);
+        while (t < tiles) {
+          int next = 0;  // the warp's next tile, fetched beside this one
+          if ((tid & 31) == 0) next = atomicAdd(counter, 1);
+          const int i0 = k1 + kTileRows * (t / cols);
+          const int j0 = kTileCols * (t % cols);
+          if (i0 + 32 < n)
+            chol_w_tile<2>(K, strip, sb, i0, j0, kp, yb, ys, n, lay);
+          else
+            chol_w_tile<1>(K, strip, sb, i0, j0, kp, yb, ys, n, lay);
+          t = __shfl_sync(0xffffffffu, next, 0);
+        }
       }
     }
     __syncthreads();
-    if (j < k1) {
-#pragma unroll
-      for (int r = 0; r < NB; ++r)
-        if (k0 + r < k1 && k0 + r >= j) K[lay.row(k0 + r) + j] = w[r];
+    if (ONE && k1 < n) {
+      save_strip();
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 

@@ -85,10 +85,16 @@
 // and K3: the panel factor's chain of pivots, then (with emit_w) W's chain
 // of divisions.  Without emit_w three blocks share an SM (at most 80
 // registers a thread), with it one.  Past n = 128, up to the JAX kernel's
-// 256, both variants run on the packed lower triangle (gp_lml_band_kernel):
-// with emit_w, W = L^-1 replaces L in place one 8-row panel at a time
-// (cholesky_common.cuh::chol_tri_inverse_in_place) and L's diagonal is
-// kept aside for log|K|; n floats more than without (139 KB at 256).
+// 256, both variants run on the packed lower triangle (gp_lml_band_kernel,
+// 256 or 512 threads a block by chol_band_threads): with emit_w, W = L^-1
+// replaces L in place, right-looking by 8-row panels: one thread a column
+// finishes a panel's rows while every warp applies the previous panel to
+// the rows below from register tiles whose L operand was saved to a strip
+// (cholesky_common.cuh::chol_tri_inverse_in_place), and L's diagonal is
+// kept aside for log|K| (155.5 KB at 256, 138 KB without emit_w).  There
+// t, alpha, quad and log|K| are summed in the plain version's order (a
+// rounded product, then a rounded sum), so every output repeats it bit for
+// bit.
 
 #include <cuda_runtime.h>
 
@@ -117,9 +123,9 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-// K5's body on the layout lay: K in shared memory at K, Y (2n floats)
-// after it.
-template <typename Lay>
+// K5's body on the layout lay, T threads a block: K in shared memory at
+// K, Y (2n floats) after it.
+template <int T, typename Lay>
 __device__ __forceinline__ void gp_chol_body(
     float* K, float* Y, const float* __restrict__ a,
     const float* __restrict__ b, const float* __restrict__ c,
@@ -135,7 +141,7 @@ __device__ __forceinline__ void gp_chol_body(
   chol_load(bs, K, n, lay, [=](int i, int j, float v) {
     return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
   });
-  for (int i = tid; i < n; i += kThreads) {
+  for (int i = tid; i < n; i += T) {
     Y[i] = d[sys * n + i];
     Y[n + i] = a[sys * n + i];
   }
@@ -175,12 +181,15 @@ __global__ void __launch_bounds__(kThreads, 3)
                    int n) {
   extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
-  gp_chol_body(smem, smem + n * ld, a, b, c, d, e, out, n, CholSquare{ld});
+  gp_chol_body<kThreads>(smem, smem + n * ld, a, b, c, d, e, out, n,
+                         CholSquare{ld});
 }
 
 // K5 past n = 128 (129 <= n <= 256): the packed lower triangle
-// (cholesky_common.cuh::CholPacked), then Y; 138 KB at n = 256.
-__global__ void __launch_bounds__(kThreads, 2)
+// (cholesky_common.cuh::CholPacked), then Y; 138 KB at n = 256.  T = 256
+// or 512 threads (chol_band_threads), at most 128 registers a thread.
+template <int T>
+__global__ void __launch_bounds__(T, 512 / T)
     gp_chol_band_kernel(const float* __restrict__ a,
                         const float* __restrict__ b,
                         const float* __restrict__ c,
@@ -188,8 +197,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                         const float* __restrict__ e, float* __restrict__ out,
                         int n) {
   extern __shared__ __align__(16) float smem[];
-  gp_chol_body(smem, smem + chol_packed_floats(n), a, b, c, d, e, out, n,
-               CholPacked{});
+  gp_chol_body<T>(smem, smem + chol_packed_floats(n), a, b, c, d, e, out, n,
+                  CholPacked{});
 }
 
 // The fp32 epilogue of K6 and K11 from X ~= K^-1 in sX and sv = [d a]:
@@ -537,12 +546,30 @@ __global__ void __launch_bounds__(kThreads, band_ctas_per_sm(NP, false))
   quad_gp_epilogue(sm, cta, n, e + sys, out + 2 * sys, red);
 }
 
-// K10's body on the layout lay.  EMIT_W = false: quad and logdet only;
-// true: also W = L^-1 and alpha = K^-1 d.  K (the factor, then with EMIT_W
-// on the packed layout W in its place), W (EMIT_W on the square layout: a
-// second matrix), v (2n floats: d, then t) and, on the packed layout with
-// EMIT_W, diag (n floats: L's diagonal, kept for log|K|) in shared memory.
-template <bool EMIT_W, typename Lay>
+// acc + x * y in K10's sums: fused on the square layout; on the packed one
+// a rounded product and a rounded sum, which the plain version
+// (ops/cuda_gp_lml.py::lml_quad_logdet_plain) repeats bit for bit.
+template <typename Lay>
+__device__ __forceinline__ float lml_madd(float x, float y, float acc) {
+  if constexpr (Lay::kPacked) {
+    return __fadd_rn(acc, __fmul_rn(x, y));
+  } else {
+    return fmaf(x, y, acc);
+  }
+}
+
+// K10's body on the layout lay, T threads a block.  EMIT_W = false: quad
+// and logdet only; true: also W = L^-1 and alpha = K^-1 d.  K (the factor,
+// then with EMIT_W on the packed layout W in its place), W (EMIT_W on the
+// square layout: a second matrix; on the packed one the scratch of the
+// in-place W, with one strip buffer where ONE), v (2n floats: d, then t)
+// and, on the packed layout with EMIT_W, diag (n floats: L's diagonal,
+// kept for log|K|) in shared memory.
+// t = W d (thread i owns row i) and alpha = W^T t (thread j owns column j)
+// sum in increasing index, and quad and log|K| lane by lane on warp 0 (lane
+// l takes the elements l, l + 32, ...) and then over the lanes by xor
+// shuffles.
+template <bool EMIT_W, int T, bool ONE, typename Lay>
 __device__ __forceinline__ void gp_lml_body(
     float* K, float* W, float* v, float* diag, const float* __restrict__ b,
     const float* __restrict__ c, const float* __restrict__ d,
@@ -557,7 +584,7 @@ __device__ __forceinline__ void gp_lml_body(
   chol_load(bs, K, n, lay, [=](int i, int j, float v) {
     return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
   });
-  for (int i = tid; i < n; i += kThreads) v[i] = d[sys * n + i];
+  for (int i = tid; i < n; i += T) v[i] = d[sys * n + i];
   __syncthreads();
   chol_factor(K, n, lay);
 
@@ -577,8 +604,8 @@ __device__ __forceinline__ void gp_lml_body(
     }
   } else {
     if constexpr (Lay::kPacked) {
-      for (int i = tid; i < n; i += kThreads) diag[i] = K[lay.row(i) + i];
-      chol_tri_inverse_in_place(K, n, lay);  // ends with a barrier
+      for (int i = tid; i < n; i += T) diag[i] = K[lay.row(i) + i];
+      chol_tri_inverse_in_place<ONE>(K, W, n, lay);  // ends with a barrier
       W = K;
       ldiag = diag;
     } else {
@@ -586,28 +613,37 @@ __device__ __forceinline__ void gp_lml_body(
       __syncthreads();
     }
     // t = W d, thread i owns row i (W is zero above the diagonal)
-    for (int i = tid; i < n; i += kThreads) {
+    for (int i = tid; i < n; i += T) {
       float t = 0.f;
       for (int k4 = 0; k4 <= i; k4 += 4) {  // float4 reads of row i
         float w4[4];
         chol_get4(w4, W + lay.row(i) + k4);
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          if (k4 + u <= i) t = fmaf(w4[u], v[k4 + u], t);
+          if (k4 + u <= i) t = lml_madd<Lay>(w4[u], v[k4 + u], t);
       }
       v[n + i] = t;
     }
     __syncthreads();
     // alpha = W^T t, thread j owns column j
-    for (int j = tid; j < n; j += kThreads) {
+    for (int j = tid; j < n; j += T) {
       float s = 0.f;
-      for (int i = j; i < n; ++i) s = fmaf(W[lay.row(i) + j], v[n + i], s);
+      for (int i = j; i < n; ++i)
+        s = lml_madd<Lay>(W[lay.row(i) + j], v[n + i], s);
       alpha_out[sys * n + j] = s;
     }
     float* ws = w_out + sys * n * n;
-    for (int x = tid; x < n * n; x += kThreads) {
-      const int i = x / n, j = x % n;
-      ws[x] = j <= i ? W[lay.row(i) + j] : 0.f;
+    if constexpr (Lay::kPacked) {
+      for (int i = warp; i < n; i += T / 32) {  // a row a warp
+        const float* wr = W + lay.row(i);
+        for (int j = lane; j < n; j += 32)
+          ws[i * n + j] = j <= i ? wr[j] : 0.f;
+      }
+    } else {
+      for (int x = tid; x < n * n; x += T) {
+        const int i = x / n, j = x % n;
+        ws[x] = j <= i ? W[lay.row(i) + j] : 0.f;
+      }
     }
     u = v + n;
   }
@@ -615,7 +651,7 @@ __device__ __forceinline__ void gp_lml_body(
   if (warp == 0) {
     float q = 0.f, ld_sum = 0.f;
     for (int i = lane; i < n; i += 32) {
-      q = fmaf(u[i], u[i], q);
+      q = lml_madd<Lay>(u[i], u[i], q);
       ld_sum += logf(ldiag ? ldiag[i] : K[lay.row(i) + i]);
     }
 #pragma unroll
@@ -639,25 +675,46 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
                   int n) {
   extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
-  gp_lml_body<EMIT_W>(smem, smem + n * ld,
-                      smem + (EMIT_W ? 2 : 1) * n * ld, nullptr, b, c, d,
-                      out, w_out, alpha_out, n, CholSquare{ld});
+  gp_lml_body<EMIT_W, kThreads, false>(smem, smem + n * ld,
+                                smem + (EMIT_W ? 2 : 1) * n * ld, nullptr, b,
+                                c, d, out, w_out, alpha_out, n,
+                                CholSquare{ld});
+}
+
+// Floats of K10's packed instance's shared memory: the packed triangle,
+// with EMIT_W the in-place W's scratch (one strip buffer where one), then
+// v and (EMIT_W) diag; 155.5 KB at n = 256 with W, 138 KB without.
+size_t gp_lml_band_floats(int n, bool emit_w, bool one) {
+  return chol_packed_floats(n) +
+         (emit_w ? chol_w_scratch_floats(n, one) + 3ull * n : 2ull * n);
+}
+
+// Whether K10's packed instance with W keeps one strip buffer: where only
+// that lets two blocks share an SM (209 <= n <= 224: the two buffers,
+// 14 KB, leave one block an SM there, and past 224 one block fits either
+// way); elsewhere two buffers spare the step its second barrier.
+bool gp_lml_one_strip(int n) {
+  return chol_band_threads(gp_lml_band_floats(n, true, false) * 4) == 512 &&
+         chol_band_threads(gp_lml_band_floats(n, true, true) * 4) == 256;
 }
 
 // K10 past n = 128 (129 <= n <= 256): the packed lower triangle, with
 // EMIT_W turned into W in place (cholesky_common.cuh::
-// chol_tri_inverse_in_place), then v and diag; 139 KB at n = 256.
-template <bool EMIT_W>
-__global__ void __launch_bounds__(kThreads, 2)
+// chol_tri_inverse_in_place, right-looking by row panels; ONE: one strip
+// buffer, gp_lml_one_strip), T = 256 or 512 threads (chol_band_threads), at
+// most 128 registers a thread.
+template <bool EMIT_W, int T, bool ONE = false>
+__global__ void __launch_bounds__(T, 512 / T)
     gp_lml_band_kernel(const float* __restrict__ b,
                        const float* __restrict__ c,
                        const float* __restrict__ d, float* __restrict__ out,
                        float* __restrict__ w_out,
                        float* __restrict__ alpha_out, int n) {
   extern __shared__ __align__(16) float smem[];
-  float* v = smem + chol_packed_floats(n);
-  gp_lml_body<EMIT_W>(smem, nullptr, v, v + 2 * n, b, c, d, out, w_out,
-                      alpha_out, n, CholPacked{});
+  float* scratch = smem + chol_packed_floats(n);
+  float* v = scratch + (EMIT_W ? chol_w_scratch_floats(n, ONE) : 0);
+  gp_lml_body<EMIT_W, T, ONE>(smem, scratch, v, v + 2 * n, b, c, d, out,
+                              w_out, alpha_out, n, CholPacked{});
 }
 
 // Bytes of K6's and K11's shared memory for NP = np: NsSmem, then [d a]
@@ -667,14 +724,20 @@ size_t gp_ns_smem_bytes(size_t np, int n) {
 }
 
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch_threads(Kernel kernel, int threads, size_t smem,
+                           int batch, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch, kThreads, smem, stream>>>(args...);
+  kernel<<<batch, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, size_t smem, int batch, cudaStream_t stream,
+                   Args... args) {
+  return launch_threads(kernel, kThreads, smem, batch, stream, args...);
 }
 
 }  // namespace
@@ -691,12 +754,17 @@ extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > kMaxN)
-    return static_cast<int>(launch(
-        gp_chol_band_kernel,
+  if (n > kMaxN) {
+    const size_t smem =
         (static_cast<size_t>(chol_packed_floats(n)) + 2ull * n) *
-            sizeof(float),
-        batch, s, a, b, c, d, e, out, n));
+        sizeof(float);
+    return static_cast<int>(
+        chol_band_threads(smem) == 512
+            ? launch_threads(gp_chol_band_kernel<512>, 512, smem, batch, s, a,
+                             b, c, d, e, out, n)
+            : launch_threads(gp_chol_band_kernel<256>, 256, smem, batch, s, a,
+                             b, c, d, e, out, n));
+  }
   const size_t smem =
       (static_cast<size_t>(n) * chol_ld(n) + 2ull * n) * sizeof(float);
   return static_cast<int>(launch(gp_chol_kernel, smem, batch, s, a, b, c, d,
@@ -846,13 +914,24 @@ extern "C" int cmi_gp_lml(const float* b, const float* c, const float* d,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > kMaxN) {
-    // the packed triangle, v and (emit_w) diag
-    const size_t smem = (static_cast<size_t>(chol_packed_floats(n)) +
-                         (emit_w ? 3ull : 2ull) * n) * sizeof(float);
-    err = emit_w ? launch(gp_lml_band_kernel<true>, smem, batch, s, b, c, d,
-                          out, w, alpha, n)
-                 : launch(gp_lml_band_kernel<false>, smem, batch, s, b, c, d,
-                          out, w, alpha, n);
+    const bool one = emit_w && gp_lml_one_strip(n);
+    const size_t smem = gp_lml_band_floats(n, emit_w, one) * sizeof(float);
+    const bool wide = chol_band_threads(smem) == 512;
+    if (emit_w && one)
+      err = wide ? launch_threads(gp_lml_band_kernel<true, 512, true>, 512,
+                                  smem, batch, s, b, c, d, out, w, alpha, n)
+                 : launch_threads(gp_lml_band_kernel<true, 256, true>, 256,
+                                  smem, batch, s, b, c, d, out, w, alpha, n);
+    else if (emit_w)
+      err = wide ? launch_threads(gp_lml_band_kernel<true, 512>, 512, smem,
+                                  batch, s, b, c, d, out, w, alpha, n)
+                 : launch_threads(gp_lml_band_kernel<true, 256>, 256, smem,
+                                  batch, s, b, c, d, out, w, alpha, n);
+    else
+      err = wide ? launch_threads(gp_lml_band_kernel<false, 512>, 512, smem,
+                                  batch, s, b, c, d, out, w, alpha, n)
+                 : launch_threads(gp_lml_band_kernel<false, 256>, 256, smem,
+                                  batch, s, b, c, d, out, w, alpha, n);
     return static_cast<int>(err);
   }
   const size_t mats = emit_w ? 2 : 1;

@@ -27,24 +27,55 @@ import torch
 from cuda_matrix_inversion_tpu_torch.ops import cuda_build, cuda_cholesky, linalg
 
 
+def _lane_sum(x, square: bool = False):
+    """Σ x (Σ x² with ``square``) over the last axis in K10's order: lane l
+    of one warp adds x[l], x[l + 32], … to 0 (a rounded square, then a
+    rounded sum), then five xor steps add lane l ^ o (o = 16, 8, 4, 2, 1)
+    and lane 0's sum is the result.  The zeros that pad the last row of
+    lanes leave every partial sum (never −0) unchanged."""
+    n = x.shape[-1]
+    rows = -(-n // 32)
+    xs = torch.zeros(x.shape[:-1] + (rows * 32,), dtype=x.dtype,
+                     device=x.device)
+    xs[..., :n] = x
+    xs = xs.reshape(x.shape[:-1] + (rows, 32))
+    s = torch.zeros(x.shape[:-1] + (32,), dtype=x.dtype, device=x.device)
+    for r in range(rows):
+        v = xs[..., r, :]
+        s = s + (v * v if square else v)
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lanes ^ o]
+    return s[..., 0]
+
+
 def lml_quad_logdet_plain(b, c, d, emit_w: bool = False):
-    """Plain PyTorch version of K10 on the flat fp32 layout.
+    """Plain PyTorch version of K10 on the flat fp32 layout, in the order of
+    its packed instance (n > 128), which it repeats bit for bit.
 
     Without ``emit_w``: factor K, solve L y = d, quad = y·y; returns
     ``(quad, logdet)``.  With it: W = L⁻¹ by forward substitution against
-    I, t = W d, α = Wᵀt, quad = t·t; returns ``(quad, logdet, w, alpha)``.
+    I, t = W d (tᵢ = Σₖ Wᵢₖ dₖ in increasing k), α = Wᵀt (αⱼ = Σᵢ Wᵢⱼ tᵢ in
+    increasing i), quad = t·t; returns ``(quad, logdet, w, alpha)``.  Every
+    sum is a rounded product then a rounded sum; quad and log|K| go through
+    :func:`_lane_sum`.  The square instance (n ≤ 128) fuses those
+    multiply-adds and lands within an ulp or two.
     """
+    n = b.shape[-1]
     l = cuda_cholesky.cholesky_plain(linalg.add_diagonal(b, c))
-    logdet = 2.0 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(-1)
+    logdet = 2.0 * _lane_sum(torch.log(torch.diagonal(l, dim1=-2, dim2=-1)))
     if not emit_w:
         y = cuda_cholesky.forward_substitution_plain(l, d[..., None])[..., 0]
-        return (y * y).sum(-1), logdet
-    eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
+        return _lane_sum(y, square=True), logdet
+    eye = torch.eye(n, dtype=b.dtype, device=b.device)
     w = cuda_cholesky.forward_substitution_plain(l, eye.expand_as(b))
-    t = linalg.matmul(w, d[..., None])
-    alpha = linalg.matmul(w.mT, t)[..., 0]
-    t = t[..., 0]
-    return (t * t).sum(-1), logdet, w, alpha
+    t = torch.zeros_like(d)
+    for k in range(n):  # rows k.. take W[i][k] d[k]; W is zero above
+        t[:, k:] = t[:, k:] + w[:, k:, k] * d[:, k:k + 1]
+    alpha = torch.zeros_like(d)
+    for i in range(n):  # columns ..i take W[i][j] t[i]
+        alpha[:, :i + 1] = alpha[:, :i + 1] + w[:, i, :i + 1] * t[:, i:i + 1]
+    return _lane_sum(t, square=True), logdet, w, alpha
 
 
 def lml_quad_logdet_cuda(b, c, d, emit_w: bool = False):

@@ -230,69 +230,152 @@ def _packed_factor(a, square_walk=False):
     return p
 
 
-def _w_in_place(p, warp_stores=False):
-    """chol_tri_inverse_in_place in plain PyTorch: W = L⁻¹ over L, one
-    8-row panel at a time, left-looking; all owners (columns j ≤ the
-    panel's last row) compute the panel from L's rows and the W rows above,
-    and only then store it over the panel's L rows.  ``warp_stores`` is a
-    broken order, the kernel without its barrier between the two: each
-    warp of 32 columns stores its part of the panel as soon as it is done,
-    the last columns' warp first, before the warps of earlier columns have
-    read the L elements it overwrites (column j reads L[i][k] for k ≥ j)."""
+def _w_in_place(p, mutant=None, one_strip=False):
+    """chol_tri_inverse_in_place in plain PyTorch: W = L⁻¹ over L,
+    right-looking by 8-row panels, one step a panel p = [k0, k1).  The
+    columns j < k1 of the panel's rows first take panel p - 1 (L's columns
+    from strip p - 1, W's rows kp..k0 from the buffer, zero above their
+    diagonal), then the panel's own rows from the saved diagonal block and
+    the divisions, and are stored whole (zeros above the diagonal); then
+    strip p (L[k1..n)[k0..k1)) and the next diagonal block are saved, and
+    the 64 × 8 tiles apply panel p - 1 to rows [k1, n), columns [0, k0),
+    from the strip, in the kernel's order (the warps take tiles from a
+    counter in the flat order; each writes its tile over K at once).
+    ``one_strip`` keeps one strip buffer, half of each row in the row's
+    last float4 of the packed buffer, and saves strip p after the tiles.
+    Broken orders: ``tiles_read_k`` takes each tile's L operand from K
+    instead of the strip, after the tiles of the panel's own columns (j0 =
+    kp) have stored W over it; ``panel_order`` defers the first tile of a
+    step to the next step and applies the two panels to it in reverse
+    order; ``early_strip`` (with one strip) saves strip p before the tiles
+    that still read strip p - 1."""
     n = p.n
-    lval = lambda i, k: p.f[:, _row(i) + k]  # noqa: E731
-    for k0 in range(0, n, NB):
-        k1 = min(k0 + NB, n)
-        groups = ([range(j0, min(j0 + 32, k1))
-                   for j0 in reversed(range(0, k1, 32))]
-                  if warp_stores else [range(k1)])
-        for cols in groups:
-            c0, c1 = cols.start, cols.stop
-            w = {}
-            for i in range(k0, k1):
-                wi = torch.zeros((p.f.shape[0], c1 - c0))
-                if c0 <= i < c1:
-                    wi[:, i - c0] = 1.0
-                for k in range(max(c0, 0), i):  # k ≥ j only, in order
-                    hi = min(k + 1, c1) - c0
-                    if hi <= 0:
-                        continue
-                    src = (w[k] if k >= k0 else
-                           p.f[:, _row(k) + c0:_row(k) + c0 + hi])
-                    wi[:, :hi] = _sub_mul(wi[:, :hi], lval(i, k)[:, None],
-                                          src[:, :hi])
-                hi = min(i + 1, c1) - c0
-                if hi > 0:
-                    wi[:, :hi] = torch.div(wi[:, :hi], lval(i, i)[:, None])
-                w[i] = wi
-            for i in range(k0, k1):
-                hi = min(i + 1, c1) - c0
-                if hi > 0:
-                    p.f[:, _row(i) + c0:_row(i) + c0 + hi] = w[i][:, :hi]
+    batch = p.f.shape[0]
+    n8 = (n + 7) // 8 * 8
+    strips = [torch.full((batch, n8, NB), float("nan")) for _ in range(2)]
+    blocks = [torch.full((batch, NB, NB), float("nan")) for _ in range(2)]
+
+    def slot(rows):  # row i's last float4: 8 (i // 8) + 8 .. + 12
+        return (torch.tensor([_row(i) + 8 * (i // 8) + 8 for i in rows])
+                [:, None] + torch.arange(4)[None, :])
+
+    def read_strip(b, rows):
+        rows = list(rows)
+        if not one_strip:
+            return strips[b][:, rows]
+        return torch.cat([strips[0][:, rows, :4], p.f[:, slot(rows)]], -1)
+
+    def save_strip(b, k0, k1):
+        rows = list(range(k1, n))
+        v = p.get(rows, range(k0, k1))
+        if not one_strip:
+            strips[b][:, rows] = v
+            return
+        strips[0][:, rows, :4] = v[..., :4]
+        p.f[:, slot(rows)] = v[..., 4:]
+
+    def save_block(k1, slot_):
+        for r in range(min(NB, n - k1)):
+            blocks[slot_][:, r] = p.f[:, _row(k1 + r) + k1:
+                                      _row(k1 + r) + k1 + NB]
+
+    def tile(i0, j0, x_of, panels):
+        rows = [i for i in range(i0, min(i0 + TILE_ROWS, n))]
+        ix = p.idx(rows, range(j0, j0 + TILE_COLS))
+        acc = (torch.zeros((batch, len(rows), TILE_COLS)) if j0 == panels[0]
+               else p.f[:, ix])
+        for q in panels:
+            x = x_of(rows, q)
+            y = p.get(range(q, q + NB), range(j0, j0 + TILE_COLS))
+            for k in range(NB):
+                acc = _sub_mul(acc, x[:, :, k:k + 1], y[:, None, k, :])
+        p.f[:, ix] = acc
+
+    deferred = None
+    save_block(0, 0)
+    for step, k0 in enumerate(range(0, n, NB)):
+        k1, kp = min(k0 + NB, n), k0 - NB
+        sb, lb = (step + 1) % 2, blocks[step % 2]
+        rows = range(k0, k1)
+        w = torch.zeros((batch, NB, k1))
+        for r, i in enumerate(rows):
+            if kp > 0:
+                w[:, r, :kp] = p.f[:, _row(i):_row(i) + kp]
+            if k0 <= i < k1:
+                w[:, r, i] = 1.0
+        if k0 > 0:
+            wk = p.get(range(kp, k0), range(k0))
+            lp = read_strip(sb, range(k0, k0 + NB))
+            for r in range(k1 - k0):
+                for kk in range(NB):
+                    w[:, r, :k0] = _sub_mul(w[:, r, :k0], lp[:, r, kk:kk + 1],
+                                            wk[:, kk])
+        for r in range(NB):
+            for c in range(r):
+                w[:, r] = _sub_mul(w[:, r], lb[:, r, c:c + 1], w[:, c])
+            w[:, r] = torch.div(w[:, r], lb[:, r, r:r + 1])
+        for r, i in enumerate(rows):
+            p.f[:, _row(i):_row(i) + k1] = w[:, r]
+        if k1 >= n:
+            continue
+        if not one_strip or mutant == "early_strip":
+            save_strip(step % 2, k0, k1)
+        save_block(k1, (step + 1) % 2)
+        if k0 > 0:
+            if deferred is not None:  # panel_order: the later panel first
+                i0, j0, q, old = deferred
+                tile(i0, j0, lambda r, qq: (read_strip(sb, r) if qq == kp
+                                            else old[:, r]), [kp, q])
+                deferred = None
+            cols = k0 // TILE_COLS
+            tiles = [(k1 + TILE_ROWS * (t // cols), TILE_COLS * (t % cols))
+                     for t in range(-(-(n - k1) // TILE_ROWS) * cols)]
+            if mutant == "tiles_read_k":
+                tiles.sort(key=lambda t: -t[1])
+            for i0, j0 in tiles:
+                if mutant == "panel_order" and (i0, j0) == (k1, 0) and \
+                        k1 + NB < n and j0 < kp:
+                    deferred = (i0, j0, kp, read_strip(sb, range(n8)))
+                    continue
+                if mutant == "tiles_read_k":
+                    x_of = lambda r, q: p.get(r, range(q, q + NB))  # noqa
+                else:
+                    x_of = lambda r, q: read_strip(sb, r)  # noqa: E731
+                tile(i0, j0, x_of, [kp])
+        if one_strip and mutant != "early_strip":
+            save_strip(step % 2, k0, k1)
     return p.lower()
 
 
-@pytest.mark.parametrize("n", [129, 200, 256])
-def test_packed_schedule_is_bitwise_the_plain_order(n):
+@pytest.mark.parametrize("n, one_strip", [
+    (129, False), (200, False), (256, False), (225, False), (255, False),
+    (209, True), (224, True)])
+def test_packed_schedule_is_bitwise_the_plain_order(n, one_strip):
     """The band instances' schedule on the packed layout gives L bit for
-    bit ``cholesky_plain``'s, and W = L⁻¹ built in place over it bit for
-    bit ``forward_substitution_plain(L, I)``'s (n = 129: one row past the
-    square instances; 200: a partial last row tile; 256: the ceiling)."""
+    bit ``cholesky_plain``'s, and W = L⁻¹ built in place over it
+    right-looking bit for bit ``forward_substitution_plain(L, I)``'s (n =
+    129: one row past the square instances; 200: a partial last row tile;
+    225 and 255: a partial last panel; 256: the ceiling; 209 and 224: with
+    one strip buffer, as K10 runs there, half of it in the rows' last
+    float4, which no element of L or W may reach)."""
     a = torch.tensor(_spd(2, n, 1900 + n))
     l_ref = cuda_cholesky.cholesky_plain(a)
     p = _packed_factor(a)
     assert torch.equal(p.lower(), l_ref)
     eye = torch.eye(n).expand_as(a)
-    assert torch.equal(_w_in_place(p),
+    assert torch.equal(_w_in_place(p, one_strip=one_strip),
                        cuda_cholesky.forward_substitution_plain(l_ref, eye))
 
 
-@pytest.mark.parametrize("mutant", ["square_tile_walk", "warp_stores"])
+@pytest.mark.parametrize("mutant", ["square_tile_walk", "tiles_read_k",
+                                    "panel_order", "early_strip"])
 def test_packed_replay_catches_a_broken_order(mutant):
     """The square instances' tile walk leaves rows past the second row
-    tile without their updates at n = 200; W stored a warp's columns at a
-    time overwrites L elements that earlier columns still read."""
-    n = 200 if mutant == "square_tile_walk" else 72
+    tile without their updates at n = 200; W's tiles reading L from K after
+    the tiles of the panel's own columns stored W there, a tile taking
+    panel p before panel p - 1, or (one strip buffer) strip p saved before
+    the tiles that read strip p - 1, change bits of W."""
+    n = 200
     a = torch.tensor(_spd(2, n, 2900 + n))
     l_ref = cuda_cholesky.cholesky_plain(a)
     if mutant == "square_tile_walk":
@@ -302,7 +385,49 @@ def test_packed_replay_catches_a_broken_order(mutant):
     p = _packed_factor(a)
     w_ref = cuda_cholesky.forward_substitution_plain(
         l_ref, torch.eye(n).expand_as(a))
-    assert not torch.equal(_w_in_place(p, warp_stores=True), w_ref)
+    assert not torch.equal(
+        _w_in_place(p, mutant, one_strip=mutant == "early_strip"), w_ref)
+
+
+def _lane_order_sum(x, square):
+    """K10's warp sum in NumPy float32: lane l adds x[l], x[l + 32], …
+    (squared first with ``square``) to 0, then lane l adds lane l ^ o for
+    o = 16, 8, 4, 2, 1 (lanes that ran out of elements add nothing)."""
+    lanes = np.zeros(32, np.float32)
+    for i, v in enumerate(np.asarray(x, np.float32)):
+        lanes[i % 32] = lanes[i % 32] + (v * v if square else v)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ o]
+    return lanes[0]
+
+
+@pytest.mark.parametrize("n", [129, 200])
+def test_k10_plain_sums_in_the_packed_kernels_order(n):
+    """``lml_quad_logdet_plain`` sums as K10's packed instance does, which
+    the card holds it to bit for bit: tᵢ = Σₖ Wᵢₖ dₖ and αⱼ = Σᵢ Wᵢⱼ tᵢ one
+    rounded product and one rounded sum at a time in increasing index,
+    quad = Σ t² (or Σ y² without W) and log|K| = 2 Σ log Lₖₖ lane by lane
+    and then across the lanes (a NumPy float32 replay of one system)."""
+    b, c, d = (torch.tensor(x) for x in _lml_system(1, n, 3100 + n))
+    c, d = c[..., 0], d[..., 0]
+    quad, logdet, w, alpha = cuda_gp_lml.lml_quad_logdet_plain(b, c, d, True)
+    quad0, logdet0 = cuda_gp_lml.lml_quad_logdet_plain(b, c, d)
+    l = cuda_cholesky.cholesky_plain(linalg.add_diagonal(b, c))[0].numpy()
+    y = cuda_cholesky.forward_substitution_plain(
+        torch.tensor(l)[None], d[..., None])[0, :, 0].numpy()
+    w0, d0 = w[0].numpy(), d[0].numpy()
+    t = np.zeros(n, np.float32)  # row i takes k = 0, 1, ..., i
+    for k in range(n):
+        t[k:] = t[k:] + w0[k:, k] * d0[k]
+    al = np.zeros(n, np.float32)  # column j takes i = j, j + 1, ...
+    for i in range(n):
+        al[:i + 1] = al[:i + 1] + w0[i, :i + 1] * t[i]
+    logs = torch.log(torch.diagonal(torch.tensor(l))).numpy()
+    ld = np.float32(2) * _lane_order_sum(logs, False)
+    assert np.array_equal(alpha[0].numpy(), al)
+    assert quad[0].item() == _lane_order_sum(t, True)
+    assert quad0[0].item() == _lane_order_sum(y, True)
+    assert logdet[0].item() == logdet0[0].item() == ld
 
 
 # ---- the port against the JAX package --------------------------------------

@@ -374,10 +374,10 @@ def _check_chol_band(cuda, batch, n, seed):
     """K4, K5 and K10 (with and without W) past 128, on the packed lower
     triangle, against their plain versions on one launch each; for batch >
     1 member batch // 2 is negative definite and is the only non-finite
-    one.  K4's L and K10's W are bitwise the plain versions' on every
-    positive definite member; K5 within K5_ATOL (and the fp64 closed form
-    within 1e-4), K10's quad, logdet and α within LML_RTOL (sums in
-    another order)."""
+    one.  K4's L and every output of K10 (quad, logdet, and with W also W
+    and α) are bitwise the plain versions' on every positive definite
+    member (K10's packed instance sums in the plain version's order); K5
+    within K5_ATOL (and the fp64 closed form within 1e-4)."""
     bad = batch // 2 if batch > 1 else None
     ok = np.arange(batch) != (bad if bad is not None else -1)
     keep = torch.from_numpy(ok).to(cuda)
@@ -412,23 +412,25 @@ def _check_chol_band(cuda, batch, n, seed):
     assert np.abs(o - r).max() <= K5_ATOL
     ref64 = np.stack([g["means"][:, 0, 0], g["variances"][:, 0, 0]], -1)
     assert np.abs(o - ref64[ok]).max() < 1e-4
-    ref = cuda_gp_lml.lml_quad_logdet_plain(b, c, d, True)
-    assert torch.equal(lml_w[2][keep], ref[2][keep])
-    for got in (lml, lml_w):
+    for got, emit_w in ((lml, False), (lml_w, True)):
+        ref = cuda_gp_lml.lml_quad_logdet_plain(b, c, d, emit_w)
+        assert len(got) == len(ref) == (4 if emit_w else 2)
         for x, y in zip(got, ref):
             fin = torch.isfinite(x.reshape(batch, -1)).all(-1)
             assert bool(fin.eq(keep).all())
-            assert _rel(x[keep].cpu().numpy(), y[keep].cpu().numpy()
-                        ) <= LML_RTOL
+            assert torch.equal(x[keep], y[keep])
 
 
 @pytest.mark.parametrize("batch", [1, 37, 1600])
-@pytest.mark.parametrize("n", [129, 160, 200, 232, 256])
+@pytest.mark.parametrize("n", [129, 160, 200, 232, 256, 136, 224, 225, 255,
+                               209, 216])
 def test_chol_band_kernels_match_plain(cuda, n, batch):
     """K4, K5 and K10 past 128 at n = 129 (one row past the square
-    instances, n off 4), 160, 200, 232 and 256 (one block an SM), at one
-    system, 37 (not a multiple of the blocks the card holds at once) and
-    1600 (many waves)."""
+    instances, n off 4), 136, 160, 200, 224 and 232, 225 and 255 (a
+    partial last panel of W and of the factor) and 256 (one block an SM of
+    512 threads), at one system, 37 (not a multiple of the blocks the card
+    holds at once) and 1600 (many waves); K10 with W keeps one strip buffer
+    at 209, 216 and 224."""
     _check_chol_band(cuda, batch, n, 1900 + n + batch)
 
 
