@@ -10,10 +10,9 @@
 Prints one JSON line a probe (``routes`` alone with that argument, and
 ``ab`` alone with its):
 
-- ``occupancy``: for each kernel (and K10 with W on one strip buffer) at
-  n = 160, 192, 224 and 256 and each block size (256 and 512 threads, the
-  instances ``chol_band_threads`` chooses from), the registers a thread
-  and the local memory (spills) from
+- ``occupancy``: for each kernel at n = 160, 192, 224 and 256 and each
+  block size (256 and 512 threads, the instances ``chol_band_threads``
+  chooses from), the registers a thread and the local memory (spills) from
   ``cudaFuncGetAttributes``, the shared memory a block asks for, and the
   blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
   ``ptxas -v``'s lines.
@@ -27,8 +26,9 @@ Prints one JSON line a probe (``routes`` alone with that argument, and
   factor and of the in-place W summed over the panels (``chol_probe``'s
   factor steps, thread 0 being warp 0's lane 0: the strips, the update,
   pivots and stores of the diagonal blocks, then the wait for the other
-  warps' trailing tiles; W's chain of thread 0's column, the strip and
-  block copies, then its tiles and the barrier), at :data:`SPLIT`.  The
+  warps' trailing tiles; W's chain of thread 0's column, the diagonal
+  block's copy, its tiles and the barrier, then the strip's copy and its
+  barrier), at :data:`SPLIT`.  The
   stamps cost thread 0 time.
 - ``routes``: at :data:`TIMED`, each kernel beside the route it replaced
   in the band (K4: ``torch.linalg.cholesky_ex``; K5: the Schur solve on K3,
@@ -37,8 +37,8 @@ Prints one JSON line a probe (``routes`` alone with that argument, and
   the GP ``pallas`` method and one fit step's forward and backward through
   the fused LML, and the GP ``solve`` method.
 - ``ab`` (``BASELINE_CSRC``: another checkout's ``csrc/``, e.g. the parent
-  unpacked by ``git archive`` under ``build/``): the occupancy of the
-  baseline's packed instances, then at :data:`TIMED` each kernel of the
+  unpacked by ``git archive`` under ``build/``): ``occupancy`` of this
+  tree (both block sizes), then at :data:`TIMED` each kernel of the
   baseline, of this tree (its own block sizes) and of this tree with every
   packed instance at 256 and at 512 threads, bare ctypes launches on the
   same inputs: which outputs are bitwise equal to the baseline's and to
@@ -105,9 +105,8 @@ static int probe_band_occupancy(const void* fn, int threads, size_t smem,
 }
 """
 # Appended to cholesky.cu (which 0) and gp.cu (1 = K5, 2 = K10, 3 = K10
-# with W, 4 = K10 with W on one strip buffer): registers, local bytes,
-# blocks an SM and shared bytes at n and `threads` (256 or 512, the
-# templated instances).
+# with W): registers, local bytes, blocks an SM and shared bytes at n and
+# `threads` (256 or 512, the templated instances).
 CHOL_OCCUPANCY = _OCC + """
 extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
                                         int* out) {
@@ -127,51 +126,21 @@ extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
                          : (const void*)gp_chol_band_kernel<256>)
       : which == 2 ? (wide ? (const void*)gp_lml_band_kernel<false, 512>
                            : (const void*)gp_lml_band_kernel<false, 256>)
-      : which == 3 ? (wide ? (const void*)gp_lml_band_kernel<true, 512>
-                           : (const void*)gp_lml_band_kernel<true, 256>)
-                   : (wide ? (const void*)gp_lml_band_kernel<true, 512, true>
-                           : (const void*)gp_lml_band_kernel<true, 256, true>);
+                   : (wide ? (const void*)gp_lml_band_kernel<true, 512>
+                           : (const void*)gp_lml_band_kernel<true, 256>);
   const size_t smem =
       which == 1 ? (chol_packed_floats(n) + 2ull * n) * sizeof(float)
-                 : gp_lml_band_floats(n, which >= 3, which == 4) *
-                       sizeof(float);
+                 : gp_lml_band_floats(n, which == 3) * sizeof(float);
   out[3] = static_cast<int>(smem);
   return probe_band_occupancy(fn, threads, smem, out);
 }
 """
-# The same for a checkout from before the block size was a template
-# parameter (256 threads; K10 with W without the in-place W's scratch).
-CHOL_OCCUPANCY_256 = _OCC + """
-extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
-                                        int* out) {
-  const size_t m = static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
-  out[3] = static_cast<int>(m);
-  return probe_band_occupancy((const void*)chol_factor_band_kernel, 256, m,
-                              out);
-}
-"""
-GP_OCCUPANCY_256 = _OCC + """
-extern "C" int cmi_probe_band_occupancy(int which, int n, int threads,
-                                        int* out) {
-  const size_t m = static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
-  const size_t v = static_cast<size_t>(n) * sizeof(float);
-  const void* fn = which == 1 ? (const void*)gp_chol_band_kernel
-                 : which == 2 ? (const void*)gp_lml_band_kernel<false>
-                              : (const void*)gp_lml_band_kernel<true>;
-  const size_t smem = m + (which == 3 ? 3 : 2) * v;
-  out[3] = static_cast<int>(smem);
-  return probe_band_occupancy(fn, 256, smem, out);
-}
-"""
-# (name, unit, which, kernel symbol as ptxas prints it, in part, with the
-# block size appended as "ILi256E" or "Li256E"; without it, the 256-thread
-# checkout's)
-KERNELS = (("K4", "cholesky.cu", 0, "chol_factor_band_kernel", "ILi{}E"),
-           ("K5", "gp.cu", 1, "gp_chol_band_kernel", "ILi{}E"),
-           ("K10", "gp.cu", 2, "gp_lml_band_kernelILb0E", "Li{}ELb0E"),
-           ("K10_emit_w", "gp.cu", 3, "gp_lml_band_kernelILb1E", "Li{}ELb0E"),
-           ("K10_emit_w_one_strip", "gp.cu", 4, "gp_lml_band_kernelILb1E",
-            "Li{}ELb1E"))
+# (name, unit, which, kernel symbol as ptxas prints it with the block size
+# "{}")
+KERNELS = (("K4", "cholesky.cu", 0, "chol_factor_band_kernelILi{}E"),
+           ("K5", "gp.cu", 1, "gp_chol_band_kernelILi{}E"),
+           ("K10", "gp.cu", 2, "gp_lml_band_kernelILb0ELi{}E"),
+           ("K10_emit_w", "gp.cu", 3, "gp_lml_band_kernelILb1ELi{}E"))
 THREADS = (256, 512)
 # chol_band_threads' body, and the bodies that pin every packed instance to
 # one block size (the ab mode's 256 and 512 builds).
@@ -183,7 +152,7 @@ def _threads_patch(threads: int):
         [(BAND_THREADS, f"  return {threads};\n", 1)], "")}
 
 
-# The in-place W's steps, added to chol_probe.STEPS' (ids 9 to 11).
+# The in-place W's steps, added to chol_probe.STEPS' (ids 9 to 12).
 W_STEPS = [
     ("        if (k0 + r < n) K[rb + r * rs + j] = w[r];\n    }\n",
      "        if (k0 + r < n) K[rb + r * rs + j] = w[r];\n    }\n"
@@ -194,6 +163,9 @@ W_STEPS = [
      "    }\n    __syncthreads();\n",
      "          t = __shfl_sync(0xffffffffu, next, 0);\n        }\n      }\n"
      "    }\n    __syncthreads();\n    chol_step(10);\n", 1),
+    ("      __syncthreads();\n    }\n  }\n}\n\n}  // namespace\n",
+     "      __syncthreads();\n      chol_step(12);\n    }\n  }\n}\n\n"
+     "}  // namespace\n", 1),
 ]
 STEP_NAMES = {0: "factor: first diagonal block's stores and barrier",
               1: "factor: strips",
@@ -203,8 +175,9 @@ STEP_NAMES = {0: "factor: first diagonal block's stores and barrier",
               7: "factor: warp 0's factor of a diagonal block (pivots)",
               9: "W in place: thread 0's column of the panel (the previous "
                  "panel applied, the chain of divisions, the stores)",
-              11: "W in place: the strip and diagonal block copies",
-              10: "W in place: thread 0's tiles, then the barrier"}
+              11: "W in place: the diagonal block's copy",
+              10: "W in place: thread 0's tiles, then the barrier",
+              12: "W in place: the strip's copy and its barrier"}
 _START = ("  if (blockIdx.x == 0 && threadIdx.x == 0) chol_next = 0;\n"
           "  chol_stamp();\n")
 _END = ("  __syncthreads();\n  chol_stamp();\n"
@@ -236,9 +209,9 @@ K10_STAMPS = [
      "  for (int i = tid; i < n; i += T) v[i] = d[sys * n + i];\n"
      "  __syncthreads();\n  chol_stamp();\n  chol_step(-1);\n"
      "  chol_factor(K, n, lay);\n  chol_stamp();\n", 1),
-    ("      chol_tri_inverse_in_place<ONE>(K, W, n, lay);  // ends with a "
+    ("      chol_tri_inverse_in_place(K, W, n, lay);  // ends with a "
      "barrier\n",
-     "      chol_tri_inverse_in_place<ONE>(K, W, n, lay);\n"
+     "      chol_tri_inverse_in_place(K, W, n, lay);\n"
      "      chol_stamp();\n", 1),
     ("    u = v + n;\n  }\n  __syncthreads();\n",
      "    u = v + n;\n  }\n  __syncthreads();\n  chol_stamp();\n", 1),
@@ -273,30 +246,25 @@ def _inputs(batch: int, n: int, dev) -> dict:
     return {"a": a, "fixture": fixture, "flat": flat}
 
 
-def occupancy(src=None, label: str = "this") -> dict:
+def occupancy() -> dict:
     """Registers, spills, shared bytes and blocks an SM of each packed
-    instance at each n of :data:`BAND_N` and each block size the checkout
-    holds (``src``: another checkout's ``csrc/``), with ``ptxas -v``'s
-    lines."""
+    instance at each n of :data:`BAND_N` and each block size, with ``ptxas
+    -v``'s lines."""
     res, ptxas = {}, []
-    root = src or cuda_build.CSRC_DIR
-    templated = "gp_lml_band_floats" in (root / "gp.cu").read_text()
-    for unit, tail, tail_256 in (
-            ("cholesky.cu", CHOL_OCCUPANCY, CHOL_OCCUPANCY_256),
-            ("gp.cu", GP_OCCUPANCY, GP_OCCUPANCY_256)):
+    for unit, tail in (("cholesky.cu", CHOL_OCCUPANCY),
+                       ("gp.cu", GP_OCCUPANCY)):
         lib = variant_library(
-            f"chol_band_occ_{label}_{unit[:-3]}",
-            {unit: ([], tail if templated else tail_256)},
-            src=root, units=(unit,), flags=("-Xptxas", "-v"))
+            f"chol_band_occ_{unit[:-3]}", {unit: ([], tail)},
+            units=(unit,), flags=("-Xptxas", "-v"))
         fn = lib.cmi_probe_band_occupancy
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lines = lib.compiler_log.splitlines()
-        for name, u, which, symbol, suffix in KERNELS:
-            if u != unit or which == 4 and not templated:
+        for name, u, which, symbol in KERNELS:
+            if u != unit:
                 continue
-            for threads in THREADS if templated else (256,):
+            for threads in THREADS:
                 rows = {}
                 for n in BAND_N:
                     out = (ctypes.c_int * 4)()
@@ -306,7 +274,7 @@ def occupancy(src=None, label: str = "this") -> dict:
                                "smem_bytes": out[3],
                                "blocks_per_sm": out[2]}
                 res[f"{name}_t{threads}"] = rows
-                sym = symbol + (suffix.format(threads) if templated else "")
+                sym = symbol.format(threads)
                 ptxas += [f"{name}_t{threads}: " + x.strip()
                           for i, line in enumerate(lines)
                           if "Compiling entry function" in line
@@ -499,9 +467,9 @@ def ab(baseline: Path, dev, card: str) -> None:
             variant_library, f"chol_band_ab_{k}", edits,
             src or cuda_build.CSRC_DIR, UNITS)
             for k, (edits, src) in builds.items()}
-        occ = pool.submit(occupancy, baseline, "baseline")
+        occ = pool.submit(occupancy)
         libs = {k: f.result() for k, f in futures.items()}
-        print(json.dumps({"probe": "ab_occupancy_baseline", **occ.result(),
+        print(json.dumps({"probe": "occupancy", **occ.result(),
                           "card": card}), flush=True)
     for batch, n in TIMED:
         x = _inputs(batch, n, dev)

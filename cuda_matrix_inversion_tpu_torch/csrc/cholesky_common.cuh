@@ -500,33 +500,24 @@ __device__ __forceinline__ void chol_tri_inverse(const float* __restrict__ L,
   }
 }
 
-// Floats of chol_tri_inverse_in_place<ONE>'s scratch: two strips of L's
-// panel columns, each two float4 columns of n rounded up to 8 rows (ONE:
-// one float4 column of one strip, WStrip), then two diagonal blocks of
-// kCholPanel x kCholPanel, then two tile counters (16.5 KB at n = 256; ONE
-// 4.0 KB at 224).
-__host__ __device__ __forceinline__ int chol_w_scratch_floats(int n,
-                                                              bool one) {
-  return (one ? 4 : 16) * ((n + 7) / 8 * 8) + 2 * kCholPanel * kCholPanel +
-         4;
+// Floats of chol_tri_inverse_in_place's scratch: half of the strip of L's
+// panel columns (WStrip), one float4 column of n rounded up to 8 rows, then
+// two diagonal blocks of kCholPanel x kCholPanel, then two tile counters
+// (4.5 KB at n = 256).
+__host__ __device__ __forceinline__ int chol_w_scratch_floats(int n) {
+  return 4 * ((n + 7) / 8 * 8) + 2 * kCholPanel * kCholPanel + 4;
 }
 
-// Where the in-place W keeps a strip of L's panel columns: half h (the
-// panel's columns 4h .. 4h + 3) of row i of strip buffer b.  Two buffers of
-// two halves in the scratch, or (ONE) one buffer: half 0 in the scratch and
-// half 1 in row i's last float4 of K, which no element reaches (row i holds
-// j <= i < 8 (i >> 3) + 8 of its stride 8 (i >> 3) + 12).
-template <bool ONE>
+// Where the in-place W keeps the strip of L's panel columns: half h (the
+// panel's columns 4h .. 4h + 3) of row i, half 0 in the scratch and half 1
+// in row i's last float4 of K, which no element reaches (row i holds j <= i
+// < 8 (i >> 3) + 8 of its stride 8 (i >> 3) + 12).
 struct WStrip {
   float4* s;
   float* K;
-  int n8;
-  __device__ __forceinline__ float4* at(int b, int h, int i,
-                                        CholPacked lay) const {
-    if (ONE)
-      return h ? reinterpret_cast<float4*>(K + lay.row(i) + 8 * (i >> 3) + 8)
-               : s + i;
-    return s + (2 * b + h) * n8 + i;
+  __device__ __forceinline__ float4* at(int h, int i, CholPacked lay) const {
+    return h ? reinterpret_cast<float4*>(K + lay.row(i) + 8 * (i >> 3) + 8)
+             : s + i;
   }
 };
 
@@ -534,16 +525,15 @@ struct WStrip {
 // the rows i = i0 + lane + 32a (a < A, i < n) and the columns j = j0 + c
 // (c < 8) of the packed K,
 //   W[i][j] -= L[i][k] * W[k][j]   for k = kp, ..., kp + 7 in order,
-// with L[i][kp..kp+8) from strip buffer b and W[k][j] from the panel's
+// with L[i][kp..kp+8) from the strip and W[k][j] from the panel's
 // rows in K (zeros above the diagonal; row kp + r starts at yb + r ys, one
 // group of 8).  The tile at j0 = kp starts from zero (W's value before any
 // update there; K still holds L, which the strip has saved).  Rows past n
 // are clamped to n - 1 and not stored.
-template <int A, bool ONE>
-__device__ __forceinline__ void chol_w_tile(float* K, WStrip<ONE> strip,
-                                            int b, int i0, int j0, int kp,
-                                            int yb, int ys, int n,
-                                            CholPacked lay) {
+template <int A>
+__device__ __forceinline__ void chol_w_tile(float* K, WStrip strip, int i0,
+                                            int j0, int kp, int yb, int ys,
+                                            int n, CholPacked lay) {
   const int lane = threadIdx.x & 31;
   int ri[A];
   float acc[A][kTileCols];
@@ -565,7 +555,7 @@ __device__ __forceinline__ void chol_w_tile(float* K, WStrip<ONE> strip,
     float xv[A][4], yv[kTileCols][4];  // yv[c][q] = W[kp + kh + q][j0 + c]
 #pragma unroll
     for (int a = 0; a < A; ++a) {
-      const float4 t = *strip.at(b, kh / 4, ri[a], lay);
+      const float4 t = *strip.at(kh / 4, ri[a], lay);
       xv[a][0] = t.x;
       xv[a][1] = t.y;
       xv[a][2] = t.z;
@@ -606,33 +596,34 @@ __device__ __forceinline__ void chol_w_tile(float* K, WStrip<ONE> strip,
 // return row i holds W[i][0..i] where it held L[i][0..i] (and zeros past
 // the diagonal up to its panel's last column).  The caller keeps L's
 // diagonal elsewhere if it needs it, has passed a barrier since L was
-// written, and gives `scratch`, chol_w_scratch_floats(n, ONE) floats on
+// written, and gives `scratch`, chol_w_scratch_floats(n) floats on
 // 16 bytes; the function ends with a barrier.  Each W[i][j] takes the plain
 // version's sequence,
 //   W[i][j] = delta_ij,  W[i][j] -= L[i][k] W[k][j] for k = j, ..., i - 1,
 //   W[i][j] /= L[i][i],
-// right-looking by row panels of kCholPanel rows, one barrier a panel.  In
-// the step of panel p = [k0, k1), with panel p - 1 = [kp, k0):
+// right-looking by row panels of kCholPanel rows, two barriers a panel.
+// In the step of panel p = [k0, k1), with panel p - 1 = [kp, k0):
 //   1. thread j < k1 finishes column j of the panel's rows: it applies
 //      panel p - 1 to them (W's rows kp..k0 in K, L's columns from strip
 //      p - 1), then the panel's own rows (L's diagonal block from its copy)
 //      and the divisions, and stores the column, zeros above the diagonal.
-//   2. it saves strip p, L[k1..n)[k0..k1), and the next diagonal block,
-//      which later steps overwrite with W;
+//   2. it saves the next diagonal block, which later steps overwrite with
+//      W;
 //   3. every warp applies panel p - 1 to rows [k1, n), columns [0, k0),
 //      from 64 x 8 register tiles (chol_w_tile) that store over K: their
 //      L operand comes from the strip, so no tile reads an L value another
 //      one has replaced.  A warp takes the next tile from a counter in
-//      shared memory, so the warps that finished no chain take more.
-// With ONE (one strip buffer, WStrip) strip p is saved after a second
-// barrier that ends the step, once no thread reads strip p - 1.  So each
+//      shared memory, so the warps that finished no chain take more;
+//   4. after a barrier (no thread reads strip p - 1 any more), strip p,
+//      L[k1..n)[k0..k1), which later steps overwrite with W, replaces it.
+// One strip keeps the scratch small, so two blocks share an SM up to n =
+// 224.  So each
 // W[i][j] takes the panels in increasing order (its own row's panel last,
 // with the division), and the chain of divisions (8 a panel, one thread a
 // column) runs beside the trailing tiles.  An update by a
 // zero of W above the diagonal (k < j in j's own panel) comes before any
 // nonzero term and leaves +0 unchanged, so it changes no bit of a
 // positive definite member.
-template <bool ONE>
 __device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
                                                           float* scratch,
                                                           int n,
@@ -640,8 +631,8 @@ __device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
   constexpr int NB = kCholPanel;
   const int tid = threadIdx.x;
   const int n8 = (n + 7) / 8 * 8;
-  const WStrip<ONE> strip{reinterpret_cast<float4*>(scratch), K, n8};
-  float* blocks = scratch + (ONE ? 4 : 16) * n8;         // [2][NB][NB]
+  const WStrip strip{reinterpret_cast<float4*>(scratch), K};
+  float* blocks = scratch + 4 * n8;                      // [2][NB][NB]
   int* next_tile = reinterpret_cast<int*>(blocks + 2 * NB * NB);  // [2]
   // the diagonal block of rows [k1, k1 + NB) into blocks[slot]
   auto save_block = [&](int k1, int slot) {
@@ -655,7 +646,6 @@ __device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
   for (int k0 = 0, p = 0; k0 < n; k0 += NB, ++p) {
     const int k1 = min(k0 + NB, n);
     const int kp = k0 - NB;
-    const int sb = (p + 1) & 1;  // strip p - 1's buffer
     const float* lb = blocks + (p & 1) * NB * NB;
     if (tid == 0) next_tile[p & 1] = 0;  // the next step's counter
     // 1. the panel's rows (a panel's rows are one group of 8: row k0 + r
@@ -674,8 +664,8 @@ __device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
         for (int kk = 0; kk < NB; ++kk) wk[kk] = K[yb + kk * ys + j];
 #pragma unroll
         for (int r = 0; r < NB; ++r) {
-          const float4 l0 = *strip.at(sb, 0, k0 + r, lay),
-                       l1 = *strip.at(sb, 1, k0 + r, lay);
+          const float4 l0 = *strip.at(0, k0 + r, lay),
+                       l1 = *strip.at(1, k0 + r, lay);
           const float l8[NB] = {l0.x, l0.y, l0.z, l0.w,
                                 l1.x, l1.y, l1.z, l1.w};
 #pragma unroll
@@ -697,18 +687,8 @@ __device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
       for (int r = 0; r < NB; ++r)
         if (k0 + r < n) K[rb + r * rs + j] = w[r];
     }
-    // 2. strip p (after the step's barrier with ONE) and the next
-    // diagonal block
-    auto save_strip = [&] {
-      for (int i = k1 + tid; i < n; i += blockDim.x) {
-        const float* src = K + lay.row(i) + k0;
-        *strip.at(p & 1, 0, i, lay) = *reinterpret_cast<const float4*>(src);
-        *strip.at(p & 1, 1, i, lay) =
-            *reinterpret_cast<const float4*>(src + 4);
-      }
-    };
     if (k1 < n) {
-      if (!ONE) save_strip();
+      // 2. the next diagonal block
       save_block(k1, (p + 1) & 1);
       // 3. panel p - 1 applied to rows [k1, n), columns [0, k0), a tile
       // at a time from this step's counter
@@ -726,16 +706,21 @@ __device__ __forceinline__ void chol_tri_inverse_in_place(float* K,
           const int i0 = k1 + kTileRows * (t / cols);
           const int j0 = kTileCols * (t % cols);
           if (i0 + 32 < n)
-            chol_w_tile<2>(K, strip, sb, i0, j0, kp, yb, ys, n, lay);
+            chol_w_tile<2>(K, strip, i0, j0, kp, yb, ys, n, lay);
           else
-            chol_w_tile<1>(K, strip, sb, i0, j0, kp, yb, ys, n, lay);
+            chol_w_tile<1>(K, strip, i0, j0, kp, yb, ys, n, lay);
           t = __shfl_sync(0xffffffffu, next, 0);
         }
       }
     }
     __syncthreads();
-    if (ONE && k1 < n) {
-      save_strip();
+    if (k1 < n) {
+      // 4. strip p
+      for (int i = k1 + tid; i < n; i += blockDim.x) {
+        const float* src = K + lay.row(i) + k0;
+        *strip.at(0, i, lay) = *reinterpret_cast<const float4*>(src);
+        *strip.at(1, i, lay) = *reinterpret_cast<const float4*>(src + 4);
+      }
       __syncthreads();
     }
   }

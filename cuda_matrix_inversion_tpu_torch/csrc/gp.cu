@@ -91,7 +91,7 @@
 // finishes a panel's rows while every warp applies the previous panel to
 // the rows below from register tiles whose L operand was saved to a strip
 // (cholesky_common.cuh::chol_tri_inverse_in_place), and L's diagonal is
-// kept aside for log|K| (155.5 KB at 256, 138 KB without emit_w).  There
+// kept aside for log|K| (143.5 KB at 256, 138 KB without emit_w).  There
 // t, alpha, quad and log|K| are summed in the plain version's order (a
 // rounded product, then a rounded sum), so every output repeats it bit for
 // bit.
@@ -562,14 +562,14 @@ __device__ __forceinline__ float lml_madd(float x, float y, float acc) {
 // and logdet only; true: also W = L^-1 and alpha = K^-1 d.  K (the factor,
 // then with EMIT_W on the packed layout W in its place), W (EMIT_W on the
 // square layout: a second matrix; on the packed one the scratch of the
-// in-place W, with one strip buffer where ONE), v (2n floats: d, then t)
+// in-place W), v (2n floats: d, then t)
 // and, on the packed layout with EMIT_W, diag (n floats: L's diagonal,
 // kept for log|K|) in shared memory.
 // t = W d (thread i owns row i) and alpha = W^T t (thread j owns column j)
 // sum in increasing index, and quad and log|K| lane by lane on warp 0 (lane
 // l takes the elements l, l + 32, ...) and then over the lanes by xor
 // shuffles.
-template <bool EMIT_W, int T, bool ONE, typename Lay>
+template <bool EMIT_W, int T, typename Lay>
 __device__ __forceinline__ void gp_lml_body(
     float* K, float* W, float* v, float* diag, const float* __restrict__ b,
     const float* __restrict__ c, const float* __restrict__ d,
@@ -605,7 +605,7 @@ __device__ __forceinline__ void gp_lml_body(
   } else {
     if constexpr (Lay::kPacked) {
       for (int i = tid; i < n; i += T) diag[i] = K[lay.row(i) + i];
-      chol_tri_inverse_in_place<ONE>(K, W, n, lay);  // ends with a barrier
+      chol_tri_inverse_in_place(K, W, n, lay);  // ends with a barrier
       W = K;
       ldiag = diag;
     } else {
@@ -675,35 +675,25 @@ __global__ void __launch_bounds__(kThreads, EMIT_W ? 1 : 3)
                   int n) {
   extern __shared__ __align__(16) float smem[];
   const int ld = chol_ld(n);
-  gp_lml_body<EMIT_W, kThreads, false>(smem, smem + n * ld,
+  gp_lml_body<EMIT_W, kThreads>(smem, smem + n * ld,
                                 smem + (EMIT_W ? 2 : 1) * n * ld, nullptr, b,
                                 c, d, out, w_out, alpha_out, n,
                                 CholSquare{ld});
 }
 
 // Floats of K10's packed instance's shared memory: the packed triangle,
-// with EMIT_W the in-place W's scratch (one strip buffer where one), then
-// v and (EMIT_W) diag; 155.5 KB at n = 256 with W, 138 KB without.
-size_t gp_lml_band_floats(int n, bool emit_w, bool one) {
+// with EMIT_W the in-place W's scratch, then v and (EMIT_W) diag; 143.5 KB
+// at n = 256 with W, 138 KB without.
+size_t gp_lml_band_floats(int n, bool emit_w) {
   return chol_packed_floats(n) +
-         (emit_w ? chol_w_scratch_floats(n, one) + 3ull * n : 2ull * n);
-}
-
-// Whether K10's packed instance with W keeps one strip buffer: where only
-// that lets two blocks share an SM (209 <= n <= 224: the two buffers,
-// 14 KB, leave one block an SM there, and past 224 one block fits either
-// way); elsewhere two buffers spare the step its second barrier.
-bool gp_lml_one_strip(int n) {
-  return chol_band_threads(gp_lml_band_floats(n, true, false) * 4) == 512 &&
-         chol_band_threads(gp_lml_band_floats(n, true, true) * 4) == 256;
+         (emit_w ? chol_w_scratch_floats(n) + 3ull * n : 2ull * n);
 }
 
 // K10 past n = 128 (129 <= n <= 256): the packed lower triangle, with
 // EMIT_W turned into W in place (cholesky_common.cuh::
-// chol_tri_inverse_in_place, right-looking by row panels; ONE: one strip
-// buffer, gp_lml_one_strip), T = 256 or 512 threads (chol_band_threads), at
-// most 128 registers a thread.
-template <bool EMIT_W, int T, bool ONE = false>
+// chol_tri_inverse_in_place, right-looking by row panels), T = 256 or 512
+// threads (chol_band_threads), at most 128 registers a thread.
+template <bool EMIT_W, int T>
 __global__ void __launch_bounds__(T, 512 / T)
     gp_lml_band_kernel(const float* __restrict__ b,
                        const float* __restrict__ c,
@@ -712,9 +702,9 @@ __global__ void __launch_bounds__(T, 512 / T)
                        float* __restrict__ alpha_out, int n) {
   extern __shared__ __align__(16) float smem[];
   float* scratch = smem + chol_packed_floats(n);
-  float* v = scratch + (EMIT_W ? chol_w_scratch_floats(n, ONE) : 0);
-  gp_lml_body<EMIT_W, T, ONE>(smem, scratch, v, v + 2 * n, b, c, d, out,
-                              w_out, alpha_out, n, CholPacked{});
+  float* v = scratch + (EMIT_W ? chol_w_scratch_floats(n) : 0);
+  gp_lml_body<EMIT_W, T>(smem, scratch, v, v + 2 * n, b, c, d, out, w_out,
+                         alpha_out, n, CholPacked{});
 }
 
 // Bytes of K6's and K11's shared memory for NP = np: NsSmem, then [d a]
@@ -914,15 +904,9 @@ extern "C" int cmi_gp_lml(const float* b, const float* c, const float* d,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > kMaxN) {
-    const bool one = emit_w && gp_lml_one_strip(n);
-    const size_t smem = gp_lml_band_floats(n, emit_w, one) * sizeof(float);
+    const size_t smem = gp_lml_band_floats(n, emit_w) * sizeof(float);
     const bool wide = chol_band_threads(smem) == 512;
-    if (emit_w && one)
-      err = wide ? launch_threads(gp_lml_band_kernel<true, 512, true>, 512,
-                                  smem, batch, s, b, c, d, out, w, alpha, n)
-                 : launch_threads(gp_lml_band_kernel<true, 256, true>, 256,
-                                  smem, batch, s, b, c, d, out, w, alpha, n);
-    else if (emit_w)
+    if (emit_w)
       err = wide ? launch_threads(gp_lml_band_kernel<true, 512>, 512, smem,
                                   batch, s, b, c, d, out, w, alpha, n)
                  : launch_threads(gp_lml_band_kernel<true, 256>, 256, smem,

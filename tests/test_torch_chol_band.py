@@ -15,6 +15,7 @@ otherwise.  Tolerances are stated where they are used.
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from cuda_matrix_inversion_tpu.io.fixtures import make_spd_batch
@@ -34,10 +35,13 @@ NB, TILE_ROWS, TILE_COLS = 8, 64, 8  # cholesky_common.cuh's constants
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """The replay runs thousands of small tensor ops on one thread.
+    ``torch.set_num_threads`` is not called: restoring a count above one
+    with it left a later batched ``torch.linalg.inv_ex`` at n = 300 in the
+    same worker spinning for good (MKL reporting a bad SLASWP argument) on
+    a PyTorch 2.13 CPU build, while threadpoolctl's limit restores cleanly."""
+    with threadpoolctl.threadpool_limits(1):
+        yield
 
 
 def _spd(batch, n, seed):
@@ -230,48 +234,42 @@ def _packed_factor(a, square_walk=False):
     return p
 
 
-def _w_in_place(p, mutant=None, one_strip=False):
+def _w_in_place(p, mutant=None):
     """chol_tri_inverse_in_place in plain PyTorch: W = L⁻¹ over L,
     right-looking by 8-row panels, one step a panel p = [k0, k1).  The
     columns j < k1 of the panel's rows first take panel p - 1 (L's columns
     from strip p - 1, W's rows kp..k0 from the buffer, zero above their
     diagonal), then the panel's own rows from the saved diagonal block and
     the divisions, and are stored whole (zeros above the diagonal); then
-    strip p (L[k1..n)[k0..k1)) and the next diagonal block are saved, and
-    the 64 × 8 tiles apply panel p - 1 to rows [k1, n), columns [0, k0),
-    from the strip, in the kernel's order (the warps take tiles from a
-    counter in the flat order; each writes its tile over K at once).
-    ``one_strip`` keeps one strip buffer, half of each row in the row's
-    last float4 of the packed buffer, and saves strip p after the tiles.
-    Broken orders: ``tiles_read_k`` takes each tile's L operand from K
-    instead of the strip, after the tiles of the panel's own columns (j0 =
-    kp) have stored W over it; ``panel_order`` defers the first tile of a
-    step to the next step and applies the two panels to it in reverse
-    order; ``early_strip`` (with one strip) saves strip p before the tiles
-    that still read strip p - 1."""
+    the next diagonal block is saved, the 64 × 8 tiles apply panel p - 1 to
+    rows [k1, n), columns [0, k0), from the strip, in the kernel's order
+    (the warps take tiles from a counter in the flat order; each writes its
+    tile over K at once), and strip p (L[k1..n)[k0..k1)) replaces strip p -
+    1: one buffer, half of each row in the scratch and half in the row's
+    last float4 of the packed buffer.  Broken orders: ``tiles_read_k``
+    takes each tile's L operand from K instead of the strip, after the
+    tiles of the panel's own columns (j0 = kp) have stored W over it;
+    ``panel_order`` defers the first tile of a step to the next step and
+    applies the two panels to it in reverse order; ``early_strip`` saves
+    strip p before the tiles that still read strip p - 1."""
     n = p.n
     batch = p.f.shape[0]
     n8 = (n + 7) // 8 * 8
-    strips = [torch.full((batch, n8, NB), float("nan")) for _ in range(2)]
+    strip = torch.full((batch, n8, 4), float("nan"))
     blocks = [torch.full((batch, NB, NB), float("nan")) for _ in range(2)]
 
     def slot(rows):  # row i's last float4: 8 (i // 8) + 8 .. + 12
         return (torch.tensor([_row(i) + 8 * (i // 8) + 8 for i in rows])
                 [:, None] + torch.arange(4)[None, :])
 
-    def read_strip(b, rows):
+    def read_strip(rows):
         rows = list(rows)
-        if not one_strip:
-            return strips[b][:, rows]
-        return torch.cat([strips[0][:, rows, :4], p.f[:, slot(rows)]], -1)
+        return torch.cat([strip[:, rows], p.f[:, slot(rows)]], -1)
 
-    def save_strip(b, k0, k1):
+    def save_strip(k0, k1):
         rows = list(range(k1, n))
         v = p.get(rows, range(k0, k1))
-        if not one_strip:
-            strips[b][:, rows] = v
-            return
-        strips[0][:, rows, :4] = v[..., :4]
+        strip[:, rows] = v[..., :4]
         p.f[:, slot(rows)] = v[..., 4:]
 
     def save_block(k1, slot_):
@@ -295,7 +293,7 @@ def _w_in_place(p, mutant=None, one_strip=False):
     save_block(0, 0)
     for step, k0 in enumerate(range(0, n, NB)):
         k1, kp = min(k0 + NB, n), k0 - NB
-        sb, lb = (step + 1) % 2, blocks[step % 2]
+        lb = blocks[step % 2]
         rows = range(k0, k1)
         w = torch.zeros((batch, NB, k1))
         for r, i in enumerate(rows):
@@ -305,7 +303,7 @@ def _w_in_place(p, mutant=None, one_strip=False):
                 w[:, r, i] = 1.0
         if k0 > 0:
             wk = p.get(range(kp, k0), range(k0))
-            lp = read_strip(sb, range(k0, k0 + NB))
+            lp = read_strip(range(k0, k0 + NB))
             for r in range(k1 - k0):
                 for kk in range(NB):
                     w[:, r, :k0] = _sub_mul(w[:, r, :k0], lp[:, r, kk:kk + 1],
@@ -318,13 +316,13 @@ def _w_in_place(p, mutant=None, one_strip=False):
             p.f[:, _row(i):_row(i) + k1] = w[:, r]
         if k1 >= n:
             continue
-        if not one_strip or mutant == "early_strip":
-            save_strip(step % 2, k0, k1)
+        if mutant == "early_strip":
+            save_strip(k0, k1)
         save_block(k1, (step + 1) % 2)
         if k0 > 0:
             if deferred is not None:  # panel_order: the later panel first
                 i0, j0, q, old = deferred
-                tile(i0, j0, lambda r, qq: (read_strip(sb, r) if qq == kp
+                tile(i0, j0, lambda r, qq: (read_strip(r) if qq == kp
                                             else old[:, r]), [kp, q])
                 deferred = None
             cols = k0 // TILE_COLS
@@ -335,35 +333,34 @@ def _w_in_place(p, mutant=None, one_strip=False):
             for i0, j0 in tiles:
                 if mutant == "panel_order" and (i0, j0) == (k1, 0) and \
                         k1 + NB < n and j0 < kp:
-                    deferred = (i0, j0, kp, read_strip(sb, range(n8)))
+                    deferred = (i0, j0, kp, read_strip(range(n8)))
                     continue
                 if mutant == "tiles_read_k":
                     x_of = lambda r, q: p.get(r, range(q, q + NB))  # noqa
                 else:
-                    x_of = lambda r, q: read_strip(sb, r)  # noqa: E731
+                    x_of = lambda r, q: read_strip(r)  # noqa: E731
                 tile(i0, j0, x_of, [kp])
-        if one_strip and mutant != "early_strip":
-            save_strip(step % 2, k0, k1)
+        if mutant != "early_strip":
+            save_strip(k0, k1)
     return p.lower()
 
 
-@pytest.mark.parametrize("n, one_strip", [
-    (129, False), (200, False), (256, False), (225, False), (255, False),
-    (209, True), (224, True)])
-def test_packed_schedule_is_bitwise_the_plain_order(n, one_strip):
+@pytest.mark.parametrize("n", [129, 200, 256, 225, 255, 209, 224])
+def test_packed_schedule_is_bitwise_the_plain_order(n):
     """The band instances' schedule on the packed layout gives L bit for
     bit ``cholesky_plain``'s, and W = L⁻¹ built in place over it
-    right-looking bit for bit ``forward_substitution_plain(L, I)``'s (n =
-    129: one row past the square instances; 200: a partial last row tile;
-    225 and 255: a partial last panel; 256: the ceiling; 209 and 224: with
-    one strip buffer, as K10 runs there, half of it in the rows' last
-    float4, which no element of L or W may reach)."""
+    right-looking bit for bit ``forward_substitution_plain(L, I)``'s, half
+    of its strip in the rows' last float4, which no element of L or W may
+    reach (n = 129: one row past the square instances; 200: a partial last
+    row tile; 225 and 255: a partial last panel; 256: the ceiling; 209:
+    one row into its last panel; 224: the largest n at which K10 with W
+    runs 256 threads a block)."""
     a = torch.tensor(_spd(2, n, 1900 + n))
     l_ref = cuda_cholesky.cholesky_plain(a)
     p = _packed_factor(a)
     assert torch.equal(p.lower(), l_ref)
     eye = torch.eye(n).expand_as(a)
-    assert torch.equal(_w_in_place(p, one_strip=one_strip),
+    assert torch.equal(_w_in_place(p),
                        cuda_cholesky.forward_substitution_plain(l_ref, eye))
 
 
@@ -373,8 +370,8 @@ def test_packed_replay_catches_a_broken_order(mutant):
     """The square instances' tile walk leaves rows past the second row
     tile without their updates at n = 200; W's tiles reading L from K after
     the tiles of the panel's own columns stored W there, a tile taking
-    panel p before panel p - 1, or (one strip buffer) strip p saved before
-    the tiles that read strip p - 1, change bits of W."""
+    panel p before panel p - 1, or strip p saved before the tiles that
+    read strip p - 1, change bits of W."""
     n = 200
     a = torch.tensor(_spd(2, n, 2900 + n))
     l_ref = cuda_cholesky.cholesky_plain(a)
@@ -385,8 +382,7 @@ def test_packed_replay_catches_a_broken_order(mutant):
     p = _packed_factor(a)
     w_ref = cuda_cholesky.forward_substitution_plain(
         l_ref, torch.eye(n).expand_as(a))
-    assert not torch.equal(
-        _w_in_place(p, mutant, one_strip=mutant == "early_strip"), w_ref)
+    assert not torch.equal(_w_in_place(p, mutant), w_ref)
 
 
 def _lane_order_sum(x, square):
@@ -610,6 +606,8 @@ def test_chol_band_probe_patches_match_the_kernel_source():
         src = (cuda_build.CSRC_DIR / unit).read_text()
         for anchor, _, count in patches:
             assert src.count(anchor) == count, (unit, anchor)
+    common = (cuda_build.CSRC_DIR / "cholesky_common.cuh").read_text()
+    assert common.count(chol_band_probe.BAND_THREADS) == 1
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             chol_band_probe.main()

@@ -11,6 +11,7 @@ max‖AX − I‖∞ (row sums) in fp64.
 
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from cuda_matrix_inversion_tpu.ops import pallas_gauss_jordan as jax_gj
@@ -150,13 +151,15 @@ def test_cpu_tensor_launches_no_kernel_and_shape_checks():
 
 @pytest.fixture
 def one_thread():
-    """The replay and the plain version are thousands of small tensor ops,
-    and the suite runs in parallel workers: on one thread each op runs at
-    once instead of waiting for the worker's other threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """The replay and the plain version are thousands of small tensor ops, and
+    the suite runs in parallel workers: on one thread each op runs at once
+    instead of waiting for the worker's other threads.
+    ``torch.set_num_threads`` is not called: restoring a count above one
+    with it left a later batched ``torch.linalg.inv_ex`` at n = 300 in the
+    same worker spinning for good (MKL reporting a bad SLASWP argument) on
+    a PyTorch 2.13 CPU build, while threadpoolctl's limit restores cleanly."""
+    with threadpoolctl.threadpool_limits(1):
+        yield
 
 
 def _k7_schedule_replay(a: torch.Tensor, mutant: str | None = None):

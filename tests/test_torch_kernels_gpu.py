@@ -429,8 +429,8 @@ def test_chol_band_kernels_match_plain(cuda, n, batch):
     instances, n off 4), 136, 160, 200, 224 and 232, 225 and 255 (a
     partial last panel of W and of the factor) and 256 (one block an SM of
     512 threads), at one system, 37 (not a multiple of the blocks the card
-    holds at once) and 1600 (many waves); K10 with W keeps one strip buffer
-    at 209, 216 and 224."""
+    holds at once) and 1600 (many waves); 209, 216 and 224: K10 with W at
+    256 threads, two blocks an SM, next to its 512-thread instance."""
     _check_chol_band(cuda, batch, n, 1900 + n + batch)
 
 

@@ -13,6 +13,7 @@ that parallel workers do not oversubscribe the cores.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from cuda_matrix_inversion_tpu.ops import pallas_lu as jax_pallas_lu
@@ -35,10 +36,13 @@ LU_RTOL = 1e-4
 
 @pytest.fixture
 def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """The replay runs thousands of small tensor ops on one thread.
+    ``torch.set_num_threads`` is not called: restoring a count above one
+    with it left a later batched ``torch.linalg.inv_ex`` at n = 300 in the
+    same worker spinning for good (MKL reporting a bad SLASWP argument) on
+    a PyTorch 2.13 CPU build, while threadpoolctl's limit restores cleanly."""
+    with threadpoolctl.threadpool_limits(1):
+        yield
 
 
 def _k2_band_replay(a: torch.Tensor, mutant: str | None = None):

@@ -41,14 +41,15 @@ RTOL_PATH, RTOL_FP32 = 2e-4, 1e-5
 
 @pytest.fixture(autouse=True)
 def one_thread():
-    """The suite runs in parallel workers: with PyTorch and NumPy's BLAS on
-    one thread each of these small products runs at once instead of waiting
-    for the worker's other threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """The suite runs in parallel workers: with PyTorch's OpenMP pool and
+    NumPy's BLAS on one thread each of these small products runs at once
+    instead of waiting for the worker's other threads.
+    ``torch.set_num_threads`` is not called: restoring a count above one
+    with it left a later batched ``torch.linalg.inv_ex`` at n = 300 in the
+    same worker spinning for good (MKL reporting a bad SLASWP argument) on
+    a PyTorch 2.13 CPU build, while threadpoolctl's limit restores cleanly."""
     with threadpoolctl.threadpool_limits(1):
         yield
-    torch.set_num_threads(threads)
 
 
 def _rel(x, ref):
