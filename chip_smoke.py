@@ -291,13 +291,21 @@ COLD_BAND_ROUTES = {
         "inverse_newton_schulz_pan500_batched (batched split3 products)"}
 # K2's cluster instance (n = 129 … 256, NP = 160, 192, 224, 256): phase
 # 3's shapes (136 pads to 160; 37 members, no multiple of the clusters the
-# card holds at once), phase 4's lu_pallas requests, and phase 5's shapes
-# (1600 = 100 draws repeated).
+# card holds at once; 161, 193, 225: 31 rows of padding in the last slab),
+# phase 4's lu_pallas requests, and phase 5's shapes (1600 = 100 draws
+# repeated).
 K2_BAND_SHAPES = ((100, 136), (100, 160), (100, 192), (100, 224),
-                  (100, 256), (37, 256))
+                  (100, 256), (37, 256), (37, 161), (37, 193), (37, 225))
 K2_BAND_PATH_N = (160, 192, 224, 256)
 K2_BAND_TIMED = ((100, 160), (100, 192), (100, 224), (100, 256),
                  (1600, 256))
+# K2's cluster instance before its Hopper redesign (the owner's 256 threads
+# factor each panel, then update its slab; rows by position, staged at each
+# panel's swaps; a cluster barrier at each change of owner), through the
+# wrapper at K2_BAND_TIMED, in ms: that design's final run of phase 5 of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W.
+K2_BAND_BEFORE_MS = {"100x160": 0.368, "100x192": 0.608, "100x224": 0.950,
+                     "100x256": 1.189, "1600x256": 15.178}
 # The Cholesky kernels' packed instances (K4, K5 and K10 at 129 ≤ n ≤
 # 256, one block a matrix): phase 3's shapes (37 members at 225, 255 and
 # 256, one not positive definite; 225 and 255 end on a partial panel;
@@ -986,8 +994,9 @@ def _k2_band_path(dev, torch):
 
 def _time_k2_band(dev, bounds_at, timing, library, card, torch):
     """Phase 5 for K2's cluster instance at K2_BAND_TIMED on the general
-    class: the kernel beside its plain version, ``torch.linalg.inv``, the
-    route ``lu_pallas`` took there before (the blocked LU on K9,
+    class: the kernel beside its time before the Hopper redesign
+    (:data:`K2_BAND_BEFORE_MS`), its plain version, ``torch.linalg.inv``,
+    the route ``lu_pallas`` took there before (the blocked LU on K9,
     ``lu_bign.inverse_lu_big``), the lane through its entry point and the
     bound (K2's: getri's 2n³ at the fp32 peak)."""
     from cuda_matrix_inversion_tpu_torch.io.fixtures import make_square_batch
@@ -1011,6 +1020,7 @@ def _time_k2_band(dev, bounds_at, timing, library, card, torch):
         timing[("k2_band_bound", case)] = bound
         print(json.dumps({
             "timing": "K2_BAND", "case": case, "kernel_ms": ms,
+            "before_ms": K2_BAND_BEFORE_MS[case],
             "lane_lu_pallas_ms": lane_ms, "plain_ms": plain_ms,
             "route_before_ms": route_ms,
             "route_before": "lu_bign.inverse_lu_big (blocked LU on K9)",

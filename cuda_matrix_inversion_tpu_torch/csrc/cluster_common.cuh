@@ -67,6 +67,48 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
                : "memory");
 }
 
+// An mbarrier of `count` arrivals.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival of this CTA's threads on its own barrier, releasing their
+// earlier shared-memory writes to the threads that wait on it.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One arrival on the mbarrier at the shared::cluster address `bar` (a
+// peer's, or this CTA's own): a consumer's release of a buffer whose reads
+// it has completed (a barrier of its threads after their last use of the
+// values read), before the producer overwrites it.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` of a barrier that peers arrive on
+// (mbar_arrive_cluster), acquiring at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }

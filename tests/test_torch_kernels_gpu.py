@@ -199,12 +199,13 @@ def test_k2_matches_plain_at_1600x128(cuda):
 
 
 @pytest.mark.parametrize("kind", ["general", "singular", "nan"])
-@pytest.mark.parametrize("n", [129, 136, 160, 192, 200, 224, 255, 256])
+@pytest.mark.parametrize("n", [129, 136, 160, 192, 200, 224, 255, 256, 161,
+                               193, 225])
 def test_k2_band_matches_plain(cuda, kind, n):
     """Every cluster instance (NP = 160, 192, 224, 256: 5 to 8 CTAs), n
-    off a multiple of 4 (scalar loads and stores) and padded to NP; one
-    singular member (rank 1) or one member holding a NaN alone
-    non-finite."""
+    off a multiple of 4 (scalar loads and stores) and padded to NP (161,
+    193, 225: 31 rows of padding in the last slab); one singular member
+    (rank 1) or one member holding a NaN alone non-finite."""
     rng = np.random.default_rng(900 + n)
     a = make_square_batch(7, n, rng).astype(np.float32)
     if kind == "singular":
@@ -235,6 +236,15 @@ def test_k2_band_matches_plain_at_256(cuda, batch):
     if batch == 37:
         a[18] = 1.0
     _check_k2(cuda, a, bad=[18] if batch == 37 else [])
+
+
+def test_k2_band_matches_plain_at_1600x160(cuda):
+    """NP = 160 on the main path's largest batch: clusters of 5 CTAs, many
+    at once on the card, member 800 singular."""
+    a = make_square_batch(1600, 160, np.random.default_rng(1660)).astype(
+        np.float32)
+    a[800] = 1.0
+    _check_k2(cuda, a, bad=[800])
 
 
 def test_lu_pallas_band_runs_k2(cuda):

@@ -49,81 +49,111 @@ def _k2_band_replay(a: torch.Tensor, mutant: str | None = None):
     """K2's cluster schedule (``csrc/lu_band.cu``) in plain PyTorch,
     float32, each step an unfused mul then sub.  The batch padded with the
     identity to NP (160, 192, 224, 256); C = NP / 32 slabs, slab c holding
-    W's columns [32c, 32c + 32) and the same columns of Y = I, rows by
-    position.  Each 4-column panel is factored by its owner in a mirror,
-    rows by slot (the first maximum by position, NaN never winning; the
-    rows never move in the mirror; each column's step on the panel's
-    columns), then pushed (copied) to every slab, which gathers the rows
-    the panel's swaps moved (whole rows), takes the factored panel (the
-    owner), forms U12 on the quads past the panel (row r taking the
-    panel's earlier steps in order) and gives the rows past the panel its
-    4 steps in order, on W's columns past the panel and on all of Y.  Then
-    U by blocks of 4 columns into a workspace, and each slab's back pass
-    by blocks of 4 rows descending: the triangle (each row's terms last
-    first, then its quotient), then the block's 4 terms on the rows above,
-    last first.  ``mutant`` breaks one order: ``"u12"`` (U12's steps
-    reversed) or ``"back"`` (the block's terms on the rows above first
-    first).  Returns ``(A⁻¹, ipiv)`` cut to n."""
+    W's columns [32c, 32c + 32) and the same columns of Y = I, rows by slot
+    (they never move; a map gives the slot at each position).  Panel g's
+    columns are the owner's slab's after the tile warps' panels up to g -
+    2; the panel threads give them panel g - 1 (U12 on g - 1's rows, each
+    taking its earlier steps in order, then the rank-4 update of the rows
+    past), then factor them by slot (the first maximum by position, NaN
+    never winning; each column's step on the panel's columns).  The owner's
+    slab takes the factored panel, and every slab panel g on its quads past
+    g + 1 (past g where it does not own g + 1) and on all of Y: U12, then
+    the rows past the panel through the map.  Then U by position, and each
+    slab's back pass by blocks of 8 rows descending: the triangle, each Y
+    column a scalar chain (each row's terms last first, then its quotient),
+    then the block's 8 terms on the rows above, last first.  ``mutant``
+    breaks one order: ``"u12"`` (U12's steps reversed), ``"back"`` (the
+    block's terms on the rows above first first), ``"early_factor"`` (panel
+    g + 1 factored before its columns take panel g) or ``"early_triangle"``
+    (block b - 1's triangle solved before its rows take block b's terms).
+    Returns ``(A⁻¹, ipiv)`` cut to n."""
     batch, n, _ = a.shape
     np_ = cuda_lu.band_np(n)
     rows = torch.arange(batch)
+    r_ = rows[:, None]
     full = torch.eye(np_).repeat(batch, 1, 1)
     full[:, :n, :n] = a
     eye = torch.eye(np_)
     slabs = [torch.cat([full[:, :, 32 * c:32 * c + 32],
                         eye[:, 32 * c:32 * c + 32].repeat(batch, 1, 1)], 2)
              for c in range(np_ // 32)]
+    perm = torch.arange(np_).repeat(batch, 1)  # the slot at each position
     ipiv = torch.empty((batch, np_), dtype=torch.int32)
-    for g in range(np_ // 4):
-        k0, owner, pq = 4 * g, g // 8, g % 8
-        # the owner's mirror, and which slot sits at each position
-        mirror = slabs[owner][:, :, 4 * pq:4 * pq + 4].clone()
-        slot_at = torch.arange(np_).repeat(batch, 1)
+
+    def apply(x, lp, psl, past):
+        """A panel's steps on columns x (rows by slot): U12, then the rows
+        past it (the slots ``past``), each taking the 4 steps in order."""
+        for r in range(1, 4):
+            steps = reversed(range(r)) if mutant == "u12" else range(r)
+            for h in steps:
+                x[rows, psl[:, r]] = (x[rows, psl[:, r]]
+                                      - lp[rows, psl[:, r], h:h + 1]
+                                      * x[rows, psl[:, h]])
+        for h in range(4):
+            x[r_, past] = (x[r_, past] - lp[r_, past, h:h + 1]
+                           * x[rows, psl[:, h]][:, None])
+
+    def factor(cols, k0):
+        """Panel k0 / 4 by slot; updates the map; returns its pivots'
+        slots (psl)."""
+        psl = torch.empty((batch, 4), dtype=torch.long)
         for h in range(4):
             j = k0 + h
-            col = mirror[rows[:, None], slot_at[:, j:], h]
-            mag = torch.nan_to_num(col.abs(), nan=-1.0)
+            mag = torch.nan_to_num(cols[r_, perm[:, j:], h].abs(), nan=-1.0)
             p = torch.where(mag.max(1).values >= 0, j + mag.argmax(1),
                             torch.full_like(rows, j))
             ipiv[:, j] = p.to(torch.int32)
-            sp, sj = slot_at[rows, p].clone(), slot_at[rows, j].clone()
-            slot_at[rows, j], slot_at[rows, p] = sp, sj
-            past = slot_at[:, j + 1:]
-            l = mirror[rows[:, None], past, h] / mirror[rows, sp, h][:, None]
-            mirror[rows[:, None], past, h] = l
+            sp, sj = perm[rows, p].clone(), perm[rows, j].clone()
+            perm[rows, j], perm[rows, p] = sp, sj
+            psl[:, h] = sp
+            past = perm[:, j + 1:]
+            l = cols[r_, past, h] / cols[rows, sp, h][:, None]
+            cols[r_, past, h] = l
             for e in range(h + 1, 4):
-                mirror[rows[:, None], past, e] = (
-                    mirror[rows[:, None], past, e]
-                    - l * mirror[rows, sp, e][:, None])
-        lpos = mirror[rows[:, None], slot_at]  # the panel by position
-        for c, slab in enumerate(slabs):  # each slab applies the push
-            slab[:] = slab[rows[:, None], slot_at]
-            if c == owner:
-                slab[:, k0:, 4 * pq:4 * pq + 4] = lpos[:, k0:]
-            act = slice(4 * min(max(g + 1 - 8 * c, 0), 8), 64)
-            for r in range(1, 4):
-                steps = reversed(range(r)) if mutant == "u12" else range(r)
-                for h in steps:
-                    slab[:, k0 + r, act] = (slab[:, k0 + r, act]
-                                            - lpos[:, k0 + r, h:h + 1]
-                                            * slab[:, k0 + h, act])
-            for h in range(4):
-                slab[:, k0 + 4:, act] = (slab[:, k0 + 4:, act]
-                                         - lpos[:, k0 + 4:, h:h + 1]
-                                         * slab[:, k0 + h:k0 + h + 1, act])
-    ws = torch.cat([slab[:, :, :32] for slab in slabs], 2)  # L\\U
+                cols[r_, past, e] = (cols[r_, past, e]
+                                     - l * cols[rows, sp, e][:, None])
+        return psl
+
+    prev = None  # the last panel: (its factored columns, psl, rows past)
+    for g in range(np_ // 4):
+        k0, owner, pq = 4 * g, g // 8, g % 8
+        cols = slabs[owner][:, :, 4 * pq:4 * pq + 4].clone()
+        if prev is not None and mutant != "early_factor":
+            apply(cols, *prev)
+        psl = factor(cols, k0)
+        if prev is not None and mutant == "early_factor":
+            apply(cols, *prev)
+        slabs[owner][:, :, 4 * pq:4 * pq + 4] = cols
+        prev = (cols, psl, perm[:, k0 + 4:].clone())
+        for c, slab in enumerate(slabs):
+            qa = min(max(g + 2 - 8 * c, 0), 8)
+            apply(slab[:, :, 4 * qa:], *prev)
+    u = torch.cat([slab[r_, perm, :32] for slab in slabs], 2)  # U, L below
     ys = []
     for slab in slabs:
-        y = slab[:, :, 32:].clone()
-        for r0 in range(np_ - 4, -1, -4):
-            for i in reversed(range(r0, r0 + 4)):
-                for kk in reversed(range(i + 1, r0 + 4)):
-                    y[:, i] = y[:, i] - ws[:, i, kk:kk + 1] * y[:, kk]
-                y[:, i] = y[:, i] / ws[:, i, i:i + 1]
-            terms = range(r0, r0 + 4) if mutant == "back" else reversed(
-                range(r0, r0 + 4))
-            for kk in terms:
-                y[:, :r0] = y[:, :r0] - ws[:, :r0, kk:kk + 1] * y[:, kk:kk + 1]
+        y = slab[r_, perm, 32:].clone()  # Y by position
+
+        def triangle(b):
+            r0 = 8 * b
+            for r in reversed(range(8)):
+                i = r0 + r
+                for e in reversed(range(r + 1, 8)):
+                    y[:, i] = (y[:, i]
+                               - u[:, i, r0 + e:r0 + e + 1] * y[:, r0 + e])
+                y[:, i] = y[:, i] / u[:, i, i:i + 1]
+
+        early = set()
+        for b in reversed(range(np_ // 8)):
+            r0 = 8 * b
+            if b not in early:
+                triangle(b)
+            if mutant == "early_triangle" and b > 0:
+                triangle(b - 1)
+                early.add(b - 1)
+            terms = range(8) if mutant == "back" else reversed(range(8))
+            for e in terms:
+                y[:, :r0] = (y[:, :r0] - u[:, :r0, r0 + e:r0 + e + 1]
+                             * y[:, r0 + e:r0 + e + 1])
         ys.append(y)
     return torch.cat(ys, 2)[:, :n, :n], ipiv[:, :n]
 
@@ -139,15 +169,19 @@ def _draw(n, draw):
     return rng.integers(-2, 3, (3, n, n)).astype(np.float32)
 
 
-@pytest.mark.parametrize("draw", ["general", "ties"])
-@pytest.mark.parametrize("n", [129, 160, 200, 224, 256])
+@pytest.mark.parametrize(
+    "n,draw", [(n, d) for d in ("general", "ties")
+               for n in (129, 160, 200, 224, 256)]
+    + [(161, "general"), (193, "general"), (225, "general")])
 def test_k2_band_schedule_is_bitwise_the_plain_order(n, draw, one_thread):
     """The cluster schedule against :func:`cuda_lu.lu_inverse_plain`:
     ``inv`` and ``ipiv`` equal (``torch.equal``) on every finite member
     and the same members non-finite.  The identity padding, the forward
-    pass folded into the factor (Y = I taking every swap and step), the
-    panels pushed to the slabs and the back pass by blocks keep every
-    element's terms in the plain order."""
+    pass folded into the factor (Y = I taking every swap and step), rows
+    by slot through the map, each panel's columns taking the panel before
+    them ahead of the slabs, and the back pass by blocks of 8 keep every
+    element's terms in the plain order (n = 161, 193, 225: a last slab
+    with 31 rows of padding)."""
     at = torch.tensor(_draw(n, draw))
     x, piv = _k2_band_replay(at)
     ref, ref_piv = cuda_lu.lu_inverse_plain(at)
@@ -159,14 +193,194 @@ def test_k2_band_schedule_is_bitwise_the_plain_order(n, draw, one_thread):
     assert torch.equal(piv[finite], ref_piv[finite])
 
 
-@pytest.mark.parametrize("mutant", ["u12", "back"])
+@pytest.mark.parametrize("mutant", ["u12", "back", "early_factor",
+                                    "early_triangle"])
 def test_k2_band_replay_catches_a_broken_order(mutant, one_thread):
-    """The replay's comparison sees one reordered step: U12's steps, or the
-    back pass's terms, in the other order change bits."""
+    """The replay's comparison sees one reordered step: U12's steps or the
+    back pass's terms in the other order, a panel factored before its
+    columns take the panel before it, or a triangle solved before its rows
+    take the block below, change bits."""
     at = torch.tensor(_draw(160, "general"))
     x, _ = _k2_band_replay(at, mutant)
     ref, _ = cuda_lu.lu_inverse_plain(at)
     assert not torch.equal(x[0], ref[0])
+
+
+class _Ring:
+    """The slot ring of ``csrc/lu_band.cu`` on tagged slots: C CTAs, 8
+    slots each, slot j holding panel 8 o + j of owner o.  Each CTA runs its
+    tile warps' program and its panel threads' program as generators that
+    yield the condition their next operation waits for, and each push is
+    delivered later by an actor of its own.  A random actor among those
+    whose condition holds takes its next operation, each actor with a
+    random speed of its own, so some run far behind the others.  The
+    mbarriers (phase, pending arrivals, transaction bytes) and the
+    hand-over barriers are modelled as the kernel uses them.  A fault
+    raises AssertionError: a slot written before every CTA released its
+    last panel, a slot read before its push landed (or overwritten while
+    read), an over-arrived barrier, or no actor able to go on (a deadlock).
+    ``mutant``: ``"no_empty_wait"`` (the owner writes and pushes a slot
+    without waiting for its release) or ``"no_full_wait"`` (the tile warps
+    read a panel's slot without waiting for it)."""
+
+    def __init__(self, c, rng, mutant=None):
+        self.c, self.rng, self.mutant = c, rng, mutant
+        self.panels = 8 * c
+        self.slot = [[None] * 8 for _ in range(c)]  # the panel a slot holds
+        self.reading = [[0] * 8 for _ in range(c)]  # open reads of a slot
+        self.released = {}  # panel -> the CTAs that released its slot
+        self.bars = {}      # (cta, name) -> mbarrier state
+        self.hand = {}      # (cta, id) -> hand-over arrivals not yet taken
+        self.log = []
+        for r in range(c):
+            for j in range(8):
+                self._init(r, ("full", j), 1)
+                self._init(r, ("empty", j), c)
+                if r > 0:
+                    self._arm(r, ("full", j))
+            self._init(r, "pos", 1)
+            if r > 0:
+                self._arm(r, "pos")
+        self.actors = []
+        for r in range(c):
+            self._spawn(self._tile(r))
+            self._spawn(self._panel(r))
+
+    def _spawn(self, gen):
+        self.actors.append([gen, None, self.rng.exponential() ** 2 + 1e-3])
+
+    def _init(self, r, name, count):
+        self.bars[r, name] = {"count": count, "pending": count, "tx": 0,
+                              "phase": 0}
+
+    def _check(self, st):
+        assert st["pending"] >= 0, "an mbarrier over-arrived"
+        if st["pending"] == 0 and st["tx"] == 0:
+            st["phase"] += 1
+            st["pending"] = st["count"]
+
+    def _arm(self, r, name):
+        st = self.bars[r, name]
+        st["tx"] += 1
+        st["pending"] -= 1
+        self._check(st)
+
+    def _arrive(self, r, name):
+        st = self.bars[r, name]
+        st["pending"] -= 1
+        self._check(st)
+
+    def _phase(self, r, name, parity):
+        st = self.bars[r, name]
+        return lambda: st["phase"] % 2 != parity
+
+    def _write(self, r, j, tag):
+        if tag >= 8:
+            assert self.released.get(tag - 8, set()) == set(range(self.c)), (
+                f"slot {j} of CTA {r} written with panel {tag} before every "
+                f"CTA released panel {tag - 8}")
+        assert self.reading[r][j] == 0, (
+            f"slot {j} of CTA {r} overwritten while read")
+        self.slot[r][j] = tag
+
+    def _read(self, r, j, tag):
+        assert self.slot[r][j] == tag, (
+            f"CTA {r} reads slot {j} for panel {tag} before its push landed "
+            f"(it holds {self.slot[r][j]})")
+        self.reading[r][j] += 1
+
+    def _tile(self, r):
+        yield self._phase(r, ("full", 0), 0)
+        for g in range(self.panels):
+            o, j = divmod(g, 8)
+            self._read(r, j, g)
+            yield None
+            if g + 1 < self.panels and self.mutant != "no_full_wait":
+                yield self._phase(r, ("full", (g + 1) % 8), (g + 1) // 8 % 2)
+            self.reading[r][j] -= 1  # the tile warps' barrier
+            if g + 8 < self.panels:
+                self.released.setdefault(g, set()).add(r)
+                self._arrive(o + 1, ("empty", j))
+                if o + 1 != r:
+                    self._arm(r, ("full", j))
+            if g + 2 < self.panels and (g + 2) // 8 == r:
+                key = (r, g % 2)
+                self.hand[key] = self.hand.get(key, 0) + 1
+                assert self.hand[key] <= 1, "a hand-over barrier over-arrived"
+            yield None
+
+    def _panel(self, r):
+        for jj in range(8):
+            p = 8 * r + jj
+            if p >= 2:
+                key = (r, p % 2)
+                yield lambda: self.hand.get(key, 0) > 0
+                self.hand[key] -= 1
+            if jj == 0 and r > 0:
+                yield self._phase(r, "pos", 0)
+            if r > 0 and self.mutant != "no_empty_wait":
+                yield self._phase(r, ("empty", jj), 0)
+            if p >= 1:
+                jp = (p - 1) % 8
+                yield self._phase(r, ("full", jp), (p - 1) // 8 % 2)
+                self._read(r, jp, p - 1)  # panel p - 1 on p's columns
+                yield None
+                self.reading[r][jp] -= 1
+            self._write(r, jj, p)
+            yield None
+            self._arrive(r, ("full", jj))
+            for k in range(self.c - 1):
+                self._spawn(self._push((r + 1 + k) % self.c, jj, p))
+            if jj == 7 and r < self.c - 1:
+                self._spawn(self._push(r + 1, None, p))
+            yield None
+
+    def _push(self, peer, j, tag):
+        yield None  # lands later
+        if j is None:  # the positions at a change of owner
+            st = self.bars[peer, "pos"]
+        else:
+            self._write(peer, j, tag)
+            self.log.append((tag, peer))
+            st = self.bars[peer, ("full", j)]
+        st["tx"] -= 1
+        self._check(st)
+
+    def run(self):
+        while self.actors:
+            ready = [a for a in self.actors if a[1] is None or a[1]()]
+            assert ready, "no actor can go on: a deadlock"
+            w = np.array([a[2] for a in ready])
+            actor = ready[self.rng.choice(len(ready), p=w / w.sum())]
+            try:
+                actor[1] = next(actor[0])
+            except StopIteration:
+                self.actors.remove(actor)
+        return self.log
+
+
+@pytest.mark.parametrize("c", [5, 6, 7, 8])
+def test_k2_band_ring_replays_every_owner_change(c, one_thread):
+    """The slot ring at C = 5 … 8 CTAs (NP = 160 … 256) under 6 random
+    schedules each: every panel reaches every peer's slot, no slot is
+    written before every CTA released its last panel, none is read before
+    its push landed, and every barrier completes, across every change of
+    owner."""
+    for seed in range(6):
+        log = _Ring(c, np.random.default_rng(seed)).run()
+        assert sorted(log) == sorted((p, peer) for p in range(8 * c)
+                                     for peer in range(c) if peer != p // 8)
+
+
+@pytest.mark.parametrize("mutant", ["no_empty_wait", "no_full_wait"])
+def test_k2_band_ring_replay_catches_a_broken_protocol(mutant, one_thread):
+    """Without the owner's wait on a slot's empty barrier, some schedule
+    overwrites a slot before every CTA released it; without the tile warps'
+    wait on a full barrier, some schedule reads a slot before its push
+    landed."""
+    with pytest.raises(AssertionError):
+        for seed in range(20):
+            _Ring(8, np.random.default_rng(seed), mutant).run()
 
 
 @pytest.mark.parametrize("n", [136, 160])
