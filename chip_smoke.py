@@ -312,6 +312,16 @@ K2_BAND_BEFORE_MS = {"100x160": 0.368, "100x192": 0.608, "100x224": 0.950,
 # 100×200, the fit's own shape, with a partial last row tile), phase 4's
 # requests (the GP engine's 256 bucket and the fit at n = 200, the factor
 # at 256) and phase 5's shapes (1600 = 100 draws repeated).
+# K4's and K5's packed instances before their Hopper redesign (warp 0
+# factoring each diagonal block between two block barriers a panel, the
+# strip on every thread; K5's two one-warp substitutions after the
+# factor), through the wrappers at CHOL_BAND_TIMED, in ms: that design's
+# final run of phase 5 of this script on an NVIDIA H100 80GB HBM3 at 700 W.
+CHOL_BAND_BEFORE_MS = {
+    "k4_band": {"100x160": 0.089, "100x192": 0.113, "100x224": 0.142,
+                "100x256": 0.173, "1600x224": 1.205, "1600x256": 2.040},
+    "k5_band": {"100x160": 0.129, "100x192": 0.148, "100x224": 0.180,
+                "100x256": 0.220, "1600x224": 1.395, "1600x256": 2.556}}
 CHOL_BAND_SHAPES = ((100, 136), (100, 160), (100, 192), (100, 200),
                     (100, 224), (100, 256), (37, 225), (37, 255), (37, 256))
 CHOL_BAND_PATH_N = 200
@@ -1198,7 +1208,8 @@ def _time_chol_band(dev, bounds_at, timing, library, card, torch):
         plain_ms = _median_ms(lambda: cuda_cholesky.cholesky_plain(a), torch,
                               calls=5, warmup=1)
         lib_ms = _median_ms(lambda: torch.linalg.cholesky_ex(a), torch)
-        show("K4_BAND", case, kernel_ms=ms, plain_ms=plain_ms,
+        show("K4_BAND", case, kernel_ms=ms,
+             before_ms=CHOL_BAND_BEFORE_MS["k4_band"][case], plain_ms=plain_ms,
              route_before="torch.linalg.cholesky_ex",
              route_before_ms=lib_ms, cholesky_ex_ms=lib_ms,
              **keep("k4_band", case, ms, plain_ms, lib_ms, bounds["k4"]))
@@ -1214,7 +1225,8 @@ def _time_chol_band(dev, bounds_at, timing, library, card, torch):
         route_ms = _median_ms(lambda: cuda_gp.gp_schur_route(*args), torch)
         solve_ms = _median_ms(lambda: gp.gp_mean_variance(
             *args, method="solve"), torch)
-        show("K5_BAND", case, kernel_ms=ms, plain_ms=plain_ms,
+        show("K5_BAND", case, kernel_ms=ms,
+             before_ms=CHOL_BAND_BEFORE_MS["k5_band"][case], plain_ms=plain_ms,
              method_pallas_ms=method_ms, route_before_ms=route_ms,
              route_before="gp_schur_route (Schur on K3)",
              solve_method_ms=solve_ms,

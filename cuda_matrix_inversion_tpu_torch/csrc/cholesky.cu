@@ -8,7 +8,7 @@
 // K4 factors A = L L^T (cholesky_common.cuh) and writes L with zeros above
 // the diagonal, for 1 <= n <= 256 as the JAX kernel does: up to 128 on the
 // square layout, past it on the packed lower triangle
-// (chol_factor_band_kernel, one block a matrix at 256).  K3 factors in
+// (chol_factor_band_kernel, one block a matrix).  K3 factors in
 // place, forms W = L^-1 by forward
 // substitution into a second shared buffer, and writes A^-1 = W^T W, all in
 // fp32 (the TPU kernel's products are Precision.HIGHEST).  Both triangles
@@ -20,25 +20,30 @@
 // What bounds it on the card: not bytes.  At 100 x 128 x 128 the kernel reads
 // 6.55 MB and writes 6.55 MB (~4 us of HBM time).  The limit is the chain
 // inside one block (cholesky_common.cuh): the factor's n pivots, each an
-// IEEE sqrt and reciprocal on one warp, then W = L^-1's n dependent
+// IEEE sqrt and reciprocal on one warp (~134 clocks a step alone, up to
+// 3.5x that beside busy tile warps), then W = L^-1's n dependent
 // divisions down its first column, then the n^3 FMAs of W^T W on CUDA
-// cores.
+// cores.  K4's band instance at 1600 x 256 writes 419 MB of L, ~10 us of
+// each block's ~140 at 3.35 TB/s when every SM stores at once.
 // What the design does about it: the matrix and W stay in shared memory for
 // the whole chain (2 n ld fp32 with ld = chol_ld(n) = 132 at n = 128: 135
 // KB, so one block per SM; K4 needs half and fits three; K4's packed
 // instance takes 55, 78, 105 and 136 KB at n = 160, 192, 224 and 256, and
-// two, two, two and one blocks an SM: its 128 registers a thread allow
-// two), rows on 16 bytes so every hot read is a float4 free of bank
-// conflicts, and the matrix is loaded with several float4 reads in flight
-// a thread.  The factor and W go by panels (cholesky_common.cuh): the
-// chains run on one warp (the factor's diagonal blocks) or one thread a
-// column (W's panel rows) while the other warps apply the previous panel
-// from register tiles, so the barriers fall to two a panel for the factor
-// and one for W.  Each of the 256 threads keeps an M x M register tile of
-// W^T W, so one shared-memory load feeds M FMAs.  None of the TPU kernel's
-// workarounds (transposed factor, one-hot lane selects) is needed.  W^T W
-// on tensor cores in an fp32-exact form, and more than one matrix per
-// block, are later work.
+// two, two, two and one blocks an SM of 256 threads), rows on 16 bytes so
+// every hot read is a float4 free of bank conflicts, and the matrix is
+// loaded with several float4 reads in flight a thread.  The factor and W
+// go by panels (cholesky_common.cuh): the chains run on one warp (the
+// factor's diagonal blocks) or one thread a column (W's panel rows) while
+// the other warps apply the previous panel from register tiles, so the
+// barriers fall to two a panel for the factor and one for W.  Where one
+// 512-thread block holds an SM, K4's band instance runs the band factor
+// (its panel warp a panel ahead, two named-barrier hand-offs a panel);
+// where two blocks share an SM the two-barrier factor measured faster and
+// stays.  Either writes L after the factor as float4 rows.  Each of the 256
+// threads keeps an M x M register tile of W^T W, so one shared-memory
+// load feeds M FMAs.  None of the TPU kernel's workarounds (transposed
+// factor, one-hot lane selects) is needed.  W^T W on tensor cores in an
+// fp32-exact form, and more than one matrix per block, are later work.
 
 #include <cuda_runtime.h>
 
@@ -73,25 +78,52 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
-// K4 past n = 128 (129 <= n <= 256): the factor on the packed lower
-// triangle (cholesky_common.cuh::CholPacked, 136 KB at n = 256), the same
-// bits.  T = 256 or 512 threads (chol_band_threads), at most 128 registers
-// a thread: two blocks of 256 share an SM where their shared memory fits
-// (n <= 232), else one of 512.
-template <int T>
-__global__ void __launch_bounds__(T, 512 / T)
+// K4 past n = 128 (129 <= n <= 256) on the packed lower triangle
+// (cholesky_common.cuh::CholPacked, 136 KB at n = 256), the same bits.
+// kBand (chol_band_plan): the band factor (chol_factor_band) on 512
+// threads, one block an SM, a panel warp a panel ahead of the tile warps;
+// else the two-barrier factor (chol_factor) on 256 threads, two blocks an
+// SM (n <= 232, a batch past one block an SM), faster there.  At most 128
+// registers a thread.  L after the factor goes out a row a warp: the
+// float4s up to the one that holds the diagonal (its columns past the
+// diagonal zeroed), zeros after it; single floats where the rows do not
+// start on 16 bytes.
+template <bool kBand>
+__global__ void __launch_bounds__(chol_plan_threads(kBand),
+                                  512 / chol_plan_threads(kBand))
     chol_factor_band_kernel(const float* __restrict__ a,
                             float* __restrict__ l, int n) {
+  constexpr int T = chol_plan_threads(kBand);
   extern __shared__ __align__(16) float smem[];
   const CholPacked lay;
+  float* out = l + static_cast<size_t>(blockIdx.x) * n * n;
+  const int lane = threadIdx.x & 31;
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(l) & 15) == 0;
   chol_load(a + static_cast<size_t>(blockIdx.x) * n * n, smem, n, lay,
             [](int, int, float v) { return v; });
   __syncthreads();
-  chol_factor(smem, n, lay);
-  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    l[base + e] = j <= i ? smem[lay.row(i) + j] : 0.f;
+  if constexpr (kBand) {
+    chol_factor_band<false>(smem, n);
+  } else {
+    chol_factor(smem, n, lay);
+  }
+  for (int i = threadIdx.x >> 5; i < n; i += T / 32) {
+    const float* src = smem + lay.row(i);
+    float* dst = out + static_cast<size_t>(i) * n;
+    if (vec) {
+      for (int q = lane; q < n / 4; q += 32) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (4 * q <= i) {
+          v = *reinterpret_cast<const float4*>(src + 4 * q);
+          if (4 * q + 1 > i) v.y = 0.f;
+          if (4 * q + 2 > i) v.z = 0.f;
+          if (4 * q + 3 > i) v.w = 0.f;
+        }
+        *reinterpret_cast<float4*>(dst + 4 * q) = v;
+      }
+    } else {
+      for (int j = lane; j < n; j += 32) dst[j] = j <= i ? src[j] : 0.f;
+    }
   }
 }
 
@@ -173,14 +205,12 @@ extern "C" int cmi_chol_factor(const float* a, float* l, int batch, int n,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > kMaxN) {
-    const size_t smem =
-        static_cast<size_t>(chol_packed_floats(n)) * sizeof(float);
+    const CholBandPlan plan = chol_band_plan(n, batch, false, device);
     return static_cast<int>(
-        chol_band_threads(smem) == 512
-            ? launch(chol_factor_band_kernel<512>, a, l, batch, n, smem, s,
-                     512)
-            : launch(chol_factor_band_kernel<256>, a, l, batch, n, smem, s,
-                     256));
+        plan.band ? launch(chol_factor_band_kernel<true>, a, l, batch, n,
+                           plan.smem, s, plan.threads)
+                  : launch(chol_factor_band_kernel<false>, a, l, batch, n,
+                           plan.smem, s, plan.threads));
   }
   const size_t smem = static_cast<size_t>(n) * chol_ld(n) * sizeof(float);
   return static_cast<int>(launch(chol_factor_kernel, a, l, batch, n, smem,

@@ -25,22 +25,33 @@
 // untouched, and no barrier depends on the data.
 //
 // What bounds them: the two chains inside one block, n pivots (an IEEE
-// sqrt and reciprocal each) for the factor and n divisions for W's first
-// column, and the shared-memory traffic of the trailing updates around
-// them.  The design: panels of kCholPanel columns (rows for W).  One warp
-// factors each diagonal block in registers while the other warps apply the
+// sqrt and reciprocal each, ~134 clocks a step) for the factor and n
+// divisions for W's first column, and the shared-memory traffic of the
+// trailing updates around them; and, beside the chain, the issue slots the
+// other warps take from it (a pivot step 139 clocks alone, 260 beside 7
+// tile warps and 484 beside 15: bench/chol_band_probe.py latency).  The
+// design: panels of kCholPanel columns (rows for W).  One warp factors
+// each diagonal block in registers while the other warps apply the
 // previous panel to the trailing triangle from 64 x 8 register tiles, and
 // one thread a column solves W's panel rows while the warps that own no
-// column apply the previous panel below them; two barriers a panel for the
-// factor and one for W, against two a column before.  Every element goes
-// through shared memory once a panel, and every hot read is a float4 on a
-// row stride (chol_ld) that keeps it free of bank conflicts.  On the packed
-// layout W is built right-looking in place (chol_tri_inverse_in_place).
+// column apply the previous panel below them; on the square layout two
+// barriers a panel for the factor and one for W.  Past 128, where one
+// 512-thread block holds an SM, K4 and K5 run chol_factor_band: the panel
+// warp runs a panel ahead of the tile warps, which take the next panel's
+// column first (with its strip rows), and two named-barrier hand-offs a
+// panel replace the block's barriers; K5's right-hand sides ride through
+// it as two bordered rows.  Where two blocks share an SM the two-barrier
+// factor measured faster and stays (chol_band_plan).
+// Every element goes through shared memory once a panel, and every hot
+// read is a float4 on a row stride (chol_ld) that keeps it free of bank
+// conflicts.  On the packed layout W is built right-looking in place
+// (chol_tri_inverse_in_place).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -115,6 +126,18 @@ __host__ __device__ __forceinline__ int chol_packed_floats(int n) {
 // thread either way).  From the A/B of bench/chol_band_probe.py ab.
 inline int chol_band_threads(size_t smem) {
   return 2 * (smem + 1024) <= 233472 ? 256 : 512;
+}
+
+// Streaming multiprocessors of `device`, read once a device.
+inline int chol_sm_count(int device) {
+  static std::atomic<int> sms[64];
+  if (device < 0 || device >= 64) return 0;
+  int v = sms[device].load(std::memory_order_relaxed);
+  if (v == 0) {
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device);
+    sms[device].store(v, std::memory_order_relaxed);
+  }
+  return v;
 }
 
 __device__ __forceinline__ void chol_st4(float* p, float x, float y, float z,
@@ -267,6 +290,25 @@ __device__ __forceinline__ void chol_load(const float* __restrict__ src,
   }
 }
 
+// The factor of one diagonal block in registers: b[i][j] (j <= i) holds the
+// block, updated by every earlier column; on return b[i][j] = L[i][j]
+// (b[i][i] = L[i][i]) and inv[c] = 1 / sqrtf of the pivot, both IEEE.
+template <int NB>
+__device__ __forceinline__ void chol_block_factor(float (&b)[NB][NB],
+                                                  float (&inv)[NB]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    inv[c] = __frcp_rn(__fsqrt_rn(b[c][c]));  // 1 / sqrtf, both IEEE
+#pragma unroll
+    for (int i = c; i < NB; ++i) b[i][c] = __fmul_rn(b[i][c], inv[c]);
+#pragma unroll
+    for (int j = c + 1; j < NB; ++j)
+#pragma unroll
+      for (int i = j; i < NB; ++i)
+        b[i][j] = __fsub_rn(b[i][j], __fmul_rn(b[i][c], b[j][c]));
+  }
+}
+
 // Warp 0's part of the factor: the diagonal block of rows and columns
 // [k0, k0 + w), first updated by the previous panel's columns [kp, k0)
 // when kp < k0 (their L is final in K): lane e takes element e of the
@@ -310,17 +352,7 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
 #pragma unroll
     for (int j = 0; j <= i; ++j)
       b[i][j] = i < w ? K[lay.row(k0 + i) + k0 + j] : 0.f;
-#pragma unroll
-  for (int c = 0; c < NB; ++c) {
-    inv[c] = __frcp_rn(__fsqrt_rn(b[c][c]));  // 1 / sqrtf, both IEEE
-#pragma unroll
-    for (int i = c; i < NB; ++i) b[i][c] = __fmul_rn(b[i][c], inv[c]);
-#pragma unroll
-    for (int j = c + 1; j < NB; ++j)
-#pragma unroll
-      for (int i = j; i < NB; ++i)
-        b[i][j] = __fsub_rn(b[i][j], __fmul_rn(b[i][c], b[j][c]));
-  }
+  chol_block_factor<NB>(b, inv);
   __syncwarp();  // every lane has read the block before lane 0 stores
   float lrr = 0.f;
 #pragma unroll
@@ -336,8 +368,9 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
   return lrr;
 }
 
-// Factor the symmetric matrix in K (layout lay; only the lower triangle
-// is read) in place: on return the lower triangle holds L, the strict upper
+// Factor the symmetric matrix in K (the square layout, n <= 128; the band
+// instances run chol_factor_band; only the lower triangle is read) in
+// place: on return the lower triangle holds L, the strict upper
 // triangle is untouched.  The caller has passed a barrier since K was
 // written; the function ends with one.  Panels of kCholPanel columns; with
 // panel [k0, k1) factored on its diagonal block, two barriers a panel:
@@ -352,9 +385,8 @@ __device__ __forceinline__ float chol_diag_block(float* K, int k0, int w,
 //      trailing update instead of between its barriers.
 // Every element of the trailing triangle takes the panel's columns in
 // increasing order, after the earlier panels', whichever warp applies them.
-// The trailing update walks the row tiles of 64 (Lay::kRowTiles at most:
-// two for n <= 128, four at 256), each with its column tiles up to its
-// last row.  The walk is unrolled over them: as a plain loop it held more
+// The trailing update walks the row tiles of 64 (Lay::kRowTiles at most,
+// two), each with its column tiles up to its last row.  The walk is unrolled over them: as a plain loop it held more
 // registers across a tile, and the square instances (80 registers) spilled.
 template <typename Lay>
 __device__ __forceinline__ void chol_factor(float* K, int n, Lay lay) {
@@ -414,6 +446,255 @@ __device__ __forceinline__ void chol_factor(float* K, int n, Lay lay) {
     }
     __syncthreads();
   }
+}
+
+// The band instances' layout (129 <= n <= 256): the packed triangle
+// (CholPacked) and, with kBorder (K5), two rows bordered below it, rows n
+// and n + 1 of n columns each (the right-hand sides d^T and a^T), on the
+// stride chol_ld(n) after the triangle: K5's shared memory is the
+// triangle plus two rows (109,344 B at n = 224, 116,960 at 225 and 232,
+// 141,344 at 256; before, the triangle plus 2n floats), which keeps every
+// n on its side of chol_band_threads' boundary.  The packed formula's rows
+// n and n + 1 would fall inside the triangle's last group at n = 225 ..
+// 230 and move those n to two blocks of 256 an SM.
+template <bool kBorder>
+struct CholBand {
+  static constexpr bool kPacked = true;
+  int n;
+  __host__ __device__ __forceinline__ int row(int i) const {
+    if (kBorder && i >= n)
+      return chol_packed_floats(n) + (i - n) * chol_ld(n);
+    return CholPacked{}.row(i);
+  }
+};
+
+// Floats of a band instance's factor: the triangle, and the border.
+__host__ __device__ __forceinline__ int chol_band_floats(int n,
+                                                         bool border) {
+  return chol_packed_floats(n) + (border ? 2 * chol_ld(n) : 0);
+}
+
+// Which factor a band instance of K4 (border false) or K5 (border true)
+// runs, on how many threads, with how much shared memory.  The band factor
+// (chol_factor_band, 512 threads, one block an SM) where the batch leaves
+// no SM more than one block or two 256-thread blocks of the two-barrier
+// factor do not fit an SM (chol_band_threads); else the two-barrier factor
+// (chol_factor, 256 threads, two blocks an SM), which measured faster
+// there (bench/chol_band_probe.py ab).  K5's two-barrier instance keeps d
+// and a after the triangle (2n floats) and substitutes after the factor;
+// its band instance borders them (CholBand<true>).
+struct CholBandPlan {
+  bool band;
+  int threads;
+  size_t smem;
+};
+
+__host__ __device__ constexpr int chol_plan_threads(bool band) {
+  return band ? 512 : 256;
+}
+
+inline CholBandPlan chol_band_plan(int n, int batch, bool border,
+                                   int device) {
+  const size_t two_barrier =
+      (static_cast<size_t>(chol_packed_floats(n)) + (border ? 2ull * n : 0)) *
+      sizeof(float);
+  if (batch > chol_sm_count(device) &&
+      chol_band_threads(two_barrier) == chol_plan_threads(false))
+    return {false, chol_plan_threads(false), two_barrier};
+  return {true, chol_plan_threads(true),
+          static_cast<size_t>(chol_band_floats(n, border)) * sizeof(float)};
+}
+
+// The band factor's hand-offs, named barriers (barrier 0 is
+// __syncthreads): the panel warp arrives on kPanelReady when a panel's
+// diagonal block and the first rows of its strip are final, the tile warps
+// on kColumnTaken when the next panel's column has taken it (each side
+// waits on the other's, every thread of the block counted), and the tile
+// warps alone sync on kStripDone before the rest of a panel.
+constexpr int kPanelReady = 1, kColumnTaken = 2, kStripDone = 3;
+
+__device__ __forceinline__ void chol_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void chol_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(blockDim.x) : "memory");
+}
+
+// One strip row of the panel [k0, k0 + 8) (band factor), in registers: a[c]
+// = the row's element at column k0 + c after every earlier panel.  A row
+// of the factor takes L[i][k] = A[i][k] * inv_k, a border row (the
+// forward substitution) y_k = A[i][k] / L[k][k]; either, then, is
+// eliminated from the row's later columns of the panel.
+template <bool kDivide>
+__device__ __forceinline__ void chol_strip_row(float (&a)[kCholPanel],
+                                               const float (&b)[kCholPanel]
+                                                               [kCholPanel],
+                                               const float (&inv)[kCholPanel]) {
+#pragma unroll
+  for (int c = 0; c < kCholPanel; ++c) {
+    a[c] = kDivide ? __fdiv_rn(a[c], b[c][c]) : __fmul_rn(a[c], inv[c]);
+#pragma unroll
+    for (int r = c + 1; r < kCholPanel; ++r)
+      a[r] = __fsub_rn(a[r], __fmul_rn(a[c], b[r][c]));
+  }
+}
+
+// Strip row i (i < n: L's, else a border row's) of the panel at k0, in
+// place, from the panel's block b (L) and inv.
+template <bool kBorder>
+__device__ __forceinline__ void chol_solve_row(float* K, int i, int k0,
+                                               int n,
+                                               const float (&b)[kCholPanel]
+                                                               [kCholPanel],
+                                               const float (&inv)[kCholPanel],
+                                               CholBand<kBorder> lay) {
+  float* d = K + lay.row(i) + k0;
+  float a[kCholPanel];
+  chol_get4(a, d);
+  chol_get4(a + 4, d + 4);
+  if (kBorder && i >= n) {
+    chol_strip_row<true>(a, b, inv);
+  } else {
+    chol_strip_row<false>(a, b, inv);
+  }
+  chol_st4(d, a[0], a[1], a[2], a[3]);
+  chol_st4(d + 4, a[4], a[5], a[6], a[7]);
+}
+
+// The panel warp's step of the band factor on the panel [k0, k0 + w):
+// every lane loads the diagonal block (updated by every earlier panel) as
+// rows of two float4s and factors it in registers (chol_block_factor);
+// lane r < w stores row k0 + r of its L (L[k][k] on the diagonal, zeros
+// past it up to the panel's last column, the row's padding) and lane 0
+// inv to pinv; then lanes 0..7 solve the first 8 rows of the strip, rows
+// [k0 + w, k0 + w + 8) below nr: the next panel's block rows, the operand
+// every tile of the next column reads (after the last block, the border
+// rows: the last strip step).
+template <bool kBorder>
+__device__ __forceinline__ void chol_panel_step(float* K, float* pinv,
+                                                int k0, int w, int n, int nr,
+                                                CholBand<kBorder> lay) {
+  constexpr int NB = kCholPanel;
+  const int lane = threadIdx.x & 31;
+  float b[NB][NB], inv[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    float r8[NB];
+    const float* src = K + lay.row(k0 + min(i, w - 1)) + k0;
+    chol_get4(r8, src);
+    chol_get4(r8 + 4, src + 4);
+#pragma unroll
+    for (int j = 0; j <= i; ++j) b[i][j] = i < w ? r8[j] : 0.f;
+  }
+  chol_block_factor<NB>(b, inv);
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+    if (lane == i && i < w) {
+      float* dst = K + lay.row(k0 + i) + k0;
+      float v[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) v[j] = j <= i ? b[i][j] : 0.f;
+      chol_st4(dst, v[0], v[1], v[2], v[3]);
+      chol_st4(dst + 4, v[4], v[5], v[6], v[7]);
+    }
+  if (lane == 0) {
+    chol_st4(pinv, inv[0], inv[1], inv[2], inv[3]);
+    chol_st4(pinv + 4, inv[4], inv[5], inv[6], inv[7]);
+  }
+  const int i = k0 + w + lane;
+  if (lane < NB && i < nr) chol_solve_row<kBorder>(K, i, k0, n, b, inv, lay);
+}
+
+// The band factor (K4 and K5 at 129 <= n <= 256 where one 512-thread block
+// holds an SM, chol_band_plan): the symmetric matrix
+// in the packed lower triangle of K factored in place, L[k][k] on the
+// diagonal; with kBorder, rows n and n + 1 (right-hand sides) come out as
+// L^-1 of what they held, the forward substitution's bits.  The caller has
+// passed a barrier since K was written; the function ends with one.
+// Warp 0 (the panel warp) factors each panel's diagonal block in registers
+// and solves the strip's first 8 rows (chol_panel_step); then the other
+// warps (the tile warps) take the panel's column in 32-row pieces, piece q
+// on tile warp q mod (tile warps): its rows of the strip (the block and
+// inv from shared memory), then the panel applied to its rows of the next
+// panel's column [k1, k2), the next diagonal block included (chol_tile);
+// arrive on kColumnTaken; and after kStripDone (every strip row solved)
+// the rest of the panel, rows [k2, nr) of columns [k2, n), in 64 x 8
+// tiles.  Once every tile warp has taken the column, the panel warp
+// factors the next panel while the tile warps finish this one; they start
+// the next when it is ready (kPanelReady, which also waits for every tile
+// warp to finish this one).  So at most two panels are in flight, one
+// hand-off a panel each way, and each element still takes the panels in
+// increasing order, the columns of a panel in increasing order within it,
+// before its own panel's strip or block: the bits of the square
+// instances' order (and, for the border rows, of
+// forward_substitution_plain).
+template <bool kBorder>
+__device__ __forceinline__ void chol_factor_band(float* K, int n) {
+  constexpr int NB = kCholPanel;
+  __shared__ __align__(16) float pinv[2][NB];  // inv of panels p, p + 1
+  const CholBand<kBorder> lay{n};
+  const int nr = kBorder ? n + 2 : n;  // rows, the border included
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {
+    for (int k0 = 0; k0 < n; k0 += NB) {
+      if (k0 > 0) chol_bar_sync(kColumnTaken, blockDim.x);
+      chol_panel_step<kBorder>(K, pinv[(k0 / NB) & 1], k0, min(NB, n - k0),
+                               n, nr, lay);
+      if (k0 + NB < n) chol_bar_arrive(kPanelReady);
+    }
+  } else {
+    const int tw = warp - 1, ntw = (blockDim.x >> 5) - 1;
+    const auto keep = [=](int i, int j) {
+      return i < nr && j <= min(i, n - 1);
+    };
+    for (int k0 = 0; k0 + NB < n; k0 += NB) {
+      const int k1 = k0 + NB;
+      const int k2 = min(k1 + NB, n);
+      chol_bar_sync(kPanelReady, blockDim.x);
+      // the column's 32-row pieces: rows [k1, nr), at most 8
+      const int pieces = (nr - k1 + 31) / 32;
+      if (tw < pieces) {
+        float b[NB][NB], inv[NB];
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          float r8[NB];
+          chol_get4(r8, K + lay.row(k0 + i) + k0);
+          chol_get4(r8 + 4, K + lay.row(k0 + i) + k0 + 4);
+#pragma unroll
+          for (int j = 0; j <= i; ++j) b[i][j] = r8[j];
+        }
+        chol_get4(inv, pinv[(k0 / NB) & 1]);
+        chol_get4(inv + 4, pinv[(k0 / NB) & 1] + 4);
+        for (int q = tw; q < pieces; q += ntw) {
+          const int i = k1 + 32 * q + lane;  // the panel warp solved k1..k2
+          if (i >= k1 + NB && i < nr)
+            chol_solve_row<kBorder>(K, i, k0, n, b, inv, lay);
+        }
+        __syncwarp();
+        for (int q = tw; q < pieces; q += ntw)
+          chol_tile<NB, 1, true>(K, K, K, keep, k1 + 32 * q, k1, k0, nr,
+                                 lay);
+      }
+      chol_bar_arrive(kColumnTaken);
+      chol_bar_sync(kStripDone, blockDim.x - 32);
+      // the rest: row tiles [i0, i0 + 64) from k2, each with its column
+      // tiles j0 = k2, k2 + 8, ... up to min(its last row, n - 1), in the
+      // flat order
+      int t = tw;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i0 = k2 + kTileRows * r;
+        if (i0 >= nr || k2 >= n) break;
+        const int cols = (min(i0 + kTileRows, n) - 1 - k2) / kTileCols + 1;
+        for (; t < cols; t += ntw)
+          chol_tile_rows<NB, true>(K, K, K, keep, i0, k2 + kTileCols * t, k0,
+                                   nr, lay);
+        t -= cols;
+      }
+    }
+  }
+  __syncthreads();
 }
 
 // W = L^-1 for the factor in the lower triangle of L (row stride ld), into

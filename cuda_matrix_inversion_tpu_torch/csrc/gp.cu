@@ -11,9 +11,15 @@
 // TPU kernel builds the whole W = L^-1 and multiplies rows by it because the
 // TPU wants MXU matmuls; two right-hand sides cost O(n^2) after the
 // O(n^3 / 3) factor, so K5 never forms W.  Past n = 128, up to the JAX
-// kernel's 256, K5 runs the same body on the packed lower triangle
-// (gp_chol_band_kernel, cholesky_common.cuh::CholPacked): 138 KB at 256.
-//
+// kernel's 256, K5 runs on the packed lower triangle (gp_chol_band_kernel).
+// Where one 512-thread block holds an SM, d^T and a^T are bordered below it
+// as rows n and n + 1 (cholesky_common.cuh::CholBand<true>): the band
+// factor carries them as rows of the factor, dividing by L[k][k] where L's
+// rows multiply by inv_k, so y_d and y_a come out of it with the forward
+// substitution's bits and no substitution runs after it (138 KB at 256).
+// Where two 256-thread blocks share an SM the substitutions after the
+// factor stay: the other block's work hides them.
+
 // K6 replaces ops/pallas_gp.py::_gp_ns_kernel (pallas_call in
 // gp_mean_variance_fused_ns).  It loads B with asynchronous copies, stages K,
 // seeds X1 = 2sI - s^2 K (K1's spd seed, s = 1/||K||_inf) and runs the
@@ -33,19 +39,22 @@
 //
 // What bounds K5 and K6 on the card: not bytes (one read of B, 6.55 MB at
 // 100 x 128 x 128).  K5 is the factor's chain (cholesky_common.cuh: one
-// warp's n pivots of an IEEE sqrt and reciprocal, beside the other warps'
-// register-tiled panel updates, two barriers a panel), then n
-// warp-synchronous substitution steps; its n ld + 2n fp32 of shared memory
-// (68.6 KB at n = 128, ld = chol_ld(n) = 132) and at most 80 registers a
-// thread let three blocks share an SM.  K6's bound is its operations: 17 bf16 passes at the tensor
-// cores' rate and the one fp32 product at the CUDA cores', which is half of
-// it.  Inside the block it is a chain of dependent products, 3 barriers a
-// round.
+// warp's n pivots of an IEEE sqrt and reciprocal, slowed by the issue
+// slots of the warps beside it), then, up to n = 128, n warp-synchronous
+// substitution steps; its n ld + 2n fp32 of shared memory (68.6 KB at n =
+// 128, ld = chol_ld(n) = 132) and at most 80 registers a thread let three
+// blocks share an SM.  Past 128, where one block holds an SM, the
+// substitutions are gone (the border) and the chain is the band factor's:
+// the panel warp's pivots and the tile warps' tiles around it.  K6's
+// bound is its operations: 17 bf16 passes at the tensor cores' rate and
+// the one fp32 product at the CUDA cores', which is half of it.  Inside the
+// block it is a chain of dependent products, 3 barriers a round.
 // What the design does about it: everything stays in shared memory or
 // registers from the load of B to the two scalars.  K5's two substitutions
-// run on two warps with no block barrier, and its dot products are warp
-// reductions.  K6 keeps the fp32 master X in the warps' accumulator
-// fragments and publishes bf16(X) to shared memory once a round
+// run on two warps with no block barrier (or, on the band where one block
+// holds an SM, inside the factor), and its dot products are warp reductions.  K6 keeps the fp32 master X
+// in the warps' accumulator fragments and publishes bf16(X) to shared
+// memory once a round
 // (ns_mma_rounds.cuh); K stays in shared memory in fp32 for the fp32
 // residual and the split's lo part, and as a bf16 copy for the one-pass
 // products.  Shared memory at n = 128: K 66 KB, four bf16 tiles (K, X,
@@ -174,6 +183,44 @@ __device__ __forceinline__ void gp_chol_body(
   }
 }
 
+// K5's body where one block holds an SM past n = 128 (512 threads): d and
+// a bordered below the packed triangle as rows n and n + 1
+// (CholBand<true>), which the band factor turns into y_d and y_a, then
+// gp_chol_body's two dot products.
+template <int T>
+__device__ __forceinline__ void gp_chol_border_body(
+    float* K, const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ c, const float* __restrict__ d,
+    const float* __restrict__ e, float* __restrict__ out, int n) {
+  const CholBand<true> lay{n};
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t sys = blockIdx.x;
+  const float* bs = b + sys * n * n;
+  const float* cs = c + sys * n;
+  chol_load(bs, K, n, lay, [=](int i, int j, float v) {
+    return i == j ? __fadd_rn(v, cs[i]) : v;  // as gp_ns_stage_k rounds it
+  });
+  float* yd = K + lay.row(n);
+  float* ya = K + lay.row(n + 1);
+  for (int i = tid; i < n; i += T) {
+    yd[i] = d[sys * n + i];
+    ya[i] = a[sys * n + i];
+  }
+  __syncthreads();
+  chol_factor_band<true>(K, n);  // ends with a barrier
+  if (warp < 2) {
+    // warp 0: y_a . y_d (the mean), warp 1: y_a . y_a
+    const float* u = warp == 0 ? yd : ya;
+    float s = 0.f;
+    for (int i = lane; i < n; i += 32) s = fmaf(ya[i], u[i], s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) out[2 * sys + warp] = warp == 0 ? s : e[sys] - s;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 3)
     gp_chol_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ c, const float* __restrict__ d,
@@ -185,20 +232,33 @@ __global__ void __launch_bounds__(kThreads, 3)
                          CholSquare{ld});
 }
 
-// K5 past n = 128 (129 <= n <= 256): the packed lower triangle
-// (cholesky_common.cuh::CholPacked), then Y; 138 KB at n = 256.  T = 256
-// or 512 threads (chol_band_threads), at most 128 registers a thread.
-template <int T>
-__global__ void __launch_bounds__(T, 512 / T)
+// K5 past n = 128 (129 <= n <= 256) on the packed lower triangle.  kBand
+// (chol_band_plan: 512 threads, one block an SM): d and a bordered below
+// the triangle and carried through the band factor (gp_chol_border_body,
+// cholesky_common.cuh::CholBand<true>, chol_band_floats: 138 KB at n =
+// 256).  Else (256 threads, two blocks an SM: n <= 224, a batch past one
+// block an SM): gp_chol_body on
+// CholPacked, the two-barrier factor and then the two one-warp
+// substitutions from Y after the triangle, which the other block's work
+// hides (faster there than the border, which puts 8 divisions a panel on
+// the factor's chain).  At most 128 registers a thread.
+template <bool kBand>
+__global__ void __launch_bounds__(chol_plan_threads(kBand),
+                                  512 / chol_plan_threads(kBand))
     gp_chol_band_kernel(const float* __restrict__ a,
                         const float* __restrict__ b,
                         const float* __restrict__ c,
                         const float* __restrict__ d,
                         const float* __restrict__ e, float* __restrict__ out,
                         int n) {
+  constexpr int T = chol_plan_threads(kBand);
   extern __shared__ __align__(16) float smem[];
-  gp_chol_body<T>(smem, smem + chol_packed_floats(n), a, b, c, d, e, out, n,
-                  CholPacked{});
+  if constexpr (kBand) {
+    gp_chol_border_body<T>(smem, a, b, c, d, e, out, n);
+  } else {
+    gp_chol_body<T>(smem, smem + chol_packed_floats(n), a, b, c, d, e, out,
+                    n, CholPacked{});
+  }
 }
 
 // The fp32 epilogue of K6 and K11 from X ~= K^-1 in sX and sv = [d a]:
@@ -745,15 +805,13 @@ extern "C" int cmi_gp_fused(const float* a, const float* b, const float* c,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > kMaxN) {
-    const size_t smem =
-        (static_cast<size_t>(chol_packed_floats(n)) + 2ull * n) *
-        sizeof(float);
+    const CholBandPlan plan = chol_band_plan(n, batch, true, device);
     return static_cast<int>(
-        chol_band_threads(smem) == 512
-            ? launch_threads(gp_chol_band_kernel<512>, 512, smem, batch, s, a,
-                             b, c, d, e, out, n)
-            : launch_threads(gp_chol_band_kernel<256>, 256, smem, batch, s, a,
-                             b, c, d, e, out, n));
+        plan.band ? launch_threads(gp_chol_band_kernel<true>, plan.threads,
+                                   plan.smem, batch, s, a, b, c, d, e, out, n)
+                  : launch_threads(gp_chol_band_kernel<false>, plan.threads,
+                                   plan.smem, batch, s, a, b, c, d, e, out,
+                                   n));
   }
   const size_t smem =
       (static_cast<size_t>(n) * chol_ld(n) + 2ull * n) * sizeof(float);

@@ -5,10 +5,12 @@ the JAX package and against their own plain versions.
 
 On the CPU the port runs the kernels' plain versions; the JAX kernels run
 in interpret mode with a batch block of one system, each interpreted once
-(module-scoped results).  The kernels' schedule on the packed layout is
-replayed in plain PyTorch on a flat buffer at the layout's offsets (the
-factor's panels and tiles, and W = L⁻¹ built in place over L), and must
-give the plain versions' bits.  PyTorch runs on one thread for the
+(module-scoped results).  The kernels' schedules on the packed layout
+are replayed on a flat buffer at the layout's offsets (in NumPy: the
+two-barrier factor and the band factor, whose panel warp and tile warps
+run as generators under a scheduler of their named barriers, with K5's
+border; in PyTorch: W = L⁻¹ built in place over L), and must give the
+plain versions' bits.  PyTorch runs on one thread for the
 module: its CPU kernels and BLAS oversubscribe the cores of a test worker
 otherwise.  Tolerances are stated where they are used.
 """
@@ -149,11 +151,30 @@ class _Packed:
         return out
 
 
-def _tile_walk(n, k1, k2, square):
-    """The trailing tiles (i0, j0) of one panel in chol_factor's flat
-    order: the packed walk (every 64-row tile, its columns up to its last
-    row), or the square instances' (at most two row tiles, the second with
-    every column up to n - 1) as a broken order for n > 144."""
+PANEL_READY, COLUMN_TAKEN, STRIP_DONE = 1, 2, 3  # chol_factor_band's barriers
+
+
+def _inv_sqrt(x):
+    """1 / sqrt(x) as ``cholesky_plain`` computes it (PyTorch's own sqrt:
+    on this CPU it is not always NumPy's correctly rounded one)."""
+    return torch.reciprocal(torch.sqrt(torch.from_numpy(x))).numpy()
+
+
+def _band_row(i, n, border):
+    """cholesky_common.cuh::CholBand::row: the packed rows, then (with the
+    border) rows n and n + 1 on the stride chol_ld(n) after the
+    triangle."""
+    if border and i >= n:
+        return _packed_floats(n) + (i - n) * ((n + 7) // 8 * 8 + 4)
+    return _row(i)
+
+
+def _tile_walk(n, nr, k1, k2, square):
+    """chol_factor's trailing tiles (i0, j0) of one panel in its flat
+    order on the packed layout: every 64-row tile of rows [k2, nr), its
+    columns up to min(its last row, n - 1); or the square instances' (at
+    most two row tiles, the second with every column up to n - 1) as a
+    broken order for n > 144."""
     if square:
         m = n - k2
         last0 = k2 + min(TILE_ROWS, m) - 1
@@ -163,75 +184,277 @@ def _tile_walk(n, k1, k2, square):
         return [(k2 + (TILE_ROWS if t >= tiles0 else 0),
                  k1 + TILE_COLS * (t - tiles0 if t >= tiles0 else t))
                 for t in range(tiles)]
-    return [(i0, j0) for i0 in range(k2, n, TILE_ROWS)
+    return [(i0, j0) for i0 in range(k2, nr, TILE_ROWS)
             for j0 in range(k1, min(i0 + TILE_ROWS, n), TILE_COLS)]
 
 
-def _packed_factor(a, square_walk=False):
-    """chol_factor on the packed layout, in plain PyTorch: each diagonal
-    block is updated by the previous panel's columns and factored column by
-    column (warp 0, inv_k = 1/sqrt stored on the diagonal until the strip
-    is solved), each strip solved right-looking by rows, and the rest of
-    the trailing triangle updated in 64 × 8 tiles by the panel's columns
-    in increasing order; a tile's rows above its columns read their own
-    first columns (garbage, never stored)."""
-    p = _Packed(a)
-    n = p.n
-    lower = lambda i, j: (i < n) & (j <= i)  # noqa: E731
+def _two_barrier_factor(a, square_walk=False):
+    """chol_factor on the packed layout (K10's band instances, and K4 and
+    K5 where two blocks share an SM), in NumPy float32 on a flat buffer at
+    the packed offsets: each diagonal block updated by the previous
+    panel's columns and factored column by column (warp 0; inv_k on the
+    diagonal until the next step puts L[k][k] there), each strip solved
+    right-looking by rows, and the rest of the trailing rows updated in 64
+    × 8 tiles by the panel's columns in increasing order (two barriers a
+    panel).  Returns L as a _Packed."""
+    a = np.asarray(a, np.float32)
+    batch, n, _ = a.shape
+    off = np.array([_row(i) for i in range(n)])
+    f = np.full((batch, _packed_floats(n)), np.nan, np.float32)
+    for i in range(n):
+        f[:, off[i]:off[i] + i + 1] = a[:, i, :i + 1]
+
+    def ix(rows, cols):
+        return off[np.asarray(rows)][:, None] + np.asarray(cols)[None, :]
 
     def diag_block(k0, kp, last):
-        k1 = min(k0 + NB, n)
-        rows = range(k0, k1)
-        blk = p.get(rows, range(k0, k1))
+        w = min(NB, n - k0)
+        rows = np.arange(k0, k0 + w)
+        m = np.tri(w, dtype=bool)
+        blk = np.where(m, f[:, ix(rows, rows)], np.float32(0))
         if kp < k0:
-            x = p.get(rows, range(kp, k0))
+            x = f[:, ix(rows, np.arange(kp, k0))]
             for k in range(k0 - kp):
-                blk = _sub_mul(blk, x[:, :, k:k + 1], x[:, None, :, k])
+                blk = blk - x[:, :, k:k + 1] * x[:, None, :, k]
         inv = []
-        for c in range(k1 - k0):
-            inv.append(torch.reciprocal(torch.sqrt(blk[:, c, c])))
-            blk[:, c:, c] = torch.mul(blk[:, c:, c], inv[c][:, None])
+        for c in range(w):
+            inv.append(_inv_sqrt(blk[:, c, c]))
+            blk[:, c:, c] = blk[:, c:, c] * inv[c][:, None]
             col = blk[:, c + 1:, c]
-            blk[:, c + 1:, c + 1:] = _sub_mul(
-                blk[:, c + 1:, c + 1:], col[:, :, None], col[:, None, :])
-        lrr = torch.diagonal(blk, dim1=1, dim2=2).clone()
+            blk[:, c + 1:, c + 1:] = (blk[:, c + 1:, c + 1:]
+                                      - col[:, :, None] * col[:, None, :])
+        lrr = np.diagonal(blk, axis1=1, axis2=2).copy()
         if not last:
-            for c in range(k1 - k0):
+            for c in range(w):
                 blk[:, c, c] = inv[c]
-        p.put(rows, range(k0, k1), blk, lower)
+        f[:, ix(rows, rows)[m]] = blk[:, m]
         return lrr
 
     lrr = diag_block(0, 0, n <= NB)
     for k0 in range(0, n - NB, NB):
         k1, k2 = k0 + NB, min(k0 + 2 * NB, n)
-        rows = range(k1, n)
-        s = p.get(rows, range(k0, k1))
-        blk = p.get(range(k0, k1), range(k0, k1))
+        rows, kc = np.arange(k1, n), np.arange(k0, k1)
+        s = f[:, ix(rows, kc)]
+        blk = f[:, ix(kc, kc)]
         for c in range(NB):
-            s[:, :, c] = torch.mul(s[:, :, c], blk[:, c, c][:, None])
+            s[:, :, c] = s[:, :, c] * blk[:, c, c][:, None]
             for r in range(c + 1, NB):
-                s[:, :, r] = _sub_mul(s[:, :, r], s[:, :, c],
-                                      blk[:, r, c][:, None])
-        p.put(rows, range(k0, k1), s, lambda i, j: (i >= 0) & (j >= 0))
+                s[:, :, r] = s[:, :, r] - s[:, :, c] * blk[:, r, c][:, None]
+        f[:, ix(rows, kc)] = s
         for c in range(NB):  # warp 0 puts L[k][k] in place
-            p.f[:, _row(k0 + c) + k0 + c] = lrr[:, c]
+            f[:, off[k0 + c] + k0 + c] = lrr[:, c]
         lrr = diag_block(k1, k0, k2 == n)
-        for i0, j0 in _tile_walk(n, k1, k2, square_walk):
-            rows = [min(i, n - 1) for i in range(i0, i0 + TILE_ROWS)]
-            cols = [range(0 if r < j0 else j0, (0 if r < j0 else j0)
-                          + TILE_COLS) for r in rows]
-            t = p.get(rows, [list(c) for c in cols])
-            x = p.get(rows, range(k0, k1))
-            y = p.get([min(j, n - 1) for j in range(j0, j0 + TILE_COLS)],
-                      range(k0, k1))
+        for i0, j0 in _tile_walk(n, n, k1, k2, square_walk):
+            rows = np.arange(i0, min(i0 + TILE_ROWS, n))
+            cols = np.minimum(np.arange(j0, j0 + TILE_COLS), n - 1)
+            keep = np.arange(j0, j0 + TILE_COLS)[None, :] <= rows[:, None]
+            acc = f[:, ix(rows, cols)]
+            x, y = f[:, ix(rows, kc)], f[:, ix(cols, kc)]
             for k in range(NB):
-                t = _sub_mul(t, x[:, :, k:k + 1], y[:, None, :, k])
-            tile_rows = range(i0, i0 + TILE_ROWS)
-            ix = p.idx(rows, range(j0, j0 + TILE_COLS))
-            m = lower(torch.tensor(list(tile_rows))[:, None],
-                      torch.arange(j0, j0 + TILE_COLS)[None, :])
-            p.f[:, ix[m]] = t[:, m]
+                acc = acc - x[:, :, k:k + 1] * y[:, None, :, k]
+            f[:, ix(rows, cols)[keep]] = acc[:, keep]
+    p = _Packed.__new__(_Packed)
+    p.n = n
+    p.f = torch.from_numpy(f)
     return p
+
+
+def _packed_factor(a, rhs=None, ntw=7, first="panel", mutant=None):
+    """chol_factor_band replayed in NumPy float32 on a flat buffer at
+    CholBand's offsets, ``rhs`` ((batch, n, 2): d and a) bordered below
+    the triangle as rows n and n + 1.  The panel warp (each diagonal block
+    factored in registers, its L and inv stored, then the strip's first 8
+    rows: the next block's rows, or after the last block the border rows)
+    and ``ntw`` tile warps (the panel's column in 32-row pieces, piece q
+    on warp q mod ntw: its strip rows, rows below n times inv_k and border
+    rows divided by L[k][k], then its rows of the next panel's column;
+    kColumnTaken; kStripDone; then the rest of the panel in 64 x 8 tiles,
+    tile t of the flat order on warp t mod ntw) run as generators.  A
+    scheduler models the named barriers as the hardware counts them
+    (every participating warp's arrive or sync counts; a sync blocks until
+    the count reaches them all: every warp, or the tile warps for
+    kStripDone) and always runs ``first`` ("panel" or "tiles") when it
+    can.  Every element carries tags, the panels applied to it and whether
+    it is final; each step checks the tags of what it reads and writes,
+    and a mismatch, a deadlock, an unbalanced barrier or an element left
+    unfinished is recorded.  Returns (L as a _Packed, the border rows
+    (batch, n, 2) or None, the violations).  Broken versions:
+    ``factor_early`` (the panel warp does not wait for the next column),
+    ``border_times_inv`` (a border row multiplied by inv_k),
+    ``skip_last_border`` (no strip after the last panel's block),
+    ``no_strip_barrier`` (the rest of a panel before every strip row is
+    solved), ``square_tile_walk`` (the rest of a panel on at most two row
+    tiles, the square instances' walk)."""
+    a = np.asarray(a, np.float32)
+    batch, n, _ = a.shape
+    border = rhs is not None
+    nr = n + 2 if border else n
+    off = np.array([_band_row(i, n, border) for i in range(nr)])
+    size = _packed_floats(n) + (2 * ((n + 7) // 8 * 8 + 4) if border else 0)
+    f = np.full((batch, size), np.nan, np.float32)
+    for i in range(n):
+        f[:, off[i]:off[i] + i + 1] = a[:, i, :i + 1]
+    if border:
+        rhs = np.asarray(rhs, np.float32)
+        for r in range(2):
+            f[:, off[n + r]:off[n + r] + n] = rhs[:, :, r]
+    applied = np.zeros((nr, n), np.int64)  # panels applied
+    final = np.zeros((nr, n), bool)
+    elem = np.tri(nr, n, dtype=bool)  # j <= i; every j < n on the border
+    pinv = {}  # the panel warp's inv, by panel
+    violations = []
+
+    def ix(rows, cols):
+        return off[np.asarray(rows)][:, None] + np.asarray(cols)[None, :]
+
+    def expect(ok, what):
+        if not np.all(ok):
+            violations.append(what)
+
+    def solve(rows, k0, w, b, inv):
+        """Strip rows ``rows`` of the panel at k0 from its block b (L)."""
+        if mutant == "skip_last_border" and k0 + NB >= n:
+            rows = rows[rows < n]
+        if not len(rows):
+            return
+        p, cols = k0 // NB, np.arange(k0, k0 + w)
+        expect(applied[np.ix_(rows, cols)] == p,
+               f"strip {p} solved before it took every earlier panel")
+        block = final[np.ix_(np.arange(k0, k0 + w), cols)]
+        expect(block[np.tri(w, dtype=bool)],
+               f"strip {p} solved before its block")
+        s = f[:, ix(rows, cols)]
+        bd = (rows >= n) & (mutant != "border_times_inv")
+        for c in range(w):
+            s[:, ~bd, c] = s[:, ~bd, c] * inv[c][:, None]
+            s[:, bd, c] = s[:, bd, c] / b[:, c, c][:, None]
+            for r in range(c + 1, w):
+                s[:, :, r] = s[:, :, r] - s[:, :, c] * b[:, r, c][:, None]
+        f[:, ix(rows, cols)] = s
+        final[np.ix_(rows, cols)] = True
+
+    def panel_step(k0):
+        p, w = k0 // NB, min(NB, n - k0)
+        rows = cols = np.arange(k0, k0 + w)
+        m = elem[np.ix_(rows, cols)]
+        expect(applied[np.ix_(rows, cols)][m] == p,
+               f"block {p} factored before it took every earlier panel")
+        b = np.where(m, f[:, ix(rows, cols)], np.float32(0))
+        inv = []
+        for c in range(w):
+            inv.append(_inv_sqrt(b[:, c, c]))
+            b[:, c:, c] = b[:, c:, c] * inv[c][:, None]
+            col = b[:, c + 1:, c]
+            b[:, c + 1:, c + 1:] = (b[:, c + 1:, c + 1:]
+                                    - col[:, :, None] * col[:, None, :])
+        f[:, ix(rows, cols)[m]] = b[:, m]
+        final[np.ix_(rows, cols)] |= m
+        pinv[p] = inv
+        solve(np.arange(k0 + w, min(k0 + w + NB, nr)), k0, w, b, inv)
+
+    def tile(i0, j0, k0, height=TILE_ROWS):
+        rows = np.arange(i0, min(i0 + height, nr))
+        cols = np.minimum(np.arange(j0, j0 + TILE_COLS), n - 1)
+        keep = np.arange(j0, j0 + TILE_COLS)[None, :] <= np.minimum(
+            rows, n - 1)[:, None]
+        ri, ci = np.nonzero(keep)
+        gi, gj = rows[ri], cols[ci]
+        kc = np.arange(k0, k0 + NB)
+        expect(applied[gi, gj] == k0 // NB,
+               f"panel {k0 // NB} applied out of order at tile {i0, j0}")
+        expect(~final[gi, gj], f"tile {i0, j0} wrote a final element")
+        expect(final[np.ix_(np.unique(gi), kc)],
+               f"tile {i0, j0} read L's rows before panel {k0 // NB}")
+        expect(final[np.ix_(np.unique(gj), kc)],
+               f"tile {i0, j0} read L's columns before panel {k0 // NB}")
+        acc = f[:, ix(rows, cols)]
+        x, y = f[:, ix(rows, kc)], f[:, ix(cols, kc)]
+        for k in range(NB):
+            acc = acc - x[:, :, k:k + 1] * y[:, None, :, k]
+        f[:, ix(rows, cols)[keep]] = acc[:, keep]
+        applied[gi, gj] += 1
+
+    def panel_warp():
+        for k0 in range(0, n, NB):
+            if k0 > 0 and mutant != "factor_early":
+                yield "sync", COLUMN_TAKEN
+            panel_step(k0)
+            if k0 + NB < n:
+                yield "arrive", PANEL_READY
+            yield "run", None
+
+    def tile_warp(tw):
+        for k0 in range(0, n - NB, NB):
+            k1, k2 = k0 + NB, min(k0 + 2 * NB, n)
+            yield "sync", PANEL_READY
+            pieces = -(-(nr - k1) // 32)
+            mine = range(tw, pieces, ntw)
+            if len(mine):
+                rows = k0 + np.arange(NB)
+                b = np.where(np.tri(NB, dtype=bool), f[:, ix(rows, rows)],
+                             np.float32(0))
+                for q in mine:
+                    i = np.arange(k1 + 32 * q, min(k1 + 32 * q + 32, nr))
+                    solve(i[i >= k1 + NB], k0, NB, b, pinv[k0 // NB])
+                    yield "run", None
+                for q in mine:
+                    tile(k1 + 32 * q, k1, k0, height=32)
+                    yield "run", None
+            yield "arrive", COLUMN_TAKEN
+            if mutant != "no_strip_barrier":
+                yield "sync", STRIP_DONE
+            t = tw
+            for r in range(2 if mutant == "square_tile_walk" else 4):
+                i0 = k2 + TILE_ROWS * r
+                if i0 >= nr or k2 >= n:
+                    break
+                cols = (min(i0 + TILE_ROWS, n) - 1 - k2) // TILE_COLS + 1
+                while t < cols:
+                    tile(i0, k2 + TILE_COLS * t, k0)
+                    t += ntw
+                    yield "run", None
+                t -= cols
+
+    agents = [panel_warp()] + [tile_warp(t) for t in range(ntw)]
+    order = (list(range(len(agents))) if first == "panel"
+             else list(range(1, len(agents))) + [0])
+    members = {PANEL_READY: len(agents), COLUMN_TAKEN: len(agents),
+               STRIP_DONE: ntw}
+    count = dict.fromkeys(members, 0)
+    waiting = {bar: [] for bar in members}
+    alive, blocked = set(order), set()
+    while alive:
+        ready = [g for g in order if g in alive and g not in blocked]
+        if not ready:
+            violations.append("deadlock")
+            break
+        g = ready[0]
+        try:
+            act, bar = next(agents[g])
+        except StopIteration:
+            alive.discard(g)
+            continue
+        if act == "run":
+            continue
+        count[bar] += 1
+        if act == "sync":
+            waiting[bar].append(g)
+            blocked.add(g)
+        if count[bar] == members[bar]:
+            count[bar] = 0
+            blocked.difference_update(waiting[bar])
+            waiting[bar] = []
+    expect(np.array(list(count.values())) == 0, "an unbalanced barrier")
+    expect(final[elem], "an element left unfinished")
+    expect(applied[elem] == np.broadcast_to(np.arange(n) // NB,
+                                            (nr, n))[elem],
+           "an element that missed a panel")
+    p = _Packed.__new__(_Packed)
+    p.n = n
+    p.f = torch.from_numpy(f[:, :_packed_floats(n)].copy())
+    y = (np.stack([f[:, off[n + r]:off[n + r] + n] for r in range(2)], -1)
+         if border else None)
+    return p, y, violations
 
 
 def _w_in_place(p, mutant=None):
@@ -347,17 +570,18 @@ def _w_in_place(p, mutant=None):
 
 @pytest.mark.parametrize("n", [129, 200, 256, 225, 255, 209, 224])
 def test_packed_schedule_is_bitwise_the_plain_order(n):
-    """The band instances' schedule on the packed layout gives L bit for
+    """The two-barrier factor on the packed layout (chol_factor: K10's band
+    instances, K4's and K5's where two blocks share an SM) gives L bit for
     bit ``cholesky_plain``'s, and W = L⁻¹ built in place over it
     right-looking bit for bit ``forward_substitution_plain(L, I)``'s, half
     of its strip in the rows' last float4, which no element of L or W may
     reach (n = 129: one row past the square instances; 200: a partial last
-    row tile; 225 and 255: a partial last panel; 256: the ceiling; 209:
-    one row into its last panel; 224: the largest n at which K10 with W
-    runs 256 threads a block)."""
+    row tile; 225 and 255: a partial last panel; 256: the ceiling; 209: one
+    row into its last panel; 224: the largest n at which K10 with W runs
+    256 threads a block).  The band factor's L: the bordered test below."""
     a = torch.tensor(_spd(2, n, 1900 + n))
     l_ref = cuda_cholesky.cholesky_plain(a)
-    p = _packed_factor(a)
+    p = _two_barrier_factor(a)
     assert torch.equal(p.lower(), l_ref)
     eye = torch.eye(n).expand_as(a)
     assert torch.equal(_w_in_place(p),
@@ -368,21 +592,91 @@ def test_packed_schedule_is_bitwise_the_plain_order(n):
                                     "panel_order", "early_strip"])
 def test_packed_replay_catches_a_broken_order(mutant):
     """The square instances' tile walk leaves rows past the second row
-    tile without their updates at n = 200; W's tiles reading L from K after
-    the tiles of the panel's own columns stored W there, a tile taking
-    panel p before panel p - 1, or strip p saved before the tiles that
-    read strip p - 1, change bits of W."""
+    tile without their updates at n = 200 (the two-barrier factor's L
+    changes bits); W's tiles reading L from K after the tiles of the
+    panel's own columns stored W there, a tile taking panel p before panel
+    p - 1, or strip p saved before the tiles that read strip p - 1,
+    change bits of W."""
     n = 200
     a = torch.tensor(_spd(2, n, 2900 + n))
     l_ref = cuda_cholesky.cholesky_plain(a)
     if mutant == "square_tile_walk":
-        assert not torch.equal(_packed_factor(a, square_walk=True).lower(),
-                               l_ref)
+        assert not torch.equal(
+            _two_barrier_factor(a, square_walk=True).lower(), l_ref)
         return
-    p = _packed_factor(a)
+    p = _two_barrier_factor(a)
     w_ref = cuda_cholesky.forward_substitution_plain(
         l_ref, torch.eye(n).expand_as(a))
     assert not torch.equal(_w_in_place(p, mutant), w_ref)
+
+
+def _bordered(n, seed, batch=2):
+    """K5's system as the kernel stages it: K = B + diag(c) (the diagonal
+    one rounded sum) and [d a], with the plain versions' L and [y_d y_a]
+    = L⁻¹[d a]."""
+    data, _ = _gp_system(batch, n, seed)
+    t = {k: torch.tensor(v) for k, v in data.items()}
+    k = linalg.add_diagonal(t["b"], t["c"][..., 0])
+    rhs = torch.cat([t["d"], t["a"]], -1)
+    l = cuda_cholesky.cholesky_plain(k)
+    return k, rhs, l, cuda_cholesky.forward_substitution_plain(l, rhs)
+
+
+@pytest.mark.parametrize("n", [129, 131, 136, 160, 200, 225, 232, 255, 256])
+def test_bordered_factor_gives_the_substitutions_bits(n):
+    """K5's band instance: d and a bordered below the triangle as rows n
+    and n + 1 and carried through the band factor (the tile warps' tiles,
+    their strip rows divided by L[k][k], the panel warp's strip after the
+    last block) come out as y_d and y_a bit for bit
+    ``forward_substitution_plain``'s, beside L bit for bit
+    ``cholesky_plain``'s, at the 15 tile warps of its 512-thread blocks
+    (n = 131 and 255: a last panel of 3 and 7 columns)."""
+    k, rhs, l_ref, y_ref = _bordered(n, 3500 + n)
+    p, y, violations = _packed_factor(k, rhs.numpy(), ntw=15)
+    assert violations == []
+    assert torch.equal(p.lower(), l_ref)
+    assert torch.equal(torch.from_numpy(y), y_ref)
+
+
+@pytest.mark.parametrize("first", ["panel", "tiles"])
+@pytest.mark.parametrize("ntw", [7, 15, 2])
+def test_band_handoffs_replay_clean(first, ntw):
+    """The hand-offs on tagged elements at n = 147 with the border, under
+    the schedule that runs the panel warp whenever it can and the one that
+    runs the tile warps first, at 7 and 15 tile warps and at 2 (several
+    column tiles a warp): no tag mismatch, no deadlock, no unbalanced
+    barrier, and the plain versions' bits."""
+    k, rhs, l_ref, y_ref = _bordered(147, 3647)
+    p, y, violations = _packed_factor(k, rhs.numpy(), ntw=ntw, first=first)
+    assert violations == []
+    assert torch.equal(p.lower(), l_ref)
+    assert torch.equal(torch.from_numpy(y), y_ref)
+
+
+@pytest.mark.parametrize("mutant", ["factor_early", "border_times_inv",
+                                    "skip_last_border", "no_strip_barrier",
+                                    "square_tile_walk"])
+def test_band_handoffs_replay_catches_a_broken_protocol(mutant):
+    """The replay fails the panel warp factoring a block before the next
+    column took the panel (the tags), a border row multiplied by inv_k
+    (y's bits), the border's last strip step skipped (the tags and y's
+    bits) and a tile warp starting the rest of a panel before every strip
+    row is solved (the tags, when the tile warps run first) and the rest
+    of a panel on the square instances' two row tiles (the tags), at n =
+    147 with the border."""
+    k, rhs, l_ref, y_ref = _bordered(147, 3647)
+    p, y, violations = _packed_factor(
+        k, rhs.numpy(), mutant=mutant,
+        first="tiles" if mutant == "no_strip_barrier" else "panel")
+    y_ok = torch.equal(torch.from_numpy(y), y_ref)
+    if mutant == "border_times_inv":
+        assert violations == [] and not y_ok
+    elif mutant == "skip_last_border":
+        assert violations and not y_ok
+    else:
+        assert violations
+        if mutant == "square_tile_walk":
+            assert not torch.equal(p.lower(), l_ref)
 
 
 def _lane_order_sum(x, square):
@@ -593,21 +887,27 @@ def test_f64_routes_and_kernel_checks_in_the_band():
 
 def test_chol_band_probe_patches_match_the_kernel_source():
     """The card probe of the packed instances (``bench/chol_band_probe.py``)
-    builds its stamped variants by patching ``csrc/``: every anchor must
-    still occur as often as the probe expects, and the probe refuses to
-    run without a card."""
+    builds its stamped variants (K4; K5 and K10 in one gp.cu; the band
+    factor's steps on the panel warp and on the first tile warp, W's) and
+    its pinned builds (every packed instance at one block size, K4 and K5
+    on one factor) and its square instances' split by patching ``csrc/``:
+    every anchor must still occur as often as the probe expects, and the
+    probe refuses to run without a card."""
     from cuda_matrix_inversion_tpu_torch.bench import chol_band_probe, chol_probe
 
     for unit, patches in (
             ("cholesky.cu", chol_band_probe.K4_STAMPS),
-            ("gp.cu", chol_band_probe.K10_STAMPS),
+            ("gp.cu", [*chol_band_probe.K10_STAMPS,
+                       *chol_band_probe.K5_STAMPS]),
             ("cholesky_common.cuh",
-             [*chol_probe.STEPS, *chol_band_probe.W_STEPS])):
+             [*chol_band_probe.BAND_STEPS, *chol_band_probe.W_STEPS]),
+            ("cholesky_common.cuh", chol_probe.STEPS),
+            *[(unit, patches) for threads in chol_band_probe.THREADS
+              for unit, (patches, _) in
+              chol_band_probe._threads_patch(threads).items()]):
         src = (cuda_build.CSRC_DIR / unit).read_text()
         for anchor, _, count in patches:
             assert src.count(anchor) == count, (unit, anchor)
-    common = (cuda_build.CSRC_DIR / "cholesky_common.cuh").read_text()
-    assert common.count(chol_band_probe.BAND_THREADS) == 1
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             chol_band_probe.main()

@@ -433,15 +433,40 @@ def _check_chol_band(cuda, batch, n, seed):
 
 @pytest.mark.parametrize("batch", [1, 37, 1600])
 @pytest.mark.parametrize("n", [129, 160, 200, 232, 256, 136, 224, 225, 255,
-                               209, 216])
+                               209, 216, 131, 233])
 def test_chol_band_kernels_match_plain(cuda, n, batch):
     """K4, K5 and K10 past 128 at n = 129 (one row past the square
     instances, n off 4), 136, 160, 200, 224 and 232, 225 and 255 (a
     partial last panel of W and of the factor) and 256 (one block an SM of
     512 threads), at one system, 37 (not a multiple of the blocks the card
     holds at once) and 1600 (many waves); 209, 216 and 224: K10 with W at
-    256 threads, two blocks an SM, next to its 512-thread instance."""
+    256 threads, two blocks an SM, next to its 512-thread instance; 131: a
+    last panel of 3 columns (K5's border takes a 3-column last strip); 224
+    and 225, 232 and 233: each side of the 256 / 512-thread switch (K5,
+    then K4)."""
     _check_chol_band(cuda, batch, n, 1900 + n + batch)
+
+
+@pytest.mark.parametrize("batch", [1, 1600])
+@pytest.mark.parametrize("n", [129, 224, 225, 256])
+def test_k5_band_with_d_equal_to_a(cuda, n, batch):
+    """K5's band instance with d = a: both border rows carry the same
+    right-hand side through the factor, so y_d and y_a come out equal and
+    the two dot products are one sum: var = e − mean exactly; both within
+    K5_ATOL of the plain version."""
+    g = make_gp_batch(batch, n, np.random.default_rng(2300 + n + batch))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=cuda)
+         for k, v in g.items()}
+    flat = list(cuda_gp._flat(*(t[k] for k in "abcde"),
+                              max_n=cuda_build.CHOL_MAX_N))
+    flat[3] = flat[0].clone()
+    before = cuda_gp.gp_fused_cuda.band_launches
+    out = cuda_gp.gp_fused_cuda(*flat)
+    torch.cuda.synchronize()
+    assert cuda_gp.gp_fused_cuda.band_launches == before + 1
+    assert torch.equal(out[:, 1], flat[4] - out[:, 0])
+    ref = cuda_gp.gp_fused_plain(*flat)
+    assert (out - ref).abs().max().item() <= K5_ATOL
 
 
 def test_chol_band_paths_run_k5_and_k10(cuda):
